@@ -1,0 +1,209 @@
+"""Keyframe retrieval database: device-resident BoW matrix + batched scoring.
+
+Counterpart of `covins_tpu/models/kf_database.py`.  The database is one
+dense (cap, V) float32 matrix of L2-normalised term-frequency rows, kept
+on the device and grown by capacity doubling.  A window of keyframes is
+inserted and scored in one pass (:func:`insert_and_score`): word
+assignment (K1), BoW vectors written into their rows in place (K3), then
+cosine scores and common-word counts as two `torch.matmul` products.
+Only binary (ORB) vocabularies are supported by the port so far.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from covins_tpu_torch.device import DeviceLike, resolve_device
+from covins_tpu_torch.ops import bow as bow_ops
+from covins_tpu_torch.ops import descriptors as d_ops
+
+
+def insert_and_score(db: torch.Tensor, vocab: torch.Tensor,
+                     descs: torch.Tensor, feat_mask: torch.Tensor,
+                     rows: torch.Tensor):
+    """Insert a WINDOW of keyframes and score each against the database.
+
+    Args:
+      db: (cap, V) float32 database, UPDATED IN PLACE (the JAX version
+        donates it and returns the new buffer).
+      vocab: (V, 32) uint8 words.
+      descs: (W, F, 32) uint8 padded descriptors; feat_mask: (W, F) bool.
+      rows: (W,) int64 destination rows; entries outside [0, cap) are
+        dropped.
+    Returns (scores (W, cap) float32, common (W, cap) int32); sequential
+    query semantics are restored by the caller's ``valid`` masks.
+    """
+    w, f, b = descs.shape
+    words, _ = d_ops.hamming_argmin(descs.reshape(w * f, b), vocab,
+                                    feat_mask.reshape(-1))
+    vecs = bow_ops.bow_insert(words.reshape(w, f), rows, db)
+    scores = vecs @ db.T
+    common = ((vecs > 0).float() @ (db > 0).float().T).to(torch.int32)
+    return scores, common
+
+
+class KeyframeDatabase:
+    """Append-only BoW database over all keyframes of all maps."""
+
+    def __init__(self, vocabulary: np.ndarray, capacity: int = 1024,
+                 device: DeviceLike = None):
+        vocabulary = np.asarray(vocabulary)
+        if vocabulary.dtype != np.uint8:
+            raise NotImplementedError(
+                "covins_tpu_torch supports binary (ORB) vocabularies only; "
+                "the SIFT/L2 retrieval path is not ported")
+        self.device = resolve_device(device)
+        self.vocab = torch.tensor(vocabulary, device=self.device)
+        self.k_words = vocabulary.shape[0]
+        self._db = torch.zeros((capacity, self.k_words), dtype=torch.float32,
+                               device=self.device)
+        self._mask = np.zeros(capacity, bool)
+        self.n = 0
+        # row -> (kf_id, client_id), as a dict for id lookups and as flat
+        # arrays for vectorised exclusion masks
+        self.row_ids: list[tuple[int, int]] = []
+        self.row_of: dict[tuple, int] = {}
+        self.row_kf = np.full(capacity, -1, np.int64)
+        self.row_client = np.full(capacity, -1, np.int64)
+
+    @property
+    def db(self) -> torch.Tensor:
+        return self._db
+
+    def _ensure(self, n):
+        cap = self._db.shape[0]
+        if n <= cap:
+            return
+        new_cap = max(2 * cap, n)
+        db = torch.zeros((new_cap, self.k_words), dtype=torch.float32,
+                         device=self.device)
+        db[:cap] = self._db
+        self._db = db
+        for name in ("_mask", "row_kf", "row_client"):
+            old = getattr(self, name)
+            new = np.full(new_cap, -1, old.dtype) if old.dtype == np.int64 \
+                else np.zeros(new_cap, old.dtype)
+            new[:cap] = old
+            setattr(self, name, new)
+
+    def bow_vector(self, descriptors: np.ndarray) -> torch.Tensor:
+        d = torch.from_numpy(np.ascontiguousarray(descriptors)).to(self.device)
+        words = bow_ops.assign_words(d, self.vocab)
+        return bow_ops.bow_vector(words, self.k_words)
+
+    def add_keyframe(self, kf_id: tuple, descriptors_u8: np.ndarray) -> int:
+        """`MapManager::AddToDatabase` (`map_be.cpp:68-107`)."""
+        kf_id = tuple(int(x) for x in kf_id)
+        existing = self.row_of.get(kf_id, -1)
+        if existing >= 0:
+            return existing
+        row = self.n
+        self._ensure(row + 1)
+        self._db[row] = self.bow_vector(descriptors_u8)
+        self._mask[row] = True
+        self.row_ids.append(kf_id)
+        self.row_of[kf_id] = row
+        self.row_kf[row] = kf_id[0]
+        self.row_client[row] = kf_id[1]
+        self.n = row + 1
+        return row
+
+    def erase(self, row: int):
+        self._mask[row] = False
+
+    def erase_id(self, kf_id: tuple) -> bool:
+        """`MapManager::EraseFromDatabase` (`map_be.cpp:169-177`)."""
+        row = self.row_of.pop(tuple(int(x) for x in kf_id), -1)
+        if row < 0:
+            return False
+        self._mask[row] = False
+        return True
+
+    def add_and_query_batch(self, kf_ids: list, descs_list: list,
+                            lazy: bool = False):
+        """Insert a window of keyframes in one pass and return per-query RAW
+        retrieval data with sequential-query semantics.
+
+        Returns a list of dicts (parallel to inputs): ``row`` (database
+        row), ``scores`` (n,) float32, ``common`` (n,) int32 and ``valid``
+        (n,) bool (live rows inserted BEFORE this query).  Already-present
+        ids are scored in place without re-insertion.  With ``lazy`` the
+        scores stay on the device as tensors (no host sync); the caller
+        fetches them later.
+        """
+        w = len(kf_ids)
+        if w == 0:
+            return []
+        kf_ids = [tuple(int(x) for x in k) for k in kf_ids]
+        rows = np.full(w, -1, np.int64)
+        fresh = []
+        for i, kid in enumerate(kf_ids):
+            existing = self.row_of.get(kid, -1)
+            if existing >= 0:
+                rows[i] = existing
+            else:
+                rows[i] = self.n + len(fresh)
+                fresh.append(i)
+        n_after = self.n + len(fresh)
+        self._ensure(n_after)
+        cap = self._db.shape[0]
+
+        f = max(int(d.shape[0]) for d in descs_list)
+        descs = np.zeros((w, f) + descs_list[0].shape[1:], descs_list[0].dtype)
+        feat_mask = np.zeros((w, f), bool)
+        dest = np.full(w, cap, np.int64)  # cap => dropped by the insert
+        for i in range(w):
+            n = descs_list[i].shape[0]
+            descs[i, :n] = descs_list[i]
+            feat_mask[i, :n] = True
+            if rows[i] >= self.n:  # fresh insertion
+                dest[i] = rows[i]
+        dev = self.device
+        scores, common = insert_and_score(
+            self._db, self.vocab, torch.from_numpy(descs).to(dev),
+            torch.from_numpy(feat_mask).to(dev),
+            torch.from_numpy(dest).to(dev))
+        scores = scores[:, :n_after]
+        common = common[:, :n_after]
+        if not lazy:
+            scores, common = scores.cpu().numpy(), common.cpu().numpy()
+
+        for i in fresh:
+            r = int(rows[i])
+            self._mask[r] = True
+            self.row_ids.append(kf_ids[i])
+            self.row_of[kf_ids[i]] = r
+            self.row_kf[r] = kf_ids[i][0]
+            self.row_client[r] = kf_ids[i][1]
+        self.n = n_after
+
+        out = []
+        live = self._mask[:n_after].copy()
+        for i in range(w):
+            valid = live.copy()
+            valid[int(rows[i]):] = False  # sequential: only earlier rows
+            out.append({"row": int(rows[i]), "scores": scores[i],
+                        "common": common[i], "valid": valid})
+        return out
+
+    def query(self, descriptors_u8: np.ndarray,
+              exclude_rows: Optional[np.ndarray] = None,
+              min_common_words_frac: float = 0.8):
+        """Score one query against the whole database (`DetectCandidates`,
+        `kf_database.cpp:47-187`): rows sharing fewer than 0.8 * max common
+        words get -1.  Returns (scores, common) as numpy over live rows."""
+        qv = self.bow_vector(descriptors_u8)
+        mask = torch.from_numpy(self._mask.copy())
+        if exclude_rows is not None and len(exclude_rows):
+            mask[torch.as_tensor(np.asarray(exclude_rows), dtype=torch.long)] = False
+        mask = mask.to(self.device)
+        scores = bow_ops.retrieval_scores(qv, self._db, mask)
+        common = bow_ops.common_words(qv, self._db)
+        max_common = torch.where(mask, common, 0).max()
+        keep = common >= min_common_words_frac * max_common
+        scores = torch.where(keep & mask, scores, torch.full_like(scores, -1.0))
+        return (scores[: self.n].cpu().numpy(),
+                common[: self.n].cpu().numpy())

@@ -1,0 +1,78 @@
+"""Carry state from the JAX package into the port.
+
+Every function here takes plain numpy arrays or objects that only look
+like the JAX package's (matched by class name and fields), so the port
+imports nothing of that package:
+
+* :func:`vocabulary_from_reference` — a (V, 32) uint8 vocabulary;
+* :func:`database_from_reference` — a `KeyframeDatabase` from the
+  reference database's matrix, row ids and mask;
+* :func:`messages_from_reference` — a reference message dataclass into the
+  port's, field by field;
+* `Map.load` reads the npz that the reference `Map.save` writes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from covins_tpu_torch.comm import messages as msgs
+from covins_tpu_torch.device import DeviceLike
+from covins_tpu_torch.models.kf_database import KeyframeDatabase
+
+__all__ = ["vocabulary_from_reference", "database_from_reference",
+           "messages_from_reference"]
+
+_MESSAGE_TYPES = {cls.__name__: cls for cls in (
+    msgs.VICalibration, msgs.PreintegrationData, msgs.MsgKeyframe,
+    msgs.MsgKeyframeUpdate, msgs.MsgLandmark, msgs.MsgLandmarkUpdate)}
+
+
+def vocabulary_from_reference(vocab) -> np.ndarray:
+    """(V, 32) uint8 words, contiguous; raises on anything else."""
+    vocab = np.ascontiguousarray(np.asarray(vocab))
+    if vocab.dtype != np.uint8 or vocab.ndim != 2 or vocab.shape[1] != 32:
+        raise ValueError(f"expected a (V, 32) uint8 vocabulary, got "
+                         f"{vocab.shape} {vocab.dtype}")
+    return vocab
+
+
+def database_from_reference(db_matrix, row_ids, mask, vocabulary,
+                            device: DeviceLike = None) -> KeyframeDatabase:
+    """Rebuild a database from the reference's ``_db`` matrix (cap, V),
+    ``row_ids`` [(kf_id, client_id), ...] and ``_mask`` (cap,)."""
+    db_matrix = np.asarray(db_matrix, np.float32)
+    mask = np.asarray(mask, bool)
+    db = KeyframeDatabase(vocabulary_from_reference(vocabulary),
+                          capacity=db_matrix.shape[0], device=device)
+    db._db.copy_(torch.tensor(db_matrix))
+    db._mask[:] = mask
+    db.n = len(row_ids)
+    for r, kid in enumerate(row_ids):
+        kid = tuple(int(x) for x in kid)
+        db.row_ids.append(kid)
+        db.row_kf[r], db.row_client[r] = kid
+        if mask[r]:
+            db.row_of[kid] = r
+    return db
+
+
+def messages_from_reference(msg):
+    """Convert a reference message dataclass (or a list of them) into the
+    port's class of the same name, field by field; nested dataclasses
+    (calibration, preintegration) are converted too."""
+    if isinstance(msg, (list, tuple)):
+        return [messages_from_reference(m) for m in msg]
+    cls = _MESSAGE_TYPES.get(type(msg).__name__)
+    if cls is None or not dataclasses.is_dataclass(msg):
+        raise TypeError(f"not a message dataclass: {type(msg)}")
+    kw = {}
+    for f in dataclasses.fields(cls):
+        v = getattr(msg, f.name)
+        if dataclasses.is_dataclass(v):
+            v = messages_from_reference(v)
+        kw[f.name] = v
+    return cls(**kw)

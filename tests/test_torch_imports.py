@@ -1,0 +1,58 @@
+"""The port and its chip check import neither JAX nor the JAX package.
+
+Runs in a subprocess, because this test process already imported JAX
+(tests/conftest.py).
+"""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+
+import covins_tpu_torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        covins_tpu_torch.__path__, "covins_tpu_torch."))
+
+
+def test_port_modules_import_without_jax():
+    mods = _port_modules()
+    assert "covins_tpu_torch.models.session" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith"
+        "('jax.') or m == 'covins_tpu' or m.startswith('covins_tpu.'))\n"
+        "print(len(sys.modules))\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def _imported_names(path):
+    tree = ast.parse(open(path).read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            yield node.module or ""
+
+
+def test_sources_import_nothing_of_jax_or_the_jax_package():
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(os.path.dirname(covins_tpu_torch.__file__)):
+        paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    for path in paths:
+        for name in _imported_names(path):
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "covins_tpu"), (path, name)
