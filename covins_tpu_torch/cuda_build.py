@@ -26,8 +26,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # C signatures: every pointer and the stream are c_void_p, counts c_int /
-# c_int64; every function returns cudaGetLastError() as an int
+# c_int64, thresholds c_float / c_double; every function returns
+# cudaGetLastError() as an int
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_F, _D = ctypes.c_float, ctypes.c_double
 SIGNATURES = {
     "hamming_argmin": {
         "covins_hamming_argmin": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
@@ -38,6 +40,28 @@ SIGNATURES = {
     "bow_insert": {
         "covins_bow_insert": [_P, _P, _P, _P, _I, _I, _I, _L, _P],
     },
+    "hamming_mutual_nn": {
+        "covins_hamming_mutual_nn": [_P, _P, _I, _P, _P, _I, _F,
+                                     _P, _P, _P, _P, _P, _P],
+    },
+    "project_match": {
+        "covins_project_match": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+                                 _I, _F, _P, _P, _P, _P, _P, _P],
+    },
+    "p3p_score": {
+        "covins_p3p_score": [_P, _P, _P, _P, _P, _I, _I, _D, _P, _P, _P, _P,
+                             _P],
+    },
+    "pgo_matvec": {
+        "covins_pgo_matvec": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _D, _P,
+                              _P],
+    },
+}
+# sources whose float64 gates must round as the plain versions' separate
+# tensor operations do: no fused multiply-add contraction
+EXTRA_FLAGS = {
+    "project_match": ["--fmad=false"],
+    "p3p_score": ["--fmad=false"],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -55,9 +79,13 @@ def nvcc_path() -> str:
     return found
 
 
+def _flags(name: str) -> list:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
+
+
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{h}.so"
 
 
@@ -67,7 +95,7 @@ def _start(name: str):
         return out, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path(), *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     return out, (proc, tmp)

@@ -1,10 +1,13 @@
-"""Map manager: per-agent map registry.
+"""Map manager: per-agent map registry, loop correction, map merging and
+the pose-graph solve.
 
-Counterpart of `covins_tpu/models/map_manager.py` (the registry part):
-one map per new agent, attachment of loaded maps, and id resolution across
-maps.  Loop correction, map merging and pose-graph optimisation belong to
-the place-recognition part of the port: :meth:`MapManager.handle_loop`
-raises, and :meth:`MapManager.flush_pending_pgo` refuses a pending solve.
+Counterpart of `covins_tpu/models/map_manager.py` (`MapManager`,
+`map_be.cpp:37-322`): one map per new agent, attachment of loaded maps, id
+resolution across maps; an accepted loop inside one map fuses duplicated
+landmarks, records the constraint and seeds the pose-graph solve with the
+loop-corrected poses; a loop across maps merges the query's map into the
+candidate's.  Host bookkeeping is numpy; the solve runs on the map's
+device (`ops/pgo.py`).
 """
 
 from __future__ import annotations
@@ -16,7 +19,9 @@ import numpy as np
 from covins_tpu_torch.device import DeviceLike, resolve_device
 from covins_tpu_torch.models.kf_database import KeyframeDatabase
 from covins_tpu_torch.models.map_store import Map
-from covins_tpu_torch.models.placerec import NOT_PORTED, LoopResult
+from covins_tpu_torch.models.placerec import LoopResult
+from covins_tpu_torch.ops import pgo as pgo_mod
+from covins_tpu_torch.utils import npgeo
 from covins_tpu_torch.utils.config import Config
 
 
@@ -29,6 +34,10 @@ class MapManager:
         self.maps: Dict[int, Map] = {}
         self.map_of_client: Dict[int, int] = {}
         self._next_map_id = 0
+        self.n_merges = 0
+        self.n_loops = 0
+        self.n_fused = 0  # landmarks deduplicated by loop fusion
+        self.n_pgo = 0  # pose-graph solves run
         # map id -> PGO pose seed of loops applied with deferred PGO
         self.pending_pgo: Dict[int, Optional[np.ndarray]] = {}
         # when set, maps write trajectories every 50 KFs (`map_be.cpp:391-395`)
@@ -39,6 +48,7 @@ class MapManager:
             mp.traj_dir = self.output_dir
             mp.traj_fmt = self.cfg.trajectory_format
 
+    # ------------------------------------------------------------- registry
     def init_map(self, client_id: int) -> Map:
         """`MapManager::InitializeMap` — one fresh map per new agent."""
         mp = Map(
@@ -87,11 +97,139 @@ class MapManager:
                 return mp, row
         return None, -1
 
+    # ---------------------------------------------------------------- loops
     def handle_loop(self, loop: LoopResult, defer_pgo: bool = False) -> str:
-        raise NotImplementedError(NOT_PORTED)
+        """`CorrectLoop` (`placerec_be.cpp:287-344`): same map -> fuse
+        duplicated landmarks, add the constraint, seed PGO with corrected
+        poses; different maps -> merge.  Returns 'loop' | 'merge' |
+        'ignored'.  With ``defer_pgo`` the seed is kept in `pending_pgo`
+        and :meth:`flush_pending_pgo` solves once per map at window end
+        (the constraints accumulate in the map, so one solve over the final
+        set replaces the intermediate ones)."""
+        mp_q, q_row = self.resolve(loop.query_id)
+        mp_c, c_row = self.resolve(loop.candidate_id)
+        if mp_q is None or mp_c is None:
+            return "ignored"
+        if mp_q is mp_c:
+            # duplicate-constraint guard (`placerec_be.cpp:295-305`)
+            for lc in mp_q.loops:
+                if {lc["kf1"], lc["kf2"]} == {q_row, c_row}:
+                    return "ignored"
+            # corrected poses BEFORE fusion so the deltas come from the
+            # uncorrected state (`ConnectLoop`, `placerec_be.cpp:222-285`)
+            corrected = self._corrected_poses(mp_q, q_row, c_row, loop.T_12)
+            self._apply_fusion(mp_q, q_row, loop.matches)
+            mp_q.add_loop_constraint(q_row, c_row, loop.T_12, cov=loop.cov)
+            self.n_loops += 1
+            if self.cfg.perform_pgo:
+                if defer_pgo:
+                    self.pending_pgo[mp_q.id] = corrected
+                else:
+                    self.run_pgo(mp_q, poses_init=corrected)
+            return "loop"
+        self.perform_merge(mp_q, q_row, mp_c, c_row, loop, defer_pgo=defer_pgo)
+        return "merge"
 
     def flush_pending_pgo(self):
-        """Run the deferred pose-graph solves; with nothing pending (the
-        only state this port can reach so far) it does nothing."""
-        if self.pending_pgo:
-            raise NotImplementedError(NOT_PORTED)
+        """Run the deferred pose-graph solves, one per affected map."""
+        pending, self.pending_pgo = self.pending_pgo, {}
+        for mid, seed in pending.items():
+            mp = self.maps.get(mid)
+            if mp is None:
+                continue  # merged away; the target map has its own entry
+            if seed is not None and len(seed) != mp.n_kf:
+                seed = None  # map grew or merged since the seed was taken
+            self.run_pgo(mp, poses_init=seed)
+
+    def _corrected_poses(self, mp: Map, q_row: int, c_row: int,
+                         T_12: np.ndarray) -> np.ndarray:
+        """Loop-corrected poses of the query, its covisible set and its
+        successor chain (`ConnectLoop` + `Map::ApplyLoopCorrection`,
+        `map_be.cpp:411-431`): the world-frame left delta the loop implies
+        for the query, applied to all of them."""
+        n = mp.n_kf
+        poses = mp.kf_pose[:n].copy()
+        T_w_sq_corr = npgeo.pose_compose(
+            poses[c_row], npgeo.pose_inverse(np.asarray(T_12, np.float64)))
+        delta = npgeo.pose_compose(T_w_sq_corr, npgeo.pose_inverse(poses[q_row]))
+        rows = {int(q_row)}
+        rows |= {int(r) for r in np.where(mp.covis_weights(q_row) > 0)[0]}
+        r = int(mp.kf_succ[q_row])
+        while r >= 0:
+            rows.add(r)
+            r = int(mp.kf_succ[r])
+        rows = np.asarray(sorted(rows), np.int64)
+        poses[rows] = npgeo.pose_compose(delta[None], poses[rows])
+        return poses
+
+    def _apply_fusion(self, mp: Map, q_row: int, matches: Optional[np.ndarray]):
+        """Landmark fusion for the verified loop matches
+        (`placerec_be.cpp:265-282`): the query's own landmark at a matched
+        feature fuses into the loop landmark; a bare feature gains an
+        observation of the loop landmark."""
+        if matches is None or len(matches) == 0:
+            return
+        refreshed = []
+        for feat, c_lm in np.asarray(matches, np.int64):
+            feat, c_lm = int(feat), int(c_lm)
+            if not mp.lm_mask[c_lm]:
+                continue
+            q_lm = int(mp.kf_feat_lm[q_row, feat])
+            if q_lm == c_lm:
+                continue
+            if q_lm >= 0:
+                if mp.fuse_landmark(target=c_lm, tofuse=q_lm):
+                    self.n_fused += 1
+            else:
+                if q_row in set(int(k) for k in mp.observing_kfs(c_lm)):
+                    continue
+                mp.add_observation(q_row, c_lm, feat)
+            refreshed.append(c_lm)
+        if refreshed:
+            mp.update_landmark_attributes(np.unique(np.asarray(refreshed)))
+
+    def perform_merge(self, mp_q: Map, q_row: int, mp_c: Map, c_row: int,
+                      loop: LoopResult, defer_pgo: bool = False):
+        """`MapManager::PerformMerge` (`map_be.cpp:192-244`): fuse the
+        query's map into the candidate's with
+        ``T_wc_wq = T_wc_sc * T_12^-1 * T_sq_wq``."""
+        T_wc_wq = npgeo.pose_compose(
+            mp_c.kf_pose[c_row],
+            npgeo.pose_compose(npgeo.pose_inverse(np.asarray(loop.T_12)),
+                               npgeo.pose_inverse(mp_q.kf_pose[q_row])))
+        kf_off = mp_c.n_kf
+        mp_c.merge_from(mp_q, T_wc_wq)
+        q_row_merged = q_row + kf_off
+        # candidate-map landmark rows of the matches are unchanged by the
+        # merge; the query's own moved with it (kf_feat_lm is re-indexed)
+        self._apply_fusion(mp_c, q_row_merged, loop.matches)
+        mp_c.add_loop_constraint(q_row_merged, c_row, loop.T_12, cov=loop.cov)
+        for cid in list(mp_q.associated_clients):
+            self.map_of_client[cid] = mp_c.id
+        self.maps.pop(mp_q.id, None)
+        self.pending_pgo.pop(mp_q.id, None)  # its seed no longer applies
+        self.n_merges += 1
+        self.n_loops += 1
+        if self.cfg.perform_pgo:
+            if defer_pgo:
+                self.pending_pgo[mp_c.id] = None
+            else:
+                self.run_pgo(mp_c)
+
+    # ------------------------------------------------------------------ PGO
+    def run_pgo(self, mp: Map, poses_init: Optional[np.ndarray] = None):
+        cfg = self.cfg
+        g = mp.to_pose_graph(
+            wt_kf_R=cfg.wt_kf_R, wt_kf_T=cfg.wt_kf_T,
+            use_nbr_kfs=cfg.use_nbr_kfs,
+            wt_kf_n1=cfg.wt_kf_n1, wt_kf_n23=cfg.wt_kf_n23,
+            wt_kf_n45=cfg.wt_kf_n45,
+            fix_optimized_kfs=cfg.pgo_fix_kfs_after_gba,
+            poses_init=poses_init,
+        )
+        poses, _ = pgo_mod.optimize_pose_graph(
+            g, n_gn=cfg.pgo_iteration_limit, n_cg=100,
+            cauchy_scale=(cfg.robust_loss_threshold
+                          if cfg.use_robust_loss else 0.0))
+        mp.apply_pose_graph_result(poses.cpu().numpy())
+        self.n_pgo += 1

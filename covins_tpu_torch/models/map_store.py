@@ -1,15 +1,17 @@
 """Structure-of-arrays map store: the server's central data structure.
 
-Counterpart of `covins_tpu/models/map_store.py` (the ingest subset): one
-`Map` per agent (merged maps span agents) holds keyframes, landmarks and
-the observation graph as flat capacity-doubling numpy arrays.  A
-keyframe/landmark IS a row index; erasure is a mask flip.  Host numpy owns
-the bookkeeping, as in the JAX package; the batched landmark-attribute
-refresh runs on the device (`ops/landmark_ops.py`, kernel K2).
+Counterpart of `covins_tpu/models/map_store.py`: one `Map` per agent
+(merged maps span agents) holds keyframes, landmarks and the observation
+graph as flat capacity-doubling numpy arrays.  A keyframe/landmark IS a
+row index; erasure is a mask flip.  Host numpy owns the bookkeeping, as in
+the JAX package: ingest, culling, covisibility, landmark fusion, merging,
+loop constraints and the pose-graph snapshot and write-back.  The batched
+landmark-attribute refresh runs on the device (`ops/landmark_ops.py`,
+kernel K2); the pose graph is handed to `ops/pgo.py` on the map's device.
 
-Merge, landmark fusion, keyframe culling, `to_pose_graph`,
-`apply_pose_graph_result` and `to_gba_problem` belong to the
-place-recognition and optimisation parts of the port and are not here yet.
+Keyframe culling (`erase_keyframe`, `remove_redundant_keyframes`),
+`match_features` and `to_gba_problem` belong to the GBA and COVINS-G parts
+of the port and are not here yet.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ import torch
 from covins_tpu_torch.comm import messages as msgs
 from covins_tpu_torch.device import DeviceLike, resolve_device
 from covins_tpu_torch.ops import landmark_ops
+from covins_tpu_torch.ops import pgo as pgo_mod
+from covins_tpu_torch.ops import residuals as res_mod
 from covins_tpu_torch.utils import npgeo
 
 IdPair = Tuple[int, int]
@@ -520,6 +524,260 @@ class Map:
                 self.kf_feat_lm[self.obs_kf[i], self.obs_feat[i]] = -1
         key = tuple(self.lm_ids[row])
         self._lm_index.pop(key, None)
+
+    def covis_weights(self, row: int) -> np.ndarray:
+        """Covisibility weights of one keyframe vs all others (shared-
+        landmark counts, `keyframe_be.cpp:559-608`), host numpy on the
+        live observation prefix."""
+        o = self.n_obs
+        live = self.obs_mask[:o]
+        n_lm = max(self.n_lm, 1)
+        seen = np.zeros(n_lm, bool)
+        mine = live & (self.obs_kf[:o] == row)
+        seen[self.obs_lm[:o][mine]] = True
+        contrib = live & seen[np.minimum(self.obs_lm[:o], n_lm - 1)]
+        w = np.bincount(self.obs_kf[:o][contrib], minlength=self.n_kf)
+        w = w[: self.n_kf].astype(np.int32)
+        if row < self.n_kf:
+            w[row] = 0
+        return w
+
+    def landmark_obs(self, lm_row: int) -> np.ndarray:
+        """Indices into the observation COO of a landmark's live obs."""
+        o = self.n_obs
+        return np.where((self.obs_lm[:o] == lm_row) & self.obs_mask[:o])[0]
+
+    def observing_kfs(self, lm_row: int) -> np.ndarray:
+        return self.obs_kf[self.landmark_obs(lm_row)]
+
+    def fuse_landmark(self, target: int, tofuse: int) -> bool:
+        """Merge duplicated landmarks after a loop closure
+        (`PlaceRecognition::FuseLandmark`, `placerec_be.cpp:465-501`):
+        re-point `tofuse`'s observations at `target` wherever `target` has
+        no observation in that keyframe yet; erase `tofuse` when fewer than
+        2 observations could not be moved."""
+        if target == tofuse:
+            return False
+        if not (self.lm_mask[target] and self.lm_mask[tofuse]):
+            return False
+        target_kfs = set(int(k) for k in self.observing_kfs(target))
+        non_moved = 0
+        for i in self.landmark_obs(tofuse):
+            kf, ft = int(self.obs_kf[i]), int(self.obs_feat[i])
+            if kf not in target_kfs:
+                self.obs_lm[i] = target
+                self.kf_feat_lm[kf, ft] = target
+                target_kfs.add(kf)
+            elif self.kf_feat_lm[kf, ft] == target:
+                # duplicate of an observation target owns at this slot:
+                # retire it so a later erase of tofuse leaves no live
+                # entry pointing at target's slot
+                self.obs_mask[i] = False
+            else:
+                non_moved += 1
+        if non_moved < 2:
+            self.erase_landmark(tofuse)
+        return True
+
+    # ------------------------------------------------------------------ merge
+    def merge_from(self, other: "Map", T_wtarget_wtofuse: np.ndarray):
+        """Union `other` into self, rigidly transforming the fused map's
+        poses, velocities and landmarks by ``T_wtarget_wtofuse`` (the
+        merged-map constructor, `map_be.cpp:334-381`)."""
+        self.commit_landmark_attributes()
+        other.commit_landmark_attributes()
+        T = np.asarray(T_wtarget_wtofuse, np.float64)
+        kf_off, lm_off = self.n_kf, self.n_lm
+        nk, nl, no = other.n_kf, other.n_lm, other.n_obs
+        self._ensure_kf(kf_off + nk)
+        self._ensure_lm(lm_off + nl)
+        self._ensure_obs(self.n_obs + no)
+
+        R = npgeo.quat_to_matrix(T[:4])
+        for name in (
+            "kf_ids", "kf_stamp", "kf_vel", "kf_bias", "kf_mask",
+            "kf_is_loop", "kf_pose_optimized", "kf_in_gba", "kf_n_feat", "kp_uv",
+            "kp_undist", "kp_aors", "descriptors", "imu_acc", "imu_gyro",
+            "imu_dts", "imu_n", "kf_pose_vio", "kf_n_feat_add",
+        ):
+            getattr(self, name)[kf_off: kf_off + nk] = getattr(other, name)[:nk]
+        if other.descriptors_add is not None:
+            if self.descriptors_add is None:
+                cap = self.kf_ids.shape[0]
+                fa = self.max_features
+                self.kp_undist_add = np.zeros((cap, fa, 2), np.float32)
+                self.kp_aors_add = np.zeros((cap, fa, 4), np.float32)
+                self.descriptors_add = np.zeros(
+                    (cap, fa, other.descriptors_add.shape[2]),
+                    other.descriptors_add.dtype)
+            for name in ("kp_undist_add", "kp_aors_add", "descriptors_add"):
+                getattr(self, name)[kf_off: kf_off + nk] = getattr(other, name)[:nk]
+        self.kf_pose[kf_off: kf_off + nk] = npgeo.pose_compose(
+            T[None], other.kf_pose[:nk])
+        self.kf_vel[kf_off: kf_off + nk] = other.kf_vel[:nk] @ R.T
+        self.kf_pred[kf_off: kf_off + nk] = np.where(
+            other.kf_pred[:nk] >= 0, other.kf_pred[:nk] + kf_off, -1)
+        self.kf_succ[kf_off: kf_off + nk] = np.where(
+            other.kf_succ[:nk] >= 0, other.kf_succ[:nk] + kf_off, -1)
+        self.kf_feat_lm[kf_off: kf_off + nk] = np.where(
+            other.kf_feat_lm[:nk] >= 0, other.kf_feat_lm[:nk] + lm_off, -1)
+
+        # landmarks (distance ranges carry over: the transform is SE(3))
+        for name in ("lm_ids", "lm_mask", "lm_desc", "lm_optimized",
+                     "lm_dist_rng"):
+            getattr(self, name)[lm_off: lm_off + nl] = getattr(other, name)[:nl]
+        # sim3_apply with unit scale
+        self.lm_pos[lm_off: lm_off + nl] = 1.0 * npgeo.quat_rotate(
+            T[:4], other.lm_pos[:nl]) + T[4:7]
+        self.lm_normal[lm_off: lm_off + nl] = other.lm_normal[:nl] @ R.T
+        self.lm_ref[lm_off: lm_off + nl] = np.where(
+            other.lm_ref[:nl] >= 0, other.lm_ref[:nl] + kf_off, -1)
+        self.lm_first_kf[lm_off: lm_off + nl] = np.where(
+            other.lm_first_kf[:nl] >= 0, other.lm_first_kf[:nl] + kf_off, -1)
+
+        o0 = self.n_obs
+        self.obs_kf[o0: o0 + no] = other.obs_kf[:no] + kf_off
+        self.obs_lm[o0: o0 + no] = other.obs_lm[:no] + lm_off
+        self.obs_feat[o0: o0 + no] = other.obs_feat[:no]
+        self.obs_mask[o0: o0 + no] = other.obs_mask[:no]
+
+        self.n_kf += nk
+        self.n_lm += nl
+        self.n_obs += no
+        for key, row in other._kf_index.items():
+            self._kf_index[key] = row + kf_off
+        for key, row in other._lm_index.items():
+            self._lm_index[key] = row + lm_off
+        self.associated_clients |= other.associated_clients
+        self.calib.update(other.calib)
+        for lc in other.loops:
+            self.loops.append(
+                {**lc, "kf1": lc["kf1"] + kf_off, "kf2": lc["kf2"] + kf_off})
+
+    def add_loop_constraint(self, kf1: int, kf2: int, T_12: np.ndarray, cov=None):
+        """`Map::AddLoopConstraint` (`map_be.cpp:404-409`): records the
+        constraint and flags both KFs as loop-KFs (protects from culling)."""
+        self.loops.append(
+            {"kf1": int(kf1), "kf2": int(kf2),
+             "T_12": np.asarray(T_12, np.float64),
+             "cov": None if cov is None else np.asarray(cov, np.float64)})
+        self.kf_is_loop[kf1] = True
+        self.kf_is_loop[kf2] = True
+
+    # ------------------------------------------------------------ pose graph
+    def to_pose_graph(
+        self,
+        loop_default_rot_w=100.0,
+        loop_default_trans_w=1e4,
+        wt_kf_R=10.0,
+        wt_kf_T=1.0,
+        use_nbr_kfs=True,
+        wt_kf_n1=10.0,
+        wt_kf_n23=2.0,
+        wt_kf_n45=3.0,
+        fix_optimized_kfs=False,
+        poses_init: Optional[np.ndarray] = None,
+    ) -> pgo_mod.PoseGraph:
+        """Pose-graph snapshot on the map's device: successor edges from
+        VIO poses (`optimization_be.cpp:946-972`), optional decaying-weight
+        edges to the 2nd..5th successors (`:974-1021`), loop edges weighted
+        by their covariance when present, else by the fixed COVINS weights
+        (`:889-944`); `fix_optimized_kfs` is `opt.pgo_fix_kfs_after_gba`
+        (`:875-881`).  Unlike the reference, nothing is padded to a
+        capacity: the graph has one pose per keyframe row and one edge per
+        constraint (a padded edge carries zero information)."""
+        n = self.n_kf
+        odo_i, odo_j, odo_mult = [], [], []
+        for r in range(n):
+            s = self.kf_succ[r]
+            if s < 0 or not (self.kf_mask[r] and self.kf_mask[s]):
+                continue
+            odo_i.append(r); odo_j.append(int(s)); odo_mult.append(wt_kf_n1)
+            if use_nbr_kfs:
+                t = int(s)
+                for hop in (2, 3, 4, 5):
+                    t = self.kf_succ[t]
+                    if t < 0 or not self.kf_mask[t]:
+                        break
+                    div = wt_kf_n23 if hop <= 3 else wt_kf_n45
+                    odo_i.append(r); odo_j.append(int(t))
+                    odo_mult.append(wt_kf_n1 / max(div, 1e-6))
+        ei, ej = list(odo_i), list(odo_j)
+        eloop = [False] * len(odo_i)
+        if odo_i:
+            eT = list(npgeo.pose_relative(self.kf_pose_vio[np.asarray(odo_i)],
+                                          self.kf_pose_vio[np.asarray(odo_j)]))
+            mult = np.asarray(odo_mult)
+            diag = np.concatenate([
+                np.repeat((wt_kf_R * mult)[:, None], 3, 1),
+                np.repeat((wt_kf_T * mult)[:, None], 3, 1),
+            ], axis=1)
+            eS = list(np.einsum("ei,ij->eij", diag, np.eye(6)))
+        else:
+            eT, eS = [], []
+        for lc in self.loops:
+            ei.append(lc["kf1"]); ej.append(lc["kf2"]); eT.append(lc["T_12"])
+            if lc.get("cov") is not None:
+                eS.append(res_mod.sqrt_info_from_covariance(
+                    torch.as_tensor(lc["cov"], dtype=torch.float64)).numpy())
+            else:
+                eS.append(np.diag([loop_default_rot_w] * 3
+                                  + [loop_default_trans_w] * 3))
+            eloop.append(True)
+        if not ei:
+            ei, ej = [0], [0]
+            eT = [npgeo.pose_identity()]
+            eS = [np.zeros((6, 6))]
+            eloop = [False]
+        poses = (poses_init[:n] if poses_init is not None
+                 else self.kf_pose[:n]).astype(np.float64, copy=True)
+        pose_mask = self.kf_mask[:n].copy()
+        fixed = np.zeros(n, bool)
+        live = self.live_kf_rows()
+        if len(live):
+            fixed[live[0]] = True
+        if fix_optimized_kfs:
+            fixed |= self.kf_in_gba[:n]
+        # gauge KFs keep their CURRENT pose even when a loop correction
+        # touched them (else the whole map drifts with the gauge)
+        poses[fixed] = self.kf_pose[:n][fixed]
+        dev = self.device
+
+        def t(a, dtype):
+            return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+        return pgo_mod.PoseGraph(
+            poses=t(poses, torch.float64), pose_mask=t(pose_mask, torch.bool),
+            fixed=t(fixed, torch.bool), edge_i=t(ei, torch.int64),
+            edge_j=t(ej, torch.int64), edge_T=t(np.stack(eT), torch.float64),
+            edge_sqrt_info=t(np.stack(eS), torch.float64),
+            edge_mask=torch.ones(len(ei), dtype=torch.bool, device=dev),
+            edge_is_loop=t(eloop, torch.bool))
+
+    def apply_pose_graph_result(self, poses_new: np.ndarray):
+        """Write back PGO poses; rotate velocities and re-anchor landmarks
+        through their reference KF's correction
+        (`optimization_be.cpp:1033-1086`)."""
+        poses_new = np.asarray(poses_new)
+        n = self.n_kf
+        old = self.kf_pose[:n].copy()
+        corr = npgeo.pose_compose(poses_new[:n], npgeo.pose_inverse(old))
+        live = self.kf_mask[:n]
+        self.kf_pose[:n][live] = poses_new[:n][live]
+        self.kf_pose_optimized[:n][live] = True
+        Rc = npgeo.quat_to_matrix(corr[:, :4])
+        self.kf_vel[:n][live] = np.einsum(
+            "nij,nj->ni", Rc[live], self.kf_vel[:n][live])
+        lrows = np.where(self.lm_mask[: self.n_lm])[0]
+        if len(lrows):
+            refs = self.lm_ref[lrows]
+            ok = (refs >= 0) & (refs < n)
+            ok[ok] &= live[refs[ok]]
+            lrows, refs = lrows[ok], refs[ok]
+            if len(lrows):
+                p_ref = npgeo.pose_apply(npgeo.pose_inverse(old[refs]),
+                                         self.lm_pos[lrows])
+                self.lm_pos[lrows] = npgeo.pose_apply(self.kf_pose[refs], p_ref)
 
     # ----------------------------------------------------------- persistence
     def save(self, path: str):

@@ -1,16 +1,18 @@
-"""Per-agent server session: the ingest side of the server pipeline.
+"""Per-agent server session: the ingest -> place-recognition ->
+correction pipeline (`Communicator::Run`, `communicator_be.cpp:215-260`).
 
-Counterpart of `covins_tpu/models/session.py` with place recognition
-switched off (`placerec.active: false`): keyframe and landmark messages
-build the map (`ProcessKeyframeMessages` / `ProcessLandmarkMessages`),
-landmark culling runs per keyframe (`LandmarkCulling(2, 5)`), and each
-window's finalised keyframes get one batched landmark-attribute refresh
-and one batched BoW insert + score into the device-resident retrieval
-database.  A keyframe is finalised once its landmark batch has arrived:
-when the NEXT keyframe arrives or on :meth:`AgentSession.flush`.
-
-Loop detection and verification are not ported yet, so a session refuses
-``placerec_active=True`` instead of silently running map-only.
+Counterpart of `covins_tpu/models/session.py`: keyframe and landmark
+messages build the map (`ProcessKeyframeMessages` /
+`ProcessLandmarkMessages`), landmark culling runs per keyframe
+(`LandmarkCulling(2, 5)`), and each window's finalised keyframes get one
+batched landmark-attribute refresh and one batched BoW insert + score into
+the device-resident retrieval database.  A keyframe is finalised once its
+landmark batch has arrived: when the NEXT keyframe arrives or on
+:meth:`AgentSession.flush`.  Place recognition (COVINS) then detects on
+the host, verifies every candidate on the device, applies loops and merges
+in keyframe order and runs one pose-graph solve per affected map — inline,
+or deferred to :meth:`AgentSession.drain_placerec` with
+``placerec_defer``.  COVINS-G is refused at construction.
 """
 
 from __future__ import annotations
@@ -18,10 +20,12 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 from covins_tpu_torch.comm import messages as msgs
 from covins_tpu_torch.models.map_manager import MapManager
-from covins_tpu_torch.models.placerec import NOT_PORTED, PlaceRecognition
+from covins_tpu_torch.models.placerec import (LoopResult, PlaceRecognition,
+                                              check_supported)
 from covins_tpu_torch.utils.config import Config
 from covins_tpu_torch.utils.metrics import Metrics
 
@@ -34,8 +38,7 @@ class AgentSession:
                  config: Optional[Config] = None,
                  metrics: Optional[Metrics] = None):
         self.cfg = config or manager.cfg
-        if self.cfg.placerec_active:
-            raise NotImplementedError(NOT_PORTED)
+        check_supported(self.cfg)
         self.client_id = client_id
         self.manager = manager
         self.metrics = metrics or Metrics()
@@ -48,6 +51,8 @@ class AgentSession:
         self._pr_queue: list = []
         self.stats = {"keyframes": 0, "landmarks": 0, "loops": 0,
                       "merges": 0, "duplicates": 0}
+        # (query id, candidate id) of every loop this session accepted
+        self.accepted: list = []
 
     def _current_map(self):
         return self.manager.map_of(self.client_id)
@@ -149,39 +154,114 @@ class AgentSession:
         return self._run_placerec(items)
 
     def _run_placerec(self, items) -> list:
-        """The ``placerec_active=False`` branch of the reference's
-        window-batched detect -> verify -> apply: no detection; a keyframe
-        that missed the batched insert is added to the database alone."""
+        """Window-batched detect -> verify -> apply.
+
+        Detection runs in keyframe order on the host (consistency groups
+        are stateful) and every surviving candidate's verification is
+        dispatched at once; results are then fetched and applied in
+        keyframe order, one device-to-host copy each.  A loop accepted at
+        keyframe i gates detection for keyframes within
+        `consecutive_loop_dist`; detection ran before the verdicts, so the
+        gate is applied again at apply time.
+        """
+        cfg = self.cfg
+        outcomes = []
+        jobs = []
         for kf_id, pre in items:
-            mp = self._current_map()
+            mp = self._current_map()  # may have merged mid-window
             row = mp.kf_row(kf_id)
-            if row < 0 or pre is not None:
+            if row < 0:
                 continue
-            n_feat = int(mp.kf_n_feat[row])
-            if n_feat > 0:
-                self.placerec.db.add_keyframe(
-                    kf_id, mp.pr_descriptors(row)[:n_feat])
-        self.manager.flush_pending_pgo()
-        return []
+            dispatched = []
+            if cfg.placerec_active:
+                with self.metrics.timer("placerec_detect"):
+                    cands = self.placerec.detect_loop(mp, row, pre=pre)
+                for cand_id in cands:
+                    mp_c, c_row = self.manager.resolve(cand_id)
+                    if mp_c is None:
+                        continue
+                    job = self.placerec.dispatch_verify(mp, row, mp_c, c_row)
+                    if job is not None:
+                        dispatched.append((cand_id, mp_c, job))
+            if dispatched:
+                jobs.append((kf_id, dispatched))
+            if pre is None:
+                # a keyframe that missed the batched insert is added alone
+                n_feat = int(mp.kf_n_feat[row])
+                if n_feat > 0:
+                    self.placerec.db.add_keyframe(
+                        kf_id, mp.pr_descriptors(row)[:n_feat])
+        for kf_id, dispatched in jobs:
+            if (kf_id[0] - self.placerec.last_loop_kf_id
+                    < cfg.consecutive_loop_dist):
+                continue  # a loop accepted earlier in this window gates it
+            for cand_id, mp_c_snap, job in dispatched:
+                with self.metrics.timer("placerec_verify"):
+                    got = self.placerec.finalize_verify(job)
+                if got is None:
+                    continue
+                T_12, n_inl, cov, matches = got
+                matches = self._rebind_matches(cand_id, mp_c_snap, matches)
+                self.placerec.last_loop_kf_id = kf_id[0]
+                loop = LoopResult(query_id=kf_id, candidate_id=cand_id,
+                                  T_12=T_12, n_inliers=n_inl, cov=cov,
+                                  matches=matches)
+                self.accepted.append((kf_id, cand_id))
+                outcome = self.manager.handle_loop(loop, defer_pgo=True)
+                if outcome in ("loop", "merge"):
+                    self.stats[outcome + "s"] += 1
+                    outcomes.append(outcome)
+                break  # the first accepted candidate wins (placerec_be.cpp:529)
+        with self.metrics.timer("placerec_pgo"):
+            self.manager.flush_pending_pgo()
+        return outcomes
+
+    def _rebind_matches(self, cand_id, mp_c_snap, matches):
+        """Landmark rows of a verification result index the candidate map
+        AT DISPATCH TIME; if an earlier loop of the same window merged that
+        map away, translate the rows through the stable landmark ids."""
+        if matches is None or len(matches) == 0:
+            return matches
+        mp_now, _ = self.manager.resolve(cand_id)
+        if mp_now is mp_c_snap or mp_now is None:
+            return matches
+        ids = mp_c_snap.lm_ids[matches[:, 1]]
+        rows = np.asarray([mp_now.lm_row(tuple(int(x) for x in i))
+                           for i in ids])
+        keep = rows >= 0
+        out = matches[keep].copy()
+        out[:, 1] = rows[keep]
+        return out
 
     @property
     def placerec_backlog(self) -> int:
         return len(self._pr_queue)
 
     def drain_placerec(self, max_items: Optional[int] = None) -> list:
-        """Run the deferred work for up to `max_items` queued keyframes
-        (all, if None): commit the pending landmark attributes of every
-        map and fetch the queued windows' scores to the host."""
+        """Run the deferred detection/verification for up to `max_items`
+        queued keyframes (all, if None).  First commits what the verifiers
+        read: the pending landmark attributes of every map (candidates may
+        live elsewhere) and the queued windows' scores, fetched in one
+        batched device-to-host copy."""
         n = len(self._pr_queue) if max_items is None else min(
             max_items, len(self._pr_queue))
         items = self._pr_queue[:n]
         del self._pr_queue[:n]
         for mp in self.manager.maps.values():
             mp.commit_landmark_attributes()
-        for _, p in items:
-            if p is not None and not isinstance(p["scores"], np.ndarray):
-                p["scores"] = p["scores"].cpu().numpy()
-                p["common"] = p["common"].cpu().numpy()
+        dev = [p for _, p in items
+               if p is not None and not isinstance(p["scores"], np.ndarray)]
+        if dev:
+            # scores (float32) and common-word counts (int32) share one
+            # buffer: the counts travel as their float32 bit patterns
+            flat = torch.cat([x for p in dev for x in (
+                p["scores"], p["common"].view(torch.float32))]).cpu().numpy()
+            o = 0
+            for p in dev:
+                k = p["scores"].shape[0]
+                p["scores"] = flat[o:o + k]
+                p["common"] = flat[o + k:o + 2 * k].view(np.int32)
+                o += 2 * k
         return self._run_placerec(items)
 
     def flush(self) -> Optional[str]:

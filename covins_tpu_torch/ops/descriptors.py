@@ -3,10 +3,12 @@
 Counterpart of `covins_tpu/ops/descriptors.py`.  The JAX package computes
 Hamming distance as an unpack-to-±1 matmul (`hamming_distance`), exact
 because the products are ±1 and the sums stay far below 2^24.  The port
-keeps that as its plain version and adds :func:`hamming_argmin`, the fused
-distance + row argmin that every main-path caller needs, as a CUDA kernel
-(`csrc/hamming_argmin.cu`).  The matchers (`knn2`, `match_ratio`,
-`match_mutual_nn`) belong to the place-recognition part of the port.
+keeps that as its plain version and adds two CUDA kernels: the fused
+distance + row argmin that retrieval needs, :func:`hamming_argmin` (K1,
+`csrc/hamming_argmin.cu`), and the masked mutual-nearest-neighbour match
+of loop verification's stage 1, :func:`hamming_mutual_nn` (K4,
+`csrc/hamming_mutual_nn.cu`).  The ratio matchers (`knn2`, `match_ratio`,
+`match_mutual_nn_ratio`) belong to the COVINS-G part of the port.
 """
 
 from __future__ import annotations
@@ -121,3 +123,79 @@ def hamming_argmin(a_u8: torch.Tensor, b_u8: torch.Tensor,
 
 
 hamming_argmin.launches = 0
+
+
+BIG = 2**30  # masked entries of the distance matrix (descriptors.py:100)
+
+
+def masked_dist(dist: torch.Tensor, row_mask=None, col_mask=None,
+                big: int = BIG) -> torch.Tensor:
+    """Fill masked rows/cols with a large sentinel so argmin ignores them."""
+    big = torch.tensor(big, dtype=dist.dtype, device=dist.device)
+    if row_mask is not None:
+        dist = torch.where(row_mask[:, None], dist, big)
+    if col_mask is not None:
+        dist = torch.where(col_mask[None, :], dist, big)
+    return dist
+
+
+def match_mutual_nn(dist: torch.Tensor, max_dist: float) -> torch.Tensor:
+    """Mutual nearest neighbours with an absolute gate
+    (`DenseMatcher.cpp:62-105`); idx (M,) int32, -1 = no match."""
+    fwd = torch.argmin(dist, dim=1)
+    bwd = torch.argmin(dist, dim=0)
+    m = torch.arange(dist.shape[0], device=dist.device)
+    mutual = bwd[fwd] == m
+    dbest = dist[m, fwd]
+    ok = mutual & (dbest.to(torch.float32) < max_dist)
+    return torch.where(ok, fwd, -1).to(torch.int32)
+
+
+def hamming_mutual_nn_plain(a_u8, a_mask, b_u8, b_mask, max_dist: float):
+    """Plain version of :func:`hamming_mutual_nn`: the reference's masked
+    Hamming matrix, then :func:`match_mutual_nn` (any device)."""
+    dist = masked_dist(hamming_distance(a_u8, b_u8), a_mask, b_mask)
+    return match_mutual_nn(dist, max_dist)
+
+
+def _check_mask(name: str, mask: torch.Tensor, n: int) -> None:
+    if mask.dtype != torch.bool or mask.shape != (n,) or not mask.is_contiguous():
+        raise ValueError(f"{name}: mask must be a contiguous ({n},) bool tensor")
+
+
+def hamming_mutual_nn(a_u8: torch.Tensor, a_mask: torch.Tensor,
+                      b_u8: torch.Tensor, b_mask: torch.Tensor,
+                      max_dist: float) -> torch.Tensor:
+    """Stage-1 matching of loop verification: for each valid row of the
+    (M, 32) descriptors ``a_u8``, the valid column of ``b_u8`` that is its
+    nearest neighbour and whose nearest valid row is it, with Hamming
+    distance < ``max_dist``.  Ties go to the lowest index on both sides.
+    Returns ``idx (M,) int32``, -1 = no match.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel (K4) or raise."""
+    if all(is_cpu(t) for t in (a_u8, a_mask, b_u8, b_mask)):
+        return hamming_mutual_nn_plain(a_u8, a_mask, b_u8, b_mask, max_dist)
+    dev = check_cuda("hamming_mutual_nn", a_u8, a_mask, b_u8, b_mask)
+    _check_desc("hamming_mutual_nn a", a_u8, 2)
+    _check_desc("hamming_mutual_nn b", b_u8, 2)
+    m, n = a_u8.shape[0], b_u8.shape[0]
+    _check_mask("hamming_mutual_nn a", a_mask, m)
+    _check_mask("hamming_mutual_nn b", b_mask, n)
+    if max(m, n) >= 2**30:
+        raise ValueError("hamming_mutual_nn: shape too large")
+    i32 = dict(dtype=torch.int32, device=dev)
+    fwd, dfwd, idx = (torch.empty(m, **i32) for _ in range(3))
+    bwd, dbwd = torch.empty(n, **i32), torch.empty(n, **i32)
+    lib = cuda_build.library("hamming_mutual_nn")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.covins_hamming_mutual_nn(
+            a_u8.data_ptr(), a_mask.data_ptr(), m, b_u8.data_ptr(),
+            b_mask.data_ptr(), n, float(max_dist), fwd.data_ptr(),
+            dfwd.data_ptr(), bwd.data_ptr(), dbwd.data_ptr(), idx.data_ptr(),
+            stream)
+    cuda_build.check(rc, "hamming_mutual_nn")
+    hamming_mutual_nn.launches += 1
+    return idx
+
+
+hamming_mutual_nn.launches = 0

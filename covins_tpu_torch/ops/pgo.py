@@ -1,0 +1,229 @@
+"""Pose-graph optimisation: manifold Gauss-Newton with block-Jacobi PCG.
+
+Counterpart of `covins_tpu/ops/pgo.py` (`Optimization::
+PoseGraphOptimization`, `optimization_be.cpp:833-1086`): successor and
+neighbour odometry edges, loop edges with fixed or covariance weights and
+an optional Cauchy loss, a fixed-pose gauge.  Each Gauss-Newton step
+evaluates all edge residuals and their Jacobians at once
+(``torch.func.vmap`` of ``torch.func.jacfwd``), then solves the normal
+equations matrix-free by Chronopoulos-Gear PCG, whose matvec is a CUDA
+kernel on the card (K7, `csrc/pgo_matvec.cu`) behind :func:`matvec`.
+
+Every scalar of the solve stays a device tensor: no ``.item()`` and no
+Python branch on a device value inside the 10 x 100 iterations, so the
+host queues the whole solve without waiting for the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from covins_tpu_torch import cuda_build
+from covins_tpu_torch.device import check_cuda, is_cpu
+from covins_tpu_torch.ops import linalg
+from covins_tpu_torch.ops import residuals as res
+from covins_tpu_torch.utils import geometry as geo
+
+
+@dataclasses.dataclass(frozen=True)
+class PoseGraph:
+    """Flat pose-graph problem on one device."""
+
+    poses: torch.Tensor  # (N, 7) T_w_s, float64
+    pose_mask: torch.Tensor  # (N,) bool — valid pose slots
+    fixed: torch.Tensor  # (N,) bool — gauge-fixed poses
+    edge_i: torch.Tensor  # (E,) int64
+    edge_j: torch.Tensor  # (E,) int64
+    edge_T: torch.Tensor  # (E, 7) measured T_i_j
+    edge_sqrt_info: torch.Tensor  # (E, 6, 6) upper sqrt information
+    edge_mask: torch.Tensor  # (E,) bool
+    edge_is_loop: torch.Tensor  # (E,) bool — robust loss applies to these
+
+
+def make_sqrt_info(rot_weight, trans_weight, n, dtype=torch.float64, device=None):
+    """Diagonal sqrt-info blocks [rot(3), trans(3)] for n edges."""
+    d = torch.tensor([rot_weight] * 3 + [trans_weight] * 3, dtype=dtype,
+                     device=device)
+    return torch.diag(d).expand(n, 6, 6)
+
+
+def _edge_residual_jac(poses, g: PoseGraph):
+    """Whitened residuals (E, 6) and Jacobians (E, 6, 6) for both ends."""
+
+    def one(Ti, Tj, T_meas, S):
+        def r_of(xi):
+            return res.six_dof_between_residual(
+                geo.pose_boxplus(Ti, xi[:6]), geo.pose_boxplus(Tj, xi[6:]),
+                T_meas)
+
+        zero = torch.zeros(12, dtype=Ti.dtype, device=Ti.device)
+        J = torch.func.jacfwd(r_of)(zero)  # (6, 12)
+        return S @ r_of(zero), S @ J[:, :6], S @ J[:, 6:]
+
+    return torch.func.vmap(one)(poses[g.edge_i], poses[g.edge_j], g.edge_T,
+                                g.edge_sqrt_info)
+
+
+def _edge_residual(poses, g: PoseGraph):
+    """Whitened residuals (E, 6) alone (the cost guard needs no Jacobian)."""
+    r = res.six_dof_between_residual(poses[g.edge_i], poses[g.edge_j], g.edge_T)
+    return (g.edge_sqrt_info @ r[..., None])[..., 0]
+
+
+# ------------------------------------------------------------------- K7
+@dataclasses.dataclass(frozen=True)
+class MatvecGraph:
+    """The edges of one Gauss-Newton step, with the node -> incident-entry
+    CSR the kernel sums in: entry e < E is edge e's i end, E + e its j
+    end; a node's entries are its i ends in edge order, then its j ends."""
+
+    edge_i: torch.Tensor  # (E,) int64
+    edge_j: torch.Tensor  # (E,) int64
+    ei32: torch.Tensor
+    ej32: torch.Tensor
+    rowptr: torch.Tensor  # (N + 1,) int32
+    entries: torch.Tensor  # (2E,) int32
+
+
+def matvec_graph(edge_i, edge_j, n: int) -> MatvecGraph:
+    keys = torch.cat([edge_i, edge_j])
+    order = torch.sort(keys, stable=True).indices
+    counts = torch.bincount(keys, minlength=n)
+    rowptr = torch.zeros(n + 1, dtype=torch.int32, device=keys.device)
+    rowptr[1:] = torch.cumsum(counts, 0)
+    return MatvecGraph(edge_i, edge_j, edge_i.to(torch.int32),
+                       edge_j.to(torch.int32), rowptr,
+                       order.to(torch.int32))
+
+
+def matvec_plain(v, free, Ji, Jj, graph: MatvecGraph, damping: float):
+    """Plain version of :func:`matvec`: the reference's gathers, 6x6 block
+    products and scatter-adds (any device)."""
+    ei, ej = graph.edge_i, graph.edge_j
+    vi = v[ei] * free[ei][:, None]
+    vj = v[ej] * free[ej][:, None]
+    y = (Ji @ vi[..., None])[..., 0] + (Jj @ vj[..., None])[..., 0]
+    oi = (Ji.transpose(-1, -2) @ y[..., None])[..., 0]
+    oj = (Jj.transpose(-1, -2) @ y[..., None])[..., 0]
+    out = torch.zeros_like(v).index_add_(0, ei, oi).index_add_(0, ej, oj)
+    return out * free[:, None] + damping * v
+
+
+def matvec(v, free, Ji, Jj, graph: MatvecGraph, damping: float):
+    """``(sum_e J_e^T (Ji v_i f_i + Jj v_j f_j)) * free + damping * v``
+    for v (N, 6), free (N,) and whitened Jacobians Ji, Jj (E, 6, 6), all
+    float64.  CPU tensors take the plain version; CUDA tensors launch the
+    kernel (K7), which sums each node's terms in the graph's fixed order,
+    or raise."""
+    ts = (v, free, Ji, Jj, graph.rowptr)
+    if all(is_cpu(t) for t in ts):
+        return matvec_plain(v, free, Ji, Jj, graph, damping)
+    dev = check_cuda("pgo matvec", *ts)
+    n, e = v.shape[0], Ji.shape[0]
+    for name, t, shape in (("v", v, (n, 6)), ("free", free, (n,)),
+                           ("Ji", Ji, (e, 6, 6)), ("Jj", Jj, (e, 6, 6))):
+        if t.shape != shape or t.dtype != torch.float64 or not t.is_contiguous():
+            raise ValueError(f"pgo matvec: {name} must be a contiguous {shape} "
+                             f"float64 tensor, got {tuple(t.shape)} {t.dtype}")
+    if graph.rowptr.shape != (n + 1,) or graph.entries.shape != (2 * e,):
+        raise ValueError("pgo matvec: graph does not match the problem")
+    out = torch.empty_like(v)
+    lib = cuda_build.library("pgo_matvec")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.covins_pgo_matvec(
+            v.data_ptr(), free.data_ptr(), Ji.data_ptr(), Jj.data_ptr(),
+            graph.ei32.data_ptr(), graph.ej32.data_ptr(), e,
+            graph.rowptr.data_ptr(), graph.entries.data_ptr(), n,
+            float(damping), out.data_ptr(), stream)
+    cuda_build.check(rc, "pgo matvec")
+    matvec.launches += 1
+    return out
+
+
+matvec.launches = 0
+
+
+def _pcg(Hv, b, Minv_blocks, free, n_iters: int):
+    """Block-Jacobi preconditioned CG on H x = b (b, x: (N, 6)), in the
+    reference's Chronopoulos-Gear form: one matvec and one fused pair of
+    reductions per iteration."""
+
+    def apply_M(r):
+        return (Minv_blocks @ r[..., None])[..., 0] * free[:, None]
+
+    def safe_div(a, bb):
+        return a / torch.where(torch.abs(bb) < 1e-30, 1e-30, bb)
+
+    x = torch.zeros_like(b)
+    r = b
+    u = apply_M(r)
+    w = Hv(u)
+    gamma = torch.sum(r * u)
+    alpha = safe_div(gamma, torch.sum(w * u))
+    p, s = u, w
+    for _ in range(n_iters):
+        x = x + alpha * p
+        r = r - alpha * s
+        u = apply_M(r)
+        w = Hv(u)
+        gamma1 = torch.sum(r * u)
+        delta1 = torch.sum(w * u)
+        beta1 = safe_div(gamma1, gamma)
+        alpha = safe_div(gamma1, delta1 - safe_div(beta1 * gamma1, alpha))
+        p = u + beta1 * p
+        s = w + beta1 * s
+        gamma = gamma1
+    return x
+
+
+def optimize_pose_graph(g: PoseGraph, n_gn: int = 8, n_cg: int = 100,
+                        damping: float = 1e-6, cauchy_scale: float = 0.0):
+    """Gauss-Newton + PCG pose-graph optimisation.
+
+    Returns (poses (N, 7), final_cost ()), both device tensors."""
+    n = g.poses.shape[0]
+    dt = g.poses.dtype
+    free = (~g.fixed & g.pose_mask).to(dt)
+    eye = torch.eye(6, dtype=dt, device=g.poses.device)
+    graph = matvec_graph(g.edge_i, g.edge_j, n)
+    poses = g.poses
+    cost = None
+    for _ in range(n_gn):
+        r, Ji, Jj = _edge_residual_jac(poses, g)
+        w = g.edge_mask.to(dt)
+        if cauchy_scale > 0:
+            cw = res.cauchy_weight(torch.sum(r * r, dim=-1), cauchy_scale)
+            w = w * torch.where(g.edge_is_loop, cw, 1.0)
+        sw = torch.sqrt(w)[:, None]
+        r_w = r * sw
+        Ji_w = (Ji * sw[..., None]).contiguous()
+        Jj_w = (Jj * sw[..., None]).contiguous()
+
+        bi = -torch.einsum("eri,er->ei", Ji_w, r_w)
+        bj = -torch.einsum("eri,er->ei", Jj_w, r_w)
+        b = (torch.zeros((n, 6), dtype=dt, device=poses.device)
+             .index_add_(0, g.edge_i, bi).index_add_(0, g.edge_j, bj)
+             ) * free[:, None]
+
+        Pi = torch.einsum("eri,erj->eij", Ji_w, Ji_w)
+        Pj = torch.einsum("eri,erj->eij", Jj_w, Jj_w)
+        M = (torch.zeros((n, 6, 6), dtype=dt, device=poses.device)
+             .index_add_(0, g.edge_i, Pi).index_add_(0, g.edge_j, Pj)
+             ) + (damping + 1e-9) * eye
+        Minv = linalg.inv_psd_small(M)
+
+        def Hv(v):
+            return matvec(v, free, Ji_w, Jj_w, graph, damping)
+
+        dx = _pcg(Hv, b, Minv, free, n_cg) * free[:, None]
+        poses_new = geo.pose_boxplus(poses, dx)
+        # accept only if the cost fell (guard against CG blow-ups)
+        r_new = _edge_residual(poses_new, g)
+        c_old = torch.sum(w * torch.sum(r * r, -1))
+        c_new = torch.sum(w * torch.sum(r_new * r_new, -1))
+        poses = torch.where(c_new < c_old, poses_new, poses)
+        cost = torch.minimum(c_new, c_old)
+    return poses, cost

@@ -22,7 +22,11 @@ def _port_modules():
 
 def test_port_modules_import_without_jax():
     mods = _port_modules()
-    assert "covins_tpu_torch.models.session" in mods
+    for name in ("models.session", "models.placerec", "models.map_manager",
+                 "ops.loopverify", "ops.projmatch", "ops.pnp", "ops.pgo",
+                 "ops.relpose", "ops.residuals", "ops.polynomial", "ops.ransac",
+                 "ops.linalg", "utils.geometry", "utils.cameras"):
+        assert f"covins_tpu_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -184,7 +184,7 @@ def test_reference_checkpoint_loads_into_port(runs, tmp_path):
 
 def test_placerec_active_is_refused(streams):
     _, _, vocab = streams
-    cfg = Config(placerec_active=True)
+    cfg = Config(placerec_active=True, placerec_type="COVINS_G")
     mgr = MapManager(vocab, cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="placerec_active=False"):
         AgentSession(0, mgr, cfg)
