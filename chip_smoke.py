@@ -16,16 +16,17 @@ package beside it.  Phases:
 2. the full main path at the workload of the JAX package's benchmark
    (2 agents x 128 KF over 2000 landmarks, 512-word vocabulary trained on
    the card, 1024-message windows, the default ``Config()`` with
-   ``placerec_defer=True``): a warm-up pass, then the measured pass with
-   every launch counter set to 0 just before it and read just after,
-   timing the ingest and the place-recognition drain apart; two traced
-   passes (device busy time from torch.profiler, host self time by layer
-   from cProfile, each for the ingest and the first agent's drain apart);
-   then the same streams through the port on the CPU (plain versions, 4
-   torch threads), compared with the card's run on loops, merges,
-   accepted pairs, loop transforms and every map's poses; then each
-   kernel replayed on the largest input the main path gave it, against
-   its plain version, timed beside its bound;
+   ``placerec_defer=True``): a warm-up on the stream's first windows, then
+   the measured pass with every launch counter set to 0 just before it
+   and read just after, timing the ingest and the place-recognition drain
+   apart; traced runs (device busy time from torch.profiler over the
+   ingest and the first agent's drain, host self time by layer from
+   cProfile over the second agent's drain and an ingest); then the same
+   streams through the port on the CPU (plain versions, 4 torch threads),
+   compared with the card's run on loops, merges, accepted pairs, loop
+   transforms and every map's poses; then each kernel replayed on the
+   card on the largest input the CPU pass gave it, against its plain
+   version, timed beside its bound;
 3. a five-agent deployment (5 x 32 KF) with place recognition on, card
    only;
 4. the ingest-only path (``placerec_active=False``) on the benchmark
@@ -34,6 +35,7 @@ package beside it.  Phases:
    line ``{"ok": true, "device": {...}}``.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -51,6 +53,9 @@ FP64_OPS_S = 34e12
 
 SEED = 0
 WINDOW = 1024
+# the warm-up's share of the bench stream: its first windows' drain already
+# closes loops, merges the two agents' maps and solves a pose graph
+WARM_WINDOWS = 4
 # How far the card's run of the full path may differ from the CPU's.  Both
 # take the same RANSAC draws (one seeded CPU generator per agent) and the
 # same algorithms; they differ only where the card's transcendental
@@ -600,8 +605,9 @@ class Recorder:
     """Keeps a copy of the largest input (by work) that the path gives each
     kernel wrapper.  While active, the module-level name through which the
     port calls each wrapper points at a shim that records the arguments and
-    forwards to the wrapper, which runs unchanged; only the unmeasured
-    warm-up pass is recorded."""
+    forwards to the wrapper, which runs unchanged.  Only the CPU pass of
+    the main path is recorded: it gives each kernel the inputs the card's
+    pass gives it, and the timed passes run without the shims."""
 
     def __init__(self, targets):
         self.targets = targets  # (module, wrapper name, size of the work)
@@ -630,6 +636,18 @@ class Recorder:
     def __exit__(self, *exc):
         for mod, name, fn in self._saved:
             setattr(mod, name, fn)
+
+    def on(self, name, dev):
+        """The recorded arguments of ``name`` moved to ``dev`` (tensors and
+        the tensor fields of a dataclass; other values as they are)."""
+        def move(x):
+            if hasattr(x, "to"):
+                return x.to(dev)
+            if dataclasses.is_dataclass(x):
+                return dataclasses.replace(x, **{f.name: move(getattr(x, f.name))
+                                                 for f in dataclasses.fields(x)})
+            return x
+        return [move(x) for x in self.largest[name][1]]
 
 
 def _layer(filename, funcname):
@@ -660,13 +678,15 @@ def _device_busy_ms(prof):
     return busy, dict(top)
 
 
-def trace_slice(vocab, windows, n_agents, card):
-    """Two traced passes of the main path, after the measured one: the
-    device's busy time from ``torch.profiler`` (kernel intervals on the
-    card) and the host's self time by layer from ``cProfile``, each for the
-    ingest and the drain apart.  The drain traced is the first agent's
-    (its flush: about half the candidates and one pose-graph solve), which
-    keeps the traces and their processing inside the run's time limit."""
+def trace_slice(vocab, windows, card):
+    """Traced runs of the main path, after the measured one: the device's
+    busy time from ``torch.profiler`` (kernel intervals on the card) and
+    the host's self time by layer from ``cProfile``, for the ingest and the
+    drain apart.  One run traces its ingest and the first agent's drain
+    (its flush: about half the candidates and one pose-graph solve) with
+    torch.profiler and the second agent's drain with cProfile; a second
+    run's ingest is traced with cProfile.  Tracing each half of the drain
+    once keeps the traces inside the chip check's time limit."""
     import cProfile
     import pstats
 
@@ -677,20 +697,16 @@ def trace_slice(vocab, windows, n_agents, card):
     from covins_tpu_torch.models.session import AgentSession
     from covins_tpu_torch.utils.config import Config
 
-    def passes(wrap):
+    def fresh():
         cfg = Config(placerec_defer=True)
         mgr = MapManager(vocab, cfg, device="cuda")
-        sessions = {cid: AgentSession(cid, mgr, cfg) for cid in range(n_agents)}
+        sessions = [AgentSession(cid, mgr, cfg) for cid in range(2)]
 
         def ingest():
             for window in windows:
                 for cid, ms in window.items():
                     sessions[cid].ingest_many(ms)
-
-        def drain():
-            sessions[0].flush()
-        return [wrap(part, fn) for part, fn in
-                (("ingest", ingest), ("drain, agent 0", drain))]
+        return sessions, ingest
 
     def profiled(part, fn):
         torch.cuda.synchronize()
@@ -700,12 +716,9 @@ def trace_slice(vocab, windows, n_agents, card):
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
         busy, top = _device_busy_ms(prof)
-        return {"part": part, "wall_ms_traced": wall, "device_busy_ms": busy,
-                "device_idle_share": 1.0 - busy / wall,
+        return {"trace": "torch.profiler", "part": part, "wall_ms_traced": wall,
+                "device_busy_ms": busy, "device_idle_share": 1.0 - busy / wall,
                 "device_ms_by_kernel": top}
-
-    for row in passes(profiled):
-        print(json.dumps({"phase": 2, "trace": "torch.profiler", "card": card, **row}))
 
     def cprofiled(part, fn):
         prof = cProfile.Profile()
@@ -721,14 +734,20 @@ def trace_slice(vocab, windows, n_agents, card):
             name = _layer(filename, funcname)
             layers[name] = layers.get(name, 0.0) + tt
             funcs[f"{name}:{funcname}"] = funcs.get(f"{name}:{funcname}", 0.0) + tt
-        return {"part": part, "wall_ms_traced": wall,
+        return {"trace": "cProfile", "part": part, "wall_ms_traced": wall,
                 "host_self_ms_by_layer": {
                     k: v * 1e3 for k, v in sorted(layers.items(), key=lambda kv: -kv[1])[:10]},
                 "host_self_ms_by_function": {
                     k: v * 1e3 for k, v in sorted(funcs.items(), key=lambda kv: -kv[1])[:12]}}
 
-    for row in passes(cprofiled):
-        print(json.dumps({"phase": 2, "trace": "cProfile", "card": card, **row}))
+    sessions, ingest = fresh()
+    rows = [profiled("ingest", ingest),
+            profiled("drain, agent 0", sessions[0].flush),
+            cprofiled("drain, agent 1", sessions[1].flush)]
+    _, ingest = fresh()
+    rows.append(cprofiled("ingest", ingest))
+    for row in rows:
+        print(json.dumps({"phase": 2, "card": card, **row}))
 
 
 def kernel_wrappers():
@@ -779,8 +798,9 @@ def phase2(dev, card):
         (pgo, "matvec", lambda v, f, Ji, *a: Ji.shape[0]),
     ])
     t0 = time.perf_counter()
-    with rec:  # warm-up pass, recording the kernels' largest inputs
-        run_slice(vocab, windows, n_agents, "cuda")
+    # warm-up: the stream's first WARM_WINDOWS windows, ingested and drained,
+    # run every kernel and code path of the measured pass once
+    run_slice(vocab, windows[:WARM_WINDOWS], n_agents, "cuda")
     t_warm = time.perf_counter() - t0
     for k in wrappers.values():
         k.launches = 0
@@ -808,10 +828,11 @@ def phase2(dev, card):
     print(json.dumps({"phase": 2, "accepted": out["accepted"]}))
 
     print(json.dumps({"phase": 2, "elapsed_s": time.perf_counter() - t_phase}))
-    trace_slice(vocab, windows, n_agents, card)
+    trace_slice(vocab, windows, card)
 
     print(json.dumps({"phase": 2, "elapsed_s": time.perf_counter() - t_phase}))
-    cpu = run_cpu(vocab, windows, n_agents)
+    with rec:  # the CPU pass, recording the kernels' largest inputs
+        cpu = run_cpu(vocab, windows, n_agents)
     check_invariants(cpu, n_agents * n_kf, "cpu")
     _, worst_loop, worst = compare_full(gpu, cpu)
     print(json.dumps({"phase": 2, "card_vs_cpu": "agree", "loop_tol": LOOP_TOL,
@@ -821,27 +842,27 @@ def phase2(dev, card):
                       "cpu_drain_wall_s": cpu["flush_s"],
                       "elapsed_s": time.perf_counter() - t_phase}))
 
-    # each kernel on the largest input the main path gave it
+    # each kernel on the card, on the largest input the main path gave it
     table = {}
-    a, b, mask = rec.largest["hamming_argmin"][1]
+    a, b, mask = rec.on("hamming_argmin", dev)
     table["hamming_argmin"] = {**k1_case(a, b, mask, reps=50),
                                "shape": [a.shape[0], b.shape[0], 256]}
-    d, m = rec.largest["representative_descriptors"][1]
+    d, m = rec.on("representative_descriptors", dev)
     table["representative_descriptors"] = {**k2_case(d, m, reps=50),
                                            "shape": list(d.shape)}
-    w, dst, db = rec.largest["bow_insert"][1]
+    w, dst, db = rec.on("bow_insert", dev)
     table["bow_insert"] = {**k3_case(w, dst, db, reps=50),
                            "shape": list(w.shape) + list(db.shape)}
-    a, am, b, bm, md = rec.largest["hamming_mutual_nn"][1]
+    a, am, b, bm, md = rec.on("hamming_mutual_nn", dev)
     table["hamming_mutual_nn"] = {**k4_case(a, am, b, bm, md, reps=50),
                                   "shape": [a.shape[0], b.shape[0]]}
-    args = rec.largest["gated_match"][1]
+    args = rec.on("gated_match", dev)
     table["project_match"] = {**k5_case(args[:10], args[10], reps=20),
                               "shape": [args[0].shape[0], args[5].shape[0]]}
-    T, P, B, msk, valid, thr = rec.largest["p3p_score"][1]
+    T, P, B, msk, valid, thr = rec.on("p3p_score", dev)
     table["p3p_score"] = {**k6_case(T, P, B, msk, valid, thr, reps=50),
                           "shape": [T.shape[0], P.shape[0]]}
-    v, free, Ji, Jj, graph, damping = rec.largest["matvec"][1]
+    v, free, Ji, Jj, graph, damping = rec.on("matvec", dev)
     table["pgo_matvec"] = {**k7_case(v, free, Ji, Jj, graph, damping, reps=200),
                            "shape": [v.shape[0], Ji.shape[0]]}
     for name, row in table.items():

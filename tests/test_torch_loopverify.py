@@ -28,6 +28,7 @@ from covins_tpu.ops import bow as ref_bow
 from covins_tpu.ops import loopverify as ref_lv
 from covins_tpu.ops import ransac as ref_ransac
 from covins_tpu.ops import relpose as ref_relpose
+from covins_tpu.ops import residuals as ref_residuals
 from covins_tpu.utils import cameras as ref_cam
 from covins_tpu.utils import geometry as ref_geo
 from covins_tpu.utils.config import Config as RefConfig
@@ -164,3 +165,34 @@ def test_written_out_jacobian_matches_forward_mode_ad(dist_model):
     rel = float((J - J_ad).abs().max() / J_ad.abs().max())
     assert rel < 1e-12
     assert not bool(valid[0]) and bool(valid[1:].all())
+
+
+@pytest.mark.parametrize("dist_model", [cam.DIST_NONE, cam.RADTAN])
+def test_relative_reprojection_residual_matches_reference(dist_model):
+    """The paired residual of the relative-pose refinement against the
+    reference's, to 1e-9 px (the port applies poses as rotation matrices
+    where the reference rotates by quaternions), validity exactly."""
+    rng = np.random.default_rng(12)
+    intr = np.asarray([458.654, 457.296, 367.215, 248.375, 0.0])
+    dist = np.asarray([-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05])
+    T_s_c = np.asarray([0.99, 0.05, -0.1, 0.02, 0.05, -0.02, 0.01])
+    T_s_c[:4] /= np.linalg.norm(T_s_c[:4])
+    T_12 = np.asarray([0.98, 0.02, 0.15, -0.05, 0.3, -0.1, 0.2])
+    T_12[:4] /= np.linalg.norm(T_12[:4])
+    p2 = np.stack([rng.uniform(-2, 2, 150), rng.uniform(-1.5, 1.5, 150),
+                   rng.uniform(2, 8, 150)], 1)
+    p1 = p2 + 0.3 * rng.normal(size=p2.shape)
+    p2[:10, 2] *= -1  # behind the cameras: invalid
+    rc = ref_cam.Camera(jnp.asarray(intr), jnp.asarray(dist), jnp.asarray(T_s_c),
+                        ref_cam.PINHOLE, dist_model)
+    pc = cam.Camera(torch.tensor(intr), torch.tensor(dist), torch.tensor(T_s_c),
+                    cam.PINHOLE, dist_model)
+    r_ref, v_ref = ref_residuals.relative_reprojection_residual(
+        rc, rc, jnp.asarray(T_12), jnp.asarray(p1), jnp.asarray(p2))
+    r, v = residuals.relative_reprojection_residual(
+        pc, pc, torch.tensor(T_12), torch.tensor(p1), torch.tensor(p2))
+    v_ref = np.asarray(v_ref)
+    np.testing.assert_array_equal(v.numpy(), v_ref)
+    assert 0 < v_ref.sum() < len(v_ref)
+    np.testing.assert_allclose(r.numpy()[v_ref], np.asarray(r_ref)[v_ref],
+                               rtol=0, atol=1e-9)

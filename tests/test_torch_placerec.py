@@ -24,10 +24,12 @@ import torch
 
 from covins_tpu.agents.synthetic_agent import SyntheticAgent, SyntheticWorld
 from covins_tpu.models.map_manager import MapManager as RefManager
+from covins_tpu.models.placerec import PlaceRecognition as RefPlaceRecognition
 from covins_tpu.models.session import AgentSession as RefSession
 from covins_tpu.ops import bow as ref_bow
 from covins_tpu.utils.config import Config as RefConfig
 from covins_tpu_torch.models.map_manager import MapManager
+from covins_tpu_torch.models.placerec import PlaceRecognition
 from covins_tpu_torch.models.session import AgentSession
 from covins_tpu_torch.state import messages_from_reference
 from covins_tpu_torch.utils.config import Config
@@ -123,3 +125,39 @@ def test_covins_g_is_refused(world_vocab):
     mgr = MapManager(vocab, cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="COVINS-G"):
         AgentSession(0, mgr, cfg)
+
+
+def test_process_keyframe_matches_reference(world_vocab):
+    """`PlaceRecognition.process_keyframe`, the inline Run() body, over the
+    intra-map loop scenario's finished map (ingested with place recognition
+    off), keyframe by keyframe into an empty database it fills: the same
+    keyframes find a loop, with the same candidate, inlier count and
+    matches, and T_12 within 1e-6 (the RANSAC draws differ between the
+    packages, see the module docstring)."""
+    world, vocab = world_vocab
+    stream = list(SyntheticAgent(world, client_id=0, n_keyframes=30).messages())
+    results = []
+    for ref in (True, False):
+        Cfg = RefConfig if ref else Config
+        off, on = Cfg(**dict(CFG, placerec_active=False)), Cfg(**CFG)
+        if ref:
+            mgr, empty = RefManager(vocab, off), RefManager(vocab, on)
+            RefSession(0, mgr, off).ingest_many(stream)
+        else:
+            mgr = MapManager(vocab, off, device="cpu")
+            empty = MapManager(vocab, on, device="cpu")
+            AgentSession(0, mgr, off).ingest_many(messages_from_reference(stream))
+        mp = mgr.map_of(0)
+        pr = (RefPlaceRecognition if ref else PlaceRecognition)(
+            0, empty.database, mgr.resolve, on)
+        results.append([pr.process_keyframe(mp, row) for row in range(mp.n_kf)])
+    ref_res, res = results
+    assert [r is None for r in res] == [r is None for r in ref_res]
+    assert sum(r is not None for r in res) >= 1
+    for r, rr in zip(res, ref_res):
+        if r is None:
+            continue
+        assert (r.query_id, r.candidate_id, r.n_inliers) == \
+            (rr.query_id, rr.candidate_id, rr.n_inliers)
+        np.testing.assert_array_equal(r.matches, np.asarray(rr.matches))
+        np.testing.assert_allclose(r.T_12, np.asarray(rr.T_12), rtol=0, atol=1e-6)

@@ -115,3 +115,18 @@ def test_p3p_score_plain_matches_reprojection_error():
     assert int(best) == int(np.argmax(ref_counts))
     np.testing.assert_array_equal(inl.numpy(), ref_inl[int(best)])
     assert int(n_inl) == max(ref_counts.max(), 0)
+
+
+@pytest.mark.parametrize("with_valid", [False, True])
+def test_best_hypothesis_matches_reference(with_valid):
+    rng = np.random.default_rng(6)
+    counts = rng.integers(0, 30, 300).astype(np.int32)
+    counts[[17, 120, 250]] = 40  # tied maxima: the first wins
+    valid = rng.random(300) > 0.3
+    valid[17] = False  # the first maximum invalid: the second wins
+    v = valid if with_valid else None
+    ref = ref_ransac.best_hypothesis(jnp.asarray(counts),
+                                     None if v is None else jnp.asarray(v))
+    got = ransac.best_hypothesis(torch.tensor(counts),
+                                 None if v is None else torch.tensor(v))
+    assert int(got) == int(ref) == (120 if with_valid else 17)
