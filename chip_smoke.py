@@ -12,27 +12,45 @@ package beside it.  Phases:
    made from a numpy seed at the main path's shapes and at ragged ones:
    K1, K2, K4 and K5 exactly, K3 to rtol 1e-6, K6 exactly up to
    correspondences within 1e-12 rad of the threshold, K7 to 1e-12
-   relative and bit for bit across two launches;
+   relative, K8 and K10 to 1e-13 relative, K9 to 1e-13 of the sums of
+   magnitudes behind each output, K7-K10 bit for bit across two launches
+   (K8-K10 at bench.py's GBA problem and at ragged problems down to two
+   keyframes);
 2. the full main path at the workload of the JAX package's benchmark
    (2 agents x 128 KF over 2000 landmarks, 512-word vocabulary trained on
    the card, 1024-message windows, the default ``Config()`` with
    ``placerec_defer=True``): a warm-up on the stream's first windows, then
    the measured pass with every launch counter set to 0 just before it
    and read just after, timing the ingest and the place-recognition drain
-   apart; traced runs (device busy time from torch.profiler over the
-   ingest and the first agent's drain, host self time by layer from
-   cProfile over the second agent's drain and an ingest); then the same
-   streams through the port on the CPU (plain versions, 4 torch threads),
-   compared with the card's run on loops, merges, accepted pairs, loop
-   transforms and every map's poses; then each kernel replayed on the
-   card on the largest input the CPU pass gave it, against its plain
-   version, timed beside its bound;
+   apart; traced runs (device busy time from torch.profiler over an
+   ingest and the first agent's drain of the stream's first windows, host
+   self time by layer from cProfile over the second agent's drain of
+   those windows and an ingest); then the same streams through the port
+   on the CPU (plain versions, 4 torch threads), compared with the card's
+   run on loops, merges, accepted pairs, loop transforms and every map's
+   poses; then each kernel replayed on the card on the largest input the
+   CPU pass gave it, against its plain version, timed beside its bound;
 3. a five-agent deployment (5 x 32 KF) with place recognition on, card
    only;
 4. the ingest-only path (``placerec_active=False``) on the benchmark
    workload, card against CPU, every map array and database row compared;
-5. one JSON line per the kernel table, the card line, and the result
-   line ``{"ok": true, "device": {...}}``.
+5. bench.py's GBA problem (256 KF, 8192 landmarks, max_obs 61440) through
+   ``global_bundle_adjustment(n_gn=10, n_cg=60)`` with the counters set to
+   0 just before it (the problem's build, K10, included) and read just
+   after: ms per Gauss-Newton step, wall time, a torch.profiler trace of
+   one solve, costs that never increase, the ATE to the ground truth
+   falling; the same problem on the CPU, held within GBA_FACTOR times the
+   CPU's own one-ulp spread, with the same pruned observations;
+6. ``MapManager.run_gba`` on phase 2's merged map, on the card (counters
+   set to 0 just before it) and on CPU copies of the map: the same outlier
+   decisions on one round-1 state exactly, whole runs pruning no more
+   observations differently than GBA_FACTOR times what one ulp of input
+   changes on the CPU, the ATE to the agents' ground truth before and
+   after;
+7. one JSON line per the kernel table (K1-K7 timed on phase 2's inputs
+   with phase 2's launches, K8-K10 on bench.py's GBA problem with phase
+   6's launches), the card line, and the result line
+   ``{"ok": true, "device": {...}}``.
 """
 
 import dataclasses
@@ -73,6 +91,12 @@ WARM_WINDOWS = 4
 # decision moves (centimetres).
 LOOP_TOL = 1e-6
 POSE_TOL = 1e-3
+# How far the card's GBA may end from the CPU's, in units of how far the
+# CPU's own GBA moves when its input moves by one ulp (measured in the same
+# run): the reduced camera system is ill-conditioned and its 60 PCG steps
+# stop far from convergence, so rounding differences of either kind are
+# amplified alike (tests/test_torch_gba.py, scripts/port_gba_sensitivity.py)
+GBA_FACTOR = 10.0
 CPU_THREADS = 4  # the CPU passes' torch threads: more only add overhead
                  # on the plain versions' many small operations
 
@@ -307,6 +331,222 @@ def k7_case(v, free, Ji, Jj, graph, damping, reps):
     }
 
 
+def _rel(a, b):
+    """Largest difference relative to the largest entry of ``b``."""
+    if b.numel() == 0:
+        return 0.0
+    return float(((a.double() - b.double()).abs().max()
+                  / b.double().abs().max().clamp(min=1e-300)).item())
+
+
+def gba_bytes_ops(p, graph, valid_obs):
+    """(bytes, float64 operations) of one K8 linearisation: each input read
+    once and each output written once; about 600 operations per valid
+    observation for the residual and the Jacobians and 216 for its terms of
+    the keyframe and landmark blocks."""
+    n, m, o = p.poses.shape[0], p.lms.shape[0], p.obs_kf.shape[0]
+    read = n * 7 * 8 + m * 3 * 8 + o * (2 * 8 + 8 + 2 * 4 + 2 * 4) + (n + m) * 8 \
+        + (n + m + 2) * 4
+    write = o * (2 + 12 + 6) * 8 + o + n * (6 + 36) * 8 + m * (3 + 9) * 8
+    return read + write, 816.0 * valid_obs
+
+
+def k8_case(p, graph, huber, reps):
+    import torch
+
+    from covins_tpu_torch.ops import gba
+
+    out = gba.reproj_blocks(p, graph, huber, "linearize")
+    again = gba.reproj_blocks(p, graph, huber, "linearize")
+    ref = gba.reproj_blocks_plain(p, graph, huber, "linearize")
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, a, b, c in zip(("r", "J_pose", "J_lm", "b6", "M6", "b_lm", "Hll"),
+                             out, again, ref):
+        check(torch.equal(a, b), f"K8 {name} differs between two launches")
+        err = max(err, _rel(a, c))
+    for mode in ("cost", "outlier"):
+        val, valid = gba.reproj_blocks(p, graph, huber, mode)
+        rval, rvalid = gba.reproj_blocks_plain(p, graph, huber, mode)
+        check(torch.equal(valid, rvalid), f"K8 {mode} validity differs")
+        err = max(err, _rel(val, rval))
+    val, _ = gba.reproj_blocks(p, graph, 0.0, "outlier")
+    rval, _ = gba.reproj_blocks_plain(p, graph, 0.0, "outlier")
+    check(torch.equal(val < 0.92, rval < 0.92), "K8 outlier decisions differ")
+    check(err <= 1e-13, f"K8 relative error {err} against its plain version")
+    valid_obs = int((p.obs_mask & p.lm_mask[p.obs_lm] & p.kf_mask[p.obs_kf]).sum().item())
+    nbytes, ops = gba_bytes_ops(p, graph, valid_obs)
+    bnd, by = bound(nbytes, (ops, FP64_OPS_S))
+    return {
+        "kernel_ms": cuda_ms(lambda: gba.reproj_blocks(p, graph, huber, "linearize"), reps),
+        "plain_ms": cuda_ms(lambda: gba.reproj_blocks_plain(p, graph, huber, "linearize"),
+                            max(1, reps // 10)),
+        "cost_mode_ms": cuda_ms(lambda: gba.reproj_blocks(p, graph, huber, "cost"), reps),
+        "library_ms": None, "bound_ms": bnd, "bound_by": by,
+        "max_abs_err": float((out[0] - ref[0]).abs().max().item()) if out[0].numel() else 0.0,
+        "max_rel_err": err, "valid_obs": valid_obs,
+    }
+
+
+def dense_reduced_matrix(Jp, Jl, Hinv, graph, n):
+    """The observation part of the reduced camera matrix, assembled densely
+    (6N x 6N): sum_o Jp^T Jp - B Hll^-1 B^T with B the (6N, 3M) Hpl.  Used
+    only as K9's library yardstick (one torch.mv); the port never builds
+    it."""
+    import torch
+
+    kf, lm = graph.obs_kf32.long(), graph.obs_lm32.long()
+    m = Hinv.shape[0]
+    A = torch.zeros((n, 6, n, 6), dtype=torch.float64, device=Jp.device)
+    pp = Jp.transpose(-1, -2) @ Jp  # (O, 6, 6)
+    A = A.reshape(n * 6, n * 6)
+    idx = (kf[:, None, None] * 6 + torch.arange(6, device=Jp.device)[None, :, None]) * (n * 6) \
+        + kf[:, None, None] * 6 + torch.arange(6, device=Jp.device)[None, None, :]
+    A.view(-1).index_add_(0, idx.reshape(-1), pp.reshape(-1))
+    B = torch.zeros((n * 6, m * 3), dtype=torch.float64, device=Jp.device)
+    pl = Jp.transpose(-1, -2) @ Jl  # (O, 6, 3)
+    idx = (kf[:, None, None] * 6 + torch.arange(6, device=Jp.device)[None, :, None]) * (m * 3) \
+        + lm[:, None, None] * 3 + torch.arange(3, device=Jp.device)[None, None, :]
+    B.view(-1).index_add_(0, idx.reshape(-1), pl.reshape(-1))
+    BH = torch.einsum("rmi,mij->rmj", B.reshape(n * 6, m, 3), Hinv).reshape(n * 6, m * 3)
+    return A - BH @ B.T
+
+
+def matvec_error_scale(v6, c, Jp, Jl, Hinv, graph, n, t_only):
+    """The sums of magnitudes behind each output of K9: the plain version's
+    two terms on the inputs' absolute values, added.  Hll^-1 of a landmark
+    seen once or twice is nearly singular, so J_lm w cancels terms many
+    orders larger than its result; a rounding difference is relative to
+    these sums, not to the result."""
+    from covins_tpu_torch.ops import gba
+
+    a = [None if x is None else x.abs() for x in (v6, c, Jp, Jl, Hinv)]
+    t = gba.reduced_matvec_plain(a[0], None, a[2], a[3], a[4], graph, n, t_only=True)
+    if t_only:
+        return t
+    pos = gba.reduced_matvec_plain(a[0], None, a[2], a[3], a[4] * 0, graph, n)
+    neg = gba.reduced_matvec_plain(None, t if a[1] is None else t + a[1], a[2], a[3], a[4],
+                                   graph, n)
+    return pos - neg
+
+
+def k9_case(v6, c, Jp, Jl, Hinv, graph, n, reps, library=False):
+    import torch
+
+    from covins_tpu_torch.ops import gba
+
+    err = 0.0
+    for vv, cc, t_only in ((v6, None, False), (None, c, False), (v6, c, False),
+                           (v6, None, True)):
+        out = gba.reduced_matvec(vv, cc, Jp, Jl, Hinv, graph, n, t_only)
+        again = gba.reduced_matvec(vv, cc, Jp, Jl, Hinv, graph, n, t_only)
+        ref = gba.reduced_matvec_plain(vv, cc, Jp, Jl, Hinv, graph, n, t_only)
+        scale = matvec_error_scale(vv, cc, Jp, Jl, Hinv, graph, n, t_only)
+        torch.cuda.synchronize()
+        check(torch.equal(out, again), "K9 differs between two launches")
+        if out.numel():
+            err = max(err, float(((out - ref).abs() / scale.clamp(min=1e-300)).max()))
+    check(err <= 1e-13, f"K9 error {err} of its sums of magnitudes against its plain version")
+    out = gba.reduced_matvec(v6, None, Jp, Jl, Hinv, graph, n)
+    ref = gba.reduced_matvec_plain(v6, None, Jp, Jl, Hinv, graph, n)
+    o, m = Jp.shape[0], Hinv.shape[0]
+    nbytes = o * (18 * 8 + 2 * 4 + 2 * 4) + m * 9 * 8 + (n + m + 2) * 4 + n * 6 * 8 * 2
+    bnd, by = bound(nbytes, (100.0 * o, FP64_OPS_S))
+    lib_ms = None
+    if library:
+        S = dense_reduced_matrix(Jp, Jl, Hinv, graph, n)
+        v = v6.reshape(-1)
+        dense = torch.mv(S, v).reshape(n, 6)
+        check(_rel(dense, out) <= 1e-9, "dense reduced matrix disagrees with K9")
+        lib_ms = cuda_ms(lambda: torch.mv(S, v), reps)
+        del S
+    return {
+        "kernel_ms": cuda_ms(lambda: gba.reduced_matvec(v6, None, Jp, Jl, Hinv, graph, n),
+                             reps),
+        "plain_ms": cuda_ms(lambda: gba.reduced_matvec_plain(v6, None, Jp, Jl, Hinv, graph,
+                                                             n), max(1, reps // 10)),
+        "library_ms": lib_ms, "bound_ms": bnd, "bound_by": by,
+        "max_abs_err": float((out - ref).abs().max().item()) if out.numel() else 0.0,
+        "max_rel_err": err,
+    }
+
+
+def k10_case(args, reps, time_plain=True):
+    import torch
+
+    from covins_tpu_torch.ops import imu
+
+    noise = imu.default_noise()
+    out = imu.preintegrate(*args, noise)
+    again = imu.preintegrate(*args, noise)
+    ref = imu.preintegrate_plain(*args, noise)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name in ("dq", "dv", "dp", "J_q_bg", "J_v_bg", "J_v_ba", "J_p_bg", "J_p_ba", "cov",
+                 "dt"):
+        a, b = getattr(out, name), getattr(again, name)
+        check(torch.equal(a, b), f"K10 {name} differs between two launches")
+        err = max(err, _rel(a, getattr(ref, name)))
+    check(err <= 1e-13, f"K10 relative error {err} against its plain version")
+    F, S = args[3].shape
+    samples = float(args[3].sum().item())
+    nbytes = F * S * 8 * 8 + F * 6 * 8 + F * (4 + 3 + 3 + 54 + 81 + 1) * 8
+    # about 4300 float64 operations per valid sample: the covariance's two
+    # 9x9 products and the deltas with six tangents
+    bnd, by = bound(nbytes, (4300.0 * samples, FP64_OPS_S))
+    return {
+        "kernel_ms": cuda_ms(lambda: imu.preintegrate(*args, noise), reps),
+        "plain_ms": (cuda_ms(lambda: imu.preintegrate_plain(*args, noise), 1)
+                     if time_plain else None),
+        "library_ms": None, "bound_ms": bnd, "bound_by": by,
+        "max_abs_err": float((out.J_p_ba - ref.J_p_ba).abs().max().item()),
+        "max_rel_err": err, "valid_samples": samples,
+    }
+
+
+def gba_kernel_inputs(n_kf, n_lm, max_obs, dev, seed=SEED):
+    """A synthetic GBA problem on the card (bench.py's at 256 / 8192 /
+    61440) with the ragged cases of a real map added: a dead keyframe, dead
+    landmarks, masked, invalid and gross-outlier observations, octave
+    weights.  Returns (problem, graph, K9's inputs, K10's inputs)."""
+    import dataclasses as dc
+
+    import torch
+
+    from covins_tpu_torch.ops import gba, linalg
+    from covins_tpu_torch.utils import synthetic
+
+    p, _, _ = synthetic.build_gba_problem(n_kf=n_kf, n_lm=n_lm, seed=seed,
+                                          max_obs=max_obs, device=dev)
+    rng = np.random.default_rng(seed + n_kf)
+    o = p.obs_kf.shape[0]
+    t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    uv = p.obs_uv.clone()
+    uv[: o // 20] += t(20.0 * rng.normal(size=(o // 20, 2)))
+    lms = p.lms.clone()
+    if o:
+        lms[int(p.obs_lm[0])] = p.poses[int(p.obs_kf[0]), 4:7]  # invalid
+    kf_mask = p.kf_mask.clone()
+    if n_kf > 2:
+        kf_mask[n_kf // 2] = False
+    p = dc.replace(p, obs_uv=uv, lms=lms, kf_mask=kf_mask,
+                   lm_mask=p.lm_mask & t(rng.random(p.lms.shape[0]) > 0.02),
+                   obs_mask=p.obs_mask & t(rng.random(o) > 0.02),
+                   obs_w=p.obs_w * t(1.0 / (1.0 + rng.integers(0, 4, o))))
+    graph = gba.obs_graph(p)
+    _, Jp, Jl, _, _, _, Hll = gba.reproj_blocks_plain(p, graph, 0.0, "linearize")
+    eye = torch.eye(3, dtype=torch.float64, device=dev)
+    Hinv = (linalg.inv33(Hll + 1e-4 * eye) * p.lm_mask[:, None, None]).contiguous()
+    v6 = t(rng.normal(size=(n_kf, 6)))
+    c = t(rng.normal(size=(p.lms.shape[0], 3)))
+    F, S = n_kf - 1, 50
+    acc = rng.normal(scale=0.5, size=(F, S, 3)) + [0.0, 0.0, 9.81]
+    mask = (np.arange(S)[None, :] < rng.integers(1, S + 1, F)[:, None]).astype(np.float64)
+    k10 = [t(x) for x in (acc, 0.3 * rng.normal(size=(F, S, 3)), np.full((F, S), 0.005),
+                          mask, 0.01 * rng.normal(size=(F, 3)), 0.05 * rng.normal(size=(F, 3)))]
+    return p, graph, (v6, c, Jp, Jl, Hinv), k10
+
+
 def _k4_inputs(rng, m, n, nq, nc, t):
     a = rng.integers(0, 256, (m, 32), dtype=np.uint8)
     b = rng.integers(0, 256, (n, 32), dtype=np.uint8)
@@ -426,6 +666,28 @@ def phase1(dev):
     for N, E in ((256, 1300), (1, 1), (9, 20)):
         r = k7_case(*_k7_inputs(rng, N, E, dev), 1e-6, reps=50)
         print(json.dumps({"phase": 1, "kernel": "pgo_matvec", "shape": [N, E], **r}))
+    # K8-K10 at bench.py's GBA problem and at ragged sizes (down to two
+    # keyframes with no observation in common); the bench shape's rows go
+    # into the kernel table
+    table = {}
+    for n_kf, n_lm, max_obs in ((256, 8192, 61440), (7, 60, None), (2, 8, 3)):
+        p, graph, (v6, c, Jp, Jl, Hinv), k10 = gba_kernel_inputs(n_kf, n_lm, max_obs, dev)
+        shape = [n_kf, p.lms.shape[0], p.obs_kf.shape[0]]
+        bench = n_kf == 256
+        for huber in (0.0, 2.447):
+            r = k8_case(p, graph, huber, reps=20 if bench else 3)
+            print(json.dumps({"phase": 1, "kernel": "gba_reproj_blocks", "huber": huber,
+                              "shape": shape, **r}))
+        table.setdefault("gba_reproj_blocks", {**r, "shape": shape})
+        r = k9_case(v6, c, Jp, Jl, Hinv, graph, n_kf, reps=50 if bench else 3,
+                    library=bench)
+        print(json.dumps({"phase": 1, "kernel": "gba_reduced_matvec", "shape": shape, **r}))
+        table.setdefault("gba_reduced_matvec", {**r, "shape": shape})
+        r = k10_case(k10, reps=5 if bench else 2, time_plain=bench)
+        print(json.dumps({"phase": 1, "kernel": "imu_preintegrate",
+                          "shape": list(k10[0].shape[:2]), **r}))
+        table.setdefault("imu_preintegrate", {**r, "shape": list(k10[0].shape[:2])})
+    return table
 
 
 # -------------------------------------------------------------------- main path
@@ -682,11 +944,12 @@ def trace_slice(vocab, windows, card):
     """Traced runs of the main path, after the measured one: the device's
     busy time from ``torch.profiler`` (kernel intervals on the card) and
     the host's self time by layer from ``cProfile``, for the ingest and the
-    drain apart.  One run traces its ingest and the first agent's drain
-    (its flush: about half the candidates and one pose-graph solve) with
-    torch.profiler and the second agent's drain with cProfile; a second
-    run's ingest is traced with cProfile.  Tracing each half of the drain
-    once keeps the traces inside the chip check's time limit."""
+    drain apart.  The ingest of the whole stream is traced once with each
+    tool; the drain is traced on a run of the stream's first WARM_WINDOWS
+    windows (the warm-up's: its drain closes loops, merges the maps and
+    solves pose graphs), the first agent's with torch.profiler and the
+    second's with cProfile.  Tracing that short drain rather than the
+    whole one keeps the traces inside the chip check's time limit."""
     import cProfile
     import pstats
 
@@ -697,7 +960,7 @@ def trace_slice(vocab, windows, card):
     from covins_tpu_torch.models.session import AgentSession
     from covins_tpu_torch.utils.config import Config
 
-    def fresh():
+    def fresh(windows):
         cfg = Config(placerec_defer=True)
         mgr = MapManager(vocab, cfg, device="cuda")
         sessions = [AgentSession(cid, mgr, cfg) for cid in range(2)]
@@ -740,18 +1003,23 @@ def trace_slice(vocab, windows, card):
                 "host_self_ms_by_function": {
                     k: v * 1e3 for k, v in sorted(funcs.items(), key=lambda kv: -kv[1])[:12]}}
 
-    sessions, ingest = fresh()
-    rows = [profiled("ingest", ingest),
-            profiled("drain, agent 0", sessions[0].flush),
-            cprofiled("drain, agent 1", sessions[1].flush)]
-    _, ingest = fresh()
+    _, ingest = fresh(windows)
+    rows = [profiled("ingest", ingest)]
+    sessions, ingest = fresh(windows[:WARM_WINDOWS])
+    ingest()
+    rows += [profiled(f"drain of the first {WARM_WINDOWS} windows, agent 0",
+                      sessions[0].flush),
+             cprofiled(f"drain of the first {WARM_WINDOWS} windows, agent 1",
+                       sessions[1].flush)]
+    _, ingest = fresh(windows)
     rows.append(cprofiled("ingest", ingest))
     for row in rows:
         print(json.dumps({"phase": 2, "card": card, **row}))
 
 
 def kernel_wrappers():
-    from covins_tpu_torch.ops import bow, descriptors, landmark_ops, pgo, pnp, projmatch
+    from covins_tpu_torch.ops import (bow, descriptors, gba, imu, landmark_ops, pgo, pnp,
+                                      projmatch)
 
     return {"hamming_argmin": descriptors.hamming_argmin,
             "representative_descriptors": landmark_ops.representative_descriptors,
@@ -759,7 +1027,16 @@ def kernel_wrappers():
             "hamming_mutual_nn": descriptors.hamming_mutual_nn,
             "project_match": projmatch.gated_match,
             "p3p_score": pnp.p3p_score,
-            "pgo_matvec": pgo.matvec}
+            "pgo_matvec": pgo.matvec,
+            "gba_reproj_blocks": gba.reproj_blocks,
+            "gba_reduced_matvec": gba.reduced_matvec,
+            "imu_preintegrate": imu.preintegrate}
+
+
+# the kernels of the ingest and place-recognition drain (phase 2) and of GBA
+DRAIN_KERNELS = ("hamming_argmin", "representative_descriptors", "bow_insert",
+                 "hamming_mutual_nn", "project_match", "p3p_score", "pgo_matvec")
+GBA_KERNELS = ("gba_reproj_blocks", "gba_reduced_matvec", "imu_preintegrate")
 
 
 def reference_counts():
@@ -806,8 +1083,8 @@ def phase2(dev, card):
         k.launches = 0
     gpu = run_slice(vocab, windows, n_agents, "cuda")
     launches = {name: k.launches for name, k in wrappers.items()}
-    for name, n in launches.items():
-        check(n > 0, f"main path never launched {name}")
+    for name in DRAIN_KERNELS:
+        check(launches[name] > 0, f"main path never launched {name}")
     n_total = check_invariants(gpu, n_agents * n_kf, "card")
     out = outcome(gpu)
     check(out["loops"] >= 1 and out["merges"] >= 1,
@@ -867,7 +1144,7 @@ def phase2(dev, card):
                            "shape": [v.shape[0], Ji.shape[0]]}
     for name, row in table.items():
         row["launches"] = launches[name]
-    return table
+    return table, gpu, vocab, world
 
 
 def phase3(dev, card, n_kf):
@@ -938,6 +1215,229 @@ def phase4(dev, card):
         "cpu_ingest_wall_s": cpu["ingest_s"]}))
 
 
+def ate(est, gt):
+    """RMSE of positions after the rigid alignment (Umeyama without scale)
+    of ``est`` (K, 3) onto ``gt`` (K, 3)."""
+    mu_e, mu_g = est.mean(0), gt.mean(0)
+    U, _, Vt = np.linalg.svd((gt - mu_g).T @ (est - mu_e))
+    d = np.sign(np.linalg.det(U @ Vt))
+    R = U @ np.diag([1.0, 1.0, d]) @ Vt
+    aligned = (est - mu_e) @ R.T + mu_g
+    return float(np.sqrt(np.mean(np.sum((aligned - gt) ** 2, axis=1))))
+
+
+def _states(p):
+    return [x.cpu().numpy() for x in (p.poses, p.vels, p.biases, p.lms)]
+
+
+def _max_diff(a, b):
+    return max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+
+
+def phase5(dev, card):
+    """bench.py's GBA problem (256 KF, 8192 landmarks, max_obs 61440)
+    through `global_bundle_adjustment(n_gn=10, n_cg=60)` on the card
+    (round 1 of 5 Huber steps, pruning, round 2 of 10), then the same
+    problem on the CPU (plain versions), and the CPU again with the
+    landmarks and with the poses moved by one ulp: the card must end within
+    GBA_FACTOR times that spread of the CPU's result."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from covins_tpu_torch.ops import gba
+    from covins_tpu_torch.utils import synthetic
+
+    t_phase = time.perf_counter()
+    build = dict(n_kf=256, n_lm=8192, seed=SEED, max_obs=61440, device=dev)
+    p, _, _ = synthetic.build_gba_problem(**build)
+    gba.global_bundle_adjustment(p, n_gn=1, n_cg=2, outlier_removal=False)  # warm-up
+    wrappers = kernel_wrappers()
+    for k in wrappers.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p, poses_gt, lms_gt = synthetic.build_gba_problem(**build)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p_card, info = gba.global_bundle_adjustment(p, n_gn=10, n_cg=60)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: wrappers[name].launches for name in GBA_KERNELS}
+    for name, n in launches.items():
+        check(n > 0, f"GBA never launched {name}")
+    costs1 = info["round1_costs"].cpu().numpy()
+    costs = info["costs"].cpu().numpy()
+    check(np.isfinite(costs1).all() and np.isfinite(costs).all(), "GBA costs not finite")
+    check((np.diff(costs1) <= 0).all() and (np.diff(costs) <= 0).all(),
+          f"GBA costs increase: {costs1} {costs}")
+    n_valid = int(p.obs_mask.sum().item())
+    ate0 = ate(p.poses[:, 4:7].cpu().numpy(), poses_gt[:, 4:7])
+    ate1 = ate(p_card.poses[:, 4:7].cpu().numpy(), poses_gt[:, 4:7])
+    check(ate1 < ate0, f"GBA did not lower the ATE: {ate0} -> {ate1}")
+
+    # one GN step at a time (CUDA events), and one traced solve
+    graph = gba.obs_graph(p)
+    state = (p.poses, p.vels, p.biases, p.lms)
+    lam = torch.tensor(1e-4, dtype=torch.float64, device=dev)
+    step_ms = cuda_ms(lambda: gba._gn_schur_step(p, graph, state, lam, 60, False), 3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        gba.global_bundle_adjustment(p, n_gn=10, n_cg=60)
+        torch.cuda.synchronize()
+        wall_traced = (time.perf_counter() - t0) * 1e3
+    busy, top = _device_busy_ms(prof)
+
+    # the CPU: the same problem, then moved by one ulp
+    threads = torch.get_num_threads()
+    torch.set_num_threads(CPU_THREADS)
+    try:
+        pc = gba.problem_to(p, "cpu")
+        t0 = time.perf_counter()
+        p_cpu, info_cpu = gba.global_bundle_adjustment(pc, n_gn=10, n_cg=60)
+        cpu_wall = time.perf_counter() - t0
+        spread = 0.0
+        for name in ("lms", "poses"):
+            x = getattr(pc, name)
+            moved = dataclasses.replace(pc, **{name: torch.nextafter(
+                x, torch.full_like(x, float("inf")))})
+            p_ulp, _ = gba.global_bundle_adjustment(moved, n_gn=10, n_cg=60)
+            spread = max(spread, _max_diff(_states(p_ulp), _states(p_cpu)))
+    finally:
+        torch.set_num_threads(threads)
+    diff = _max_diff(_states(p_card), _states(p_cpu))
+    cost_diff = float(np.abs(costs - info_cpu["costs"].numpy()).max() / np.abs(costs).max())
+    check(info["n_pruned"] == info_cpu["n_pruned"],
+          f"card pruned {info['n_pruned']}, CPU {info_cpu['n_pruned']}")
+    check(torch.equal(p_card.obs_mask.cpu(), p_cpu.obs_mask), "pruned observations differ")
+    check(diff <= GBA_FACTOR * spread,
+          f"card and CPU GBA differ by {diff}, the CPU's one-ulp spread is {spread}")
+    print(json.dumps({
+        "phase": 5, "card": card, "n_kf": p.poses.shape[0], "n_lm": p.lms.shape[0],
+        "n_obs": n_valid, "reference_n_obs_bench_r05": 52647,
+        "imu_factors": p.imu_i.shape[0], "n_gn": 10, "n_gn_round1": 5, "n_cg": 60,
+        "build_s": t_build, "wall_s": wall, "gn_step_ms": step_ms,
+        "round1_costs": costs1.tolist(), "costs": costs.tolist(),
+        "n_pruned": info["n_pruned"], "ate_before_m": ate0, "ate_after_m": ate1,
+        "launches": launches, "wall_ms_traced": wall_traced, "device_busy_ms": busy,
+        "device_idle_share": 1.0 - busy / wall_traced, "device_ms_by_kernel": top,
+        "cpu_threads": CPU_THREADS, "cpu_wall_s": cpu_wall, "card_vs_cpu_state_diff": diff,
+        "card_vs_cpu_cost_rel_diff": cost_diff, "cpu_one_ulp_spread": spread,
+        "factor": GBA_FACTOR, "elapsed_s": time.perf_counter() - t_phase}))
+
+
+def phase6(dev, card, gpu_run, vocab, world):
+    """`MapManager.run_gba` on phase 2's merged bench map (2 agents x 128
+    KF), on the card, and the CPU plain version on copies of the card run's
+    map taken just before, so that the comparison isolates GBA from the
+    pose-graph solves before it.
+
+    The pruning between the rounds is checked two ways.  On one and the
+    same round-1 state (solved on the card), the card's outlier decisions
+    (K8) must equal the CPU plain version's exactly.  Across whole runs,
+    the decisions follow the round-1 state, which the Huber round's 5 x 60
+    PCG steps leave far from converged: on this map one ulp of input moves
+    the CPU's own round-1 state by about 3e-3 and flips 10-20 of its
+    pruning decisions.  So the card's run may prune a few observations
+    other than the CPU's, and is held to GBA_FACTOR times the number the
+    CPU flips when its own landmarks or poses move by one ulp (two more CPU
+    runs).  Printed: each run's pruned count, the ATE to the agents' ground
+    truth before and after, the state differences."""
+    import copy
+
+    import torch
+
+    from covins_tpu_torch.agents.synthetic_agent import SyntheticAgent
+    from covins_tpu_torch.models.map_manager import MapManager
+    from covins_tpu_torch.ops import gba
+
+    t_phase = time.perf_counter()
+    mgr = gpu_run["mgr"]
+    cfg = mgr.cfg
+    mid = mgr.map_of_client[0]
+    check(mgr.map_of_client[1] == mid, "the bench agents' maps were not merged")
+    mp = mgr.maps[mid]
+    mp.commit_landmark_attributes()
+    cpu_maps = [copy.deepcopy(mp) for _ in range(3)]
+    for m in cpu_maps:
+        m.device = torch.device("cpu")
+    cpu_maps[1].lm_pos[...] = np.nextafter(cpu_maps[1].lm_pos, np.inf)
+    cpu_maps[2].kf_pose[...] = np.nextafter(cpu_maps[2].kf_pose, np.inf)
+    gt = {cid: SyntheticAgent(world, cid, n_keyframes=128, t0=5.0 * cid).traj.poses
+          for cid in (0, 1)}
+
+    def map_ate(m):
+        rows = m.live_kf_rows()
+        est = m.kf_pose[rows, 4:7]
+        ref = np.stack([gt[int(c)][int(k), 4:7] for k, c in m.kf_ids[rows]])
+        return ate(est, ref)
+
+    # the pruning decision on one round-1 state, card against CPU
+    p = mp.to_gba_problem()
+    graph = gba.obs_graph(p)
+    st, _ = gba._gba_rounds(p, graph, 5, 60, 1e-4, False, 2.447)
+    p1 = gba._with_state(p, st)
+    keep_card = gba._reproj_outlier_mask(p1, graph, cfg.th_gba_outlier_global)
+    p1_cpu = gba.problem_to(p1, "cpu")
+    keep_cpu = gba._reproj_outlier_mask(p1_cpu, gba.obs_graph(p1_cpu),
+                                        cfg.th_gba_outlier_global)
+    check(torch.equal(keep_card.cpu(), keep_cpu),
+          "card and CPU prune other observations of the same state")
+
+    ate0 = map_ate(mp)
+    n_obs = int(mp.obs_mask[: mp.n_obs].sum())
+    wrappers = kernel_wrappers()
+    for k in wrappers.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    info = mgr.run_gba(mid)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in wrappers.items()}
+    for name in GBA_KERNELS:
+        check(launches[name] > 0, f"run_gba never launched {name}")
+    check(np.isfinite(info["costs"]).all() and (np.diff(info["costs"]) <= 0).all(),
+          f"run_gba costs: {info['costs']}")
+    ate1 = map_ate(mp)
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(CPU_THREADS)
+    infos, cpu_walls = [], []
+    try:
+        cpu_mgr = MapManager(vocab, cfg, device="cpu")
+        for m in cpu_maps:
+            cpu_mgr.maps[mid] = m
+            t0 = time.perf_counter()
+            infos.append(cpu_mgr.run_gba(mid))
+            cpu_walls.append(time.perf_counter() - t0)
+    finally:
+        torch.set_num_threads(threads)
+    cpu_map = cpu_maps[0]
+    flips = int((mp.obs_mask != cpu_map.obs_mask).sum())
+    cpu_flips = [int((m.obs_mask != cpu_map.obs_mask).sum()) for m in cpu_maps[1:]]
+    check(flips <= GBA_FACTOR * max(max(cpu_flips), 1),
+          f"run_gba on the card pruned {flips} observations other than the CPU's; "
+          f"one ulp moves the CPU's own decisions by {cpu_flips}")
+    states = ("kf_pose", "kf_vel", "kf_bias", "lm_pos")
+    diff = max(float(np.abs(getattr(mp, k) - getattr(cpu_map, k)).max()) for k in states)
+    spread = max(float(np.abs(getattr(m, k) - getattr(cpu_map, k)).max())
+                 for m in cpu_maps[1:] for k in states)
+    print(json.dumps({
+        "phase": 6, "card": card, "n_kf": int(mp.n_kf), "n_lm": int(mp.lm_mask.sum()),
+        "n_obs": n_obs, "loops": len(mp.loops),
+        "round1_pruned_same_state": int((p1.obs_mask & ~keep_card).sum()),
+        "n_pruned": info["n_pruned"], "cpu_n_pruned": [i["n_pruned"] for i in infos],
+        "pruned_differently": flips, "cpu_one_ulp_pruned_differently": cpu_flips,
+        "costs": info["costs"].tolist(), "round1_costs": info["round1_costs"].tolist(),
+        "ate_before_m": ate0, "ate_after_m": ate1, "ate_after_cpu_m": map_ate(cpu_map),
+        "wall_s": wall, "cpu_wall_s": cpu_walls[0], "card_vs_cpu_state_diff": diff,
+        "cpu_one_ulp_spread": spread, "factor": GBA_FACTOR, "launches": launches,
+        "elapsed_s": time.perf_counter() - t_phase}))
+    return launches
+
+
 SOURCES = {
     # the Pallas kernel hamming_pallas.py::hamming_distance_packed_T was
     # removed from the JAX package; this is its live equivalent
@@ -955,6 +1455,12 @@ SOURCES = {
                   "covins_tpu/ops/pnp.py:338"),
     "pgo_matvec": ("covins_tpu_torch/csrc/pgo_matvec.cu",
                    "covins_tpu/ops/pgo.py:187"),
+    "gba_reproj_blocks": ("covins_tpu_torch/csrc/gba_reproj_blocks.cu",
+                          "covins_tpu/ops/gba.py:115"),
+    "gba_reduced_matvec": ("covins_tpu_torch/csrc/gba_reduced_matvec.cu",
+                           "covins_tpu/ops/gba.py:214"),
+    "imu_preintegrate": ("covins_tpu_torch/csrc/imu_preintegrate.cu",
+                         "covins_tpu/ops/imu.py:137"),
 }
 
 
@@ -983,14 +1489,21 @@ def main():
     print(json.dumps({"phase": 0, "build_s": t_build, "kernels": sorted(logs)}))
     check(sorted(logs) == sorted(SOURCES), "a kernel source was not built")
 
-    phase1(dev)
+    gba_table = phase1(dev)
     print(json.dumps({"phase": 1, "elapsed_s": time.perf_counter() - t_start}))
-    table = phase2(dev, card)
+    table, gpu_run, vocab, world = phase2(dev, card)
     print(json.dumps({"phase": 2, "elapsed_s": time.perf_counter() - t_start}))
     phase3(dev, card, n_kf=32)
     print(json.dumps({"phase": 3, "elapsed_s": time.perf_counter() - t_start}))
     phase4(dev, card)
     print(json.dumps({"phase": 4, "elapsed_s": time.perf_counter() - t_start}))
+    phase5(dev, card)
+    print(json.dumps({"phase": 5, "elapsed_s": time.perf_counter() - t_start}))
+    gba_launches = phase6(dev, card, gpu_run, vocab, world)
+    print(json.dumps({"phase": 6, "elapsed_s": time.perf_counter() - t_start}))
+    for name, row in gba_table.items():
+        row["launches"] = gba_launches[name]
+    table.update(gba_table)
 
     kernels = []
     for name, row in table.items():

@@ -56,12 +56,26 @@ SIGNATURES = {
         "covins_pgo_matvec": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _D, _P,
                               _P],
     },
+    "gba_reproj_blocks": {
+        "covins_gba_reproj_blocks": [_I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I,
+                                     _P, _P, _I, _P, _P, _I, _D] + [_P] * 10,
+    },
+    "gba_reduced_matvec": {
+        "covins_gba_reduced_matvec": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I,
+                                      _P, _P, _I, _I, _P, _P, _P, _P],
+    },
+    "imu_preintegrate": {
+        "covins_imu_preintegrate": [_P] * 6 + [_I, _I, _D, _D] + [_P] * 7,
+    },
 }
-# sources whose float64 gates must round as the plain versions' separate
-# tensor operations do: no fused multiply-add contraction
+# sources whose float64 arithmetic must round as the plain versions'
+# separate tensor operations do: no fused multiply-add contraction
 EXTRA_FLAGS = {
     "project_match": ["--fmad=false"],
     "p3p_score": ["--fmad=false"],
+    "gba_reproj_blocks": ["--fmad=false"],
+    "gba_reduced_matvec": ["--fmad=false"],
+    "imu_preintegrate": ["--fmad=false"],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -1,13 +1,14 @@
-"""Map manager: per-agent map registry, loop correction, map merging and
-the pose-graph solve.
+"""Map manager: per-agent map registry, loop correction, map merging, the
+pose-graph solve and global bundle adjustment.
 
 Counterpart of `covins_tpu/models/map_manager.py` (`MapManager`,
 `map_be.cpp:37-322`): one map per new agent, attachment of loaded maps, id
 resolution across maps; an accepted loop inside one map fuses duplicated
 landmarks, records the constraint and seeds the pose-graph solve with the
 loop-corrected poses; a loop across maps merges the query's map into the
-candidate's.  Host bookkeeping is numpy; the solve runs on the map's
-device (`ops/pgo.py`).
+candidate's; :meth:`MapManager.run_gba` runs global visual-inertial
+bundle adjustment on one map.  Host bookkeeping is numpy; the solves run
+on the map's device (`ops/pgo.py`, `ops/gba.py`).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from covins_tpu_torch.device import DeviceLike, resolve_device
 from covins_tpu_torch.models.kf_database import KeyframeDatabase
 from covins_tpu_torch.models.map_store import Map
 from covins_tpu_torch.models.placerec import LoopResult
+from covins_tpu_torch.ops import gba as gba_mod
 from covins_tpu_torch.ops import pgo as pgo_mod
 from covins_tpu_torch.utils import npgeo
 from covins_tpu_torch.utils.config import Config
@@ -233,3 +235,27 @@ class MapManager:
                           if cfg.use_robust_loss else 0.0))
         mp.apply_pose_graph_result(poses.cpu().numpy())
         self.n_pgo += 1
+
+    # ---------------------------------------------------------------- admin
+    def run_gba(self, map_id: int, visual_only: bool = False,
+                outlier_removal: bool = True,
+                time_budget_s: Optional[float] = None) -> dict:
+        """`CallbackGBA` (`backend.cpp:128-176`): global bundle adjustment
+        of one map on its device, pruning whitened residuals above
+        `th_gba_outlier_global` (`optimization_be.cpp:269-292`), then the
+        write-back and, when observations were pruned, the landmark
+        attribute refresh.  Returns the solver's info dict (``costs`` and
+        ``round1_costs`` as numpy arrays, ``n_pruned``, ``time_budget_hit``
+        when the budget cut the solve)."""
+        mp = self.maps[map_id]
+        p = mp.to_gba_problem()
+        p2, info = gba_mod.global_bundle_adjustment(
+            p, n_gn=self.cfg.gba_iteration_limit, n_cg=60,
+            visual_only=visual_only, outlier_removal=outlier_removal,
+            th_outlier=self.cfg.th_gba_outlier_global,
+            time_budget_s=time_budget_s)
+        mp.apply_gba_result(p2)
+        if outlier_removal and info.get("n_pruned", 0) > 0:
+            mp.update_landmark_attributes()
+        return {k: (v.cpu().numpy() if hasattr(v, "cpu") else v)
+                for k, v in info.items()}

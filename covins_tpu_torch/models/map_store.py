@@ -9,8 +9,10 @@ loop constraints and the pose-graph snapshot and write-back.  The batched
 landmark-attribute refresh runs on the device (`ops/landmark_ops.py`,
 kernel K2); the pose graph is handed to `ops/pgo.py` on the map's device.
 
-Keyframe culling (`erase_keyframe`, `remove_redundant_keyframes`),
-`match_features` and `to_gba_problem` belong to the GBA and COVINS-G parts
+The GBA snapshot (:meth:`Map.to_gba_problem`) re-propagates each stored
+IMU window on the map's device (kernel K10) and hands the problem to
+`ops/gba.py`.  Keyframe culling (`erase_keyframe`,
+`remove_redundant_keyframes`) and `match_features` belong to later parts
 of the port and are not here yet.
 """
 
@@ -24,9 +26,12 @@ import torch
 
 from covins_tpu_torch.comm import messages as msgs
 from covins_tpu_torch.device import DeviceLike, resolve_device
+from covins_tpu_torch.ops import gba as gba_mod
+from covins_tpu_torch.ops import imu as imu_mod
 from covins_tpu_torch.ops import landmark_ops
 from covins_tpu_torch.ops import pgo as pgo_mod
 from covins_tpu_torch.ops import residuals as res_mod
+from covins_tpu_torch.utils import cameras as cam_mod
 from covins_tpu_torch.utils import npgeo
 
 IdPair = Tuple[int, int]
@@ -664,6 +669,11 @@ class Map:
         self.kf_is_loop[kf1] = True
         self.kf_is_loop[kf2] = True
 
+    def _on_device(self, a, dtype=torch.float64) -> torch.Tensor:
+        """A copy of ``a`` on the map's device (never a view of the map's
+        arrays, which the write-backs change in place)."""
+        return torch.tensor(np.asarray(a), dtype=dtype, device=self.device)
+
     # ------------------------------------------------------------ pose graph
     def to_pose_graph(
         self,
@@ -742,10 +752,7 @@ class Map:
         # touched them (else the whole map drifts with the gauge)
         poses[fixed] = self.kf_pose[:n][fixed]
         dev = self.device
-
-        def t(a, dtype):
-            return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
-
+        t = self._on_device
         return pgo_mod.PoseGraph(
             poses=t(poses, torch.float64), pose_mask=t(pose_mask, torch.bool),
             fixed=t(fixed, torch.bool), edge_i=t(ei, torch.int64),
@@ -778,6 +785,95 @@ class Map:
                 p_ref = npgeo.pose_apply(npgeo.pose_inverse(old[refs]),
                                          self.lm_pos[lrows])
                 self.lm_pos[lrows] = npgeo.pose_apply(self.kf_pose[refs], p_ref)
+
+    # ------------------------------------------------------------------ GBA
+    def to_gba_problem(self, octave_base_sigma: float = 2.0) -> gba_mod.GBAProblem:
+        """GBA snapshot on the map's device: keyframe states, landmarks,
+        the observation COO with octave sigma weights
+        (`optimization_be.cpp:178-235`) on the DISTORTED pixels (`:183`),
+        IMU factors re-propagated from the stored raw samples at the
+        current bias (`:132-143`; kernel K10 on the card), loop edges, and
+        the first live keyframe's pose as the gauge."""
+        n, m, o = self.n_kf, self.n_lm, self.n_obs
+        if not self.calib:
+            raise ValueError("no calibration registered; cannot build GBA")
+        calib = next(iter(self.calib.values()))
+        cam = cam_mod.camera_from_calibration(calib, self.device)
+        noise = imu_mod.ImuNoise(
+            acc_noise=float(calib.acc_noise), gyro_noise=float(calib.gyro_noise),
+            acc_walk=float(calib.acc_walk), gyro_walk=float(calib.gyro_walk))
+        t = self._on_device
+
+        # observation weights from the octave, in float32 as the reference
+        octs = self.kp_aors[self.obs_kf[:o], self.obs_feat[:o], 1]
+        obs_w = 1.0 / (octave_base_sigma * (octs + 1.0))
+        obs_uv = self.kp_uv[self.obs_kf[:o], self.obs_feat[:o]]
+
+        # IMU factors: KF j's stored window covers (pred(j) -> j)
+        fi, fj = [], []
+        for r in range(n):
+            pr = self.kf_pred[r]
+            if pr >= 0 and self.imu_n[r] > 0 and self.kf_mask[r] and self.kf_mask[pr]:
+                fi.append(int(pr))
+                fj.append(r)
+        if not fi:
+            fi, fj = [0], [0]
+        fi, fj = np.asarray(fi, np.int64), np.asarray(fj, np.int64)
+        smask = (np.arange(self.imu_max_samples)[None, :]
+                 < self.imu_n[fj][:, None]).astype(np.float64)
+        pre = imu_mod.preintegrate(
+            t(self.imu_acc[fj]), t(self.imu_gyro[fj]), t(self.imu_dts[fj]), t(smask),
+            t(self.kf_bias[fi, :3]), t(self.kf_bias[fi, 3:]), noise)
+
+        if self.loops:
+            li = [lc["kf1"] for lc in self.loops]
+            lj = [lc["kf2"] for lc in self.loops]
+            lT = np.stack([lc["T_12"] for lc in self.loops])
+            lS = np.stack([
+                np.diag([100.0] * 3 + [1e4] * 3) if lc["cov"] is None
+                else np.linalg.cholesky(np.linalg.inv(
+                    np.asarray(lc["cov"]) + 1e-12 * np.eye(6))).T
+                for lc in self.loops])
+            lmask = np.ones(len(self.loops), bool)
+        else:
+            li = lj = [0]
+            lT = npgeo.pose_identity()[None]
+            lS = np.zeros((1, 6, 6))
+            lmask = np.zeros(1, bool)
+
+        fixed = np.zeros(n, bool)
+        live = self.live_kf_rows()
+        if len(live):
+            fixed[live[0]] = True
+        return gba_mod.GBAProblem(
+            poses=t(self.kf_pose[:n]), vels=t(self.kf_vel[:n]),
+            biases=t(self.kf_bias[:n]), kf_mask=t(self.kf_mask[:n], torch.bool),
+            kf_fixed=t(fixed, torch.bool), cam=cam,
+            lms=t(self.lm_pos[:m]), lm_mask=t(self.lm_mask[:m], torch.bool),
+            obs_kf=t(self.obs_kf[:o], torch.int64), obs_lm=t(self.obs_lm[:o], torch.int64),
+            obs_uv=t(obs_uv), obs_w=t(obs_w), obs_mask=t(self.obs_mask[:o], torch.bool),
+            imu_i=t(fi, torch.int64), imu_j=t(fj, torch.int64), imu_pre=pre,
+            imu_sqrt_info=gba_mod.imu_sqrt_info_from_cov(pre.cov),
+            bias_sqrt_info=gba_mod.bias_walk_sqrt_info(noise, pre.dt),
+            imu_mask=pre.dt > 1e-6,
+            gravity=t([0.0, 0.0, -float(calib.gravity_mag)]),
+            loop_i=t(li, torch.int64), loop_j=t(lj, torch.int64), loop_T=t(lT),
+            loop_sqrt_info=t(lS), loop_mask=t(lmask, torch.bool))
+
+    def apply_gba_result(self, problem: gba_mod.GBAProblem):
+        """Write back optimised keyframe states, landmark positions and the
+        pruned observation mask (`optimization_be.cpp:560-617`)."""
+        n, m = self.n_kf, self.n_lm
+        live = self.kf_mask[:n]
+        self.kf_pose[:n][live] = problem.poses.cpu().numpy()[:n][live]
+        self.kf_vel[:n][live] = problem.vels.cpu().numpy()[:n][live]
+        self.kf_bias[:n][live] = problem.biases.cpu().numpy()[:n][live]
+        self.kf_pose_optimized[:n][live] = True
+        self.kf_in_gba[:n][live] = True
+        lml = self.lm_mask[:m]
+        self.lm_pos[:m][lml] = problem.lms.cpu().numpy()[:m][lml]
+        self.lm_optimized[:m][lml] = True
+        self.obs_mask[: self.n_obs] = problem.obs_mask.cpu().numpy()
 
     # ----------------------------------------------------------- persistence
     def save(self, path: str):

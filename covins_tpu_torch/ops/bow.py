@@ -19,6 +19,7 @@ import torch
 from covins_tpu_torch import cuda_build
 from covins_tpu_torch.device import check_cuda, is_cpu
 from covins_tpu_torch.ops import descriptors as desc
+from covins_tpu_torch.ops import linalg
 
 
 def train_vocabulary(descs_u8: torch.Tensor, k: int = 1024, iters: int = 8,
@@ -86,7 +87,7 @@ def bow_vectors_batch(word_ids: torch.Tensor, k: int,
     counts.scatter_add_(1, torch.where(valid, word_ids, 0).long(),
                         valid.float())
     v = counts if idf is None else counts * idf
-    n = torch.sqrt((v * v).sum(-1, keepdim=True))
+    n = linalg.sqrt_rn((v * v).sum(-1, keepdim=True))
     return v / torch.clamp(n, min=1e-12)
 
 

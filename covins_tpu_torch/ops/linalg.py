@@ -17,7 +17,22 @@ differentiated, so they write into their scratch tensors in place.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def sqrt_rn(x):
+    """Square root rounded to nearest, as IEEE 754 asks and as the card's
+    ``sqrt`` and the JAX package's compute it.  PyTorch's vectorised CPU
+    ``sqrt`` is not correctly rounded on every host (off by one ulp in
+    about one float32 result in five on an AVX512 host), so a CPU tensor
+    goes through numpy's ``sqrt``, which is; a CUDA tensor keeps
+    ``torch.sqrt``.  Plain versions whose square root feeds an exact
+    comparison with a kernel or the reference take it (not differentiable
+    on the CPU)."""
+    if x.device.type != "cpu":
+        return torch.sqrt(x)
+    return torch.from_numpy(np.sqrt(x.detach().numpy()))
 
 
 def inv33(A):

@@ -19,6 +19,7 @@ import torch
 
 from covins_tpu_torch import cuda_build
 from covins_tpu_torch.device import check_cuda, is_cpu
+from covins_tpu_torch.ops import linalg
 from covins_tpu_torch.ops import polynomial as poly
 from covins_tpu_torch.ops import ransac
 from covins_tpu_torch.utils import geometry as geo
@@ -102,7 +103,7 @@ def reprojection_angular_error(T_c_w, points_w, bearings):
     p0 = (v0 + 2.0 * (w * uv0 + c0)) + T_c_w[..., 4:5]
     p1 = (v1 + 2.0 * (w * uv1 + c1)) + T_c_w[..., 5:6]
     p2 = (v2 + 2.0 * (w * uv2 + c2)) + T_c_w[..., 6:7]
-    nrm = torch.sqrt((p0 * p0 + p1 * p1) + p2 * p2)
+    nrm = linalg.sqrt_rn((p0 * p0 + p1 * p1) + p2 * p2)
     den = torch.clamp(nrm, min=1e-12)
     cosang = ((p0 / den) * bearings[:, 0] + (p1 / den) * bearings[:, 1]) \
         + (p2 / den) * bearings[:, 2]

@@ -23,6 +23,7 @@ import torch
 from covins_tpu_torch import cuda_build
 from covins_tpu_torch.device import check_cuda, is_cpu
 from covins_tpu_torch.ops import descriptors as d_ops
+from covins_tpu_torch.ops import linalg
 from covins_tpu_torch.utils import cameras as cam_mod
 from covins_tpu_torch.utils import geometry as geo
 
@@ -80,7 +81,7 @@ def gated_match_plain(uv, lm_ok, pred, has_rng, lm_desc, kp_uv, kp_oct,
             r = rows[r0:r0 + _ROW_CHUNK]
             dx = uv[r, None, 0] - kx[None, :]
             dy = uv[r, None, 1] - ky[None, :]
-            d_px = torch.sqrt(dx * dx + dy * dy)
+            d_px = linalg.sqrt_rn(dx * dx + dy * dy)
             oct_ok = (torch.abs(k_oct[None, :] - pred[r, None]) <= 1.0) \
                 | ~has_rng[r, None]
             in_radius = (d_px <= k_rad[None, :]) & oct_ok

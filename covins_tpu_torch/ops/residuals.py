@@ -1,6 +1,8 @@
-"""Factor residuals of the relative-pose and pose-graph solves.
+"""Factor residuals of the relative-pose, pose-graph and bundle-adjustment
+solves.
 
 Counterpart of the COVINS-path part of `covins_tpu/ops/residuals.py`:
+the global reprojection residual of GBA with its written-out Jacobian,
 `SixDofBetweenError` for loop and odometry edges, the paired relative
 reprojection residual of `OptimizeRelativePose` (kNormal / kInverse,
 `optimization_be.cpp:620-831`), the sqrt-information of a covariance and
@@ -8,7 +10,8 @@ the Cauchy IRLS weight.  The pose-graph Jacobians come from
 ``torch.func.jacfwd`` on a right-tangent perturbation, as the reference's
 from ``jax.jacfwd``; the relative-pose residual, evaluated on every match
 sixteen times per verification, has its Jacobian written out
-(:func:`relative_reprojection_jacobian`).
+(:class:`RelativeProblem`), and so has the GBA reprojection residual
+(:func:`reprojection_jacobian`).
 """
 
 from __future__ import annotations
@@ -18,6 +21,44 @@ import torch
 from covins_tpu_torch.ops import linalg
 from covins_tpu_torch.utils import cameras as cam_mod
 from covins_tpu_torch.utils import geometry as geo
+
+
+def reprojection_residual(cam: cam_mod.Camera, T_w_s, p_w, uv_obs):
+    """Pixel residual of a world point observed by a keyframe.
+
+    T_w_s: (..., 7) body-to-world pose; p_w: (..., 3); uv_obs: (..., 2).
+    Returns ((..., 2) residual, (...,) valid)."""
+    p_s = geo.pose_apply(geo.pose_inverse(T_w_s), p_w)
+    p_c = geo.pose_apply(geo.pose_inverse(cam.T_s_c), p_s)
+    uv, valid = cam_mod.project3(cam, p_c)
+    return uv - uv_obs, valid
+
+
+def reprojection_jacobian(cam: cam_mod.Camera, T_w_s, p_w, uv_obs):
+    """:func:`reprojection_residual` with its Jacobians, written out where
+    the reference takes ``jax.jacfwd`` (`gba.py:138-139`): returns
+    (r (..., 2), valid (...,), J_pose (..., 2, 6), J_point (..., 2, 3)),
+    J_pose w.r.t. the right tangent xi = [w, v] of T_w_s at 0
+    (``T_w_s (+) xi``, `pose_boxplus`) and J_point w.r.t. p_w.  With
+    p_s = T_w_s^-1 p_w, ``Exp(xi)^-1 p_s = p_s + p_s x w - v`` to first
+    order, so d p_s / d xi = [[p_s]x | -I] and d p_s / d p_w = R_w_s^T;
+    then the extrinsic rotation R_c_s and `cameras.project3_jacobian`.  The
+    residual is computed as :func:`reprojection_residual` computes it."""
+    p_s = geo.pose_apply(geo.pose_inverse(T_w_s), p_w)
+    inv_c = geo.pose_inverse(cam.T_s_c)
+    p_c = geo.pose_apply(inv_c, p_s)
+    uv, valid, P = cam_mod.project3_jacobian(cam, p_c)
+    PR = P @ geo.quat_to_matrix(inv_c[:4])  # (..., 2, 3): d uv / d p_s
+    eye = torch.eye(3, dtype=p_s.dtype, device=p_s.device).expand(p_s.shape + (3,))
+    J_pose = PR @ torch.cat([_hat(p_s), -eye], dim=-1)
+    J_point = PR @ geo.quat_to_matrix(T_w_s[..., :4]).transpose(-1, -2)
+    return uv - uv_obs, valid, J_pose, J_point
+
+
+def reprojection_weight(octave, base_sigma: float = 2.0):
+    """1/sigma with sigma = (octave + 1) * 2 px (`optimization_be.cpp:206`),
+    float32 as the reference's."""
+    return 1.0 / (base_sigma * (octave.to(torch.float32) + 1.0))
 
 
 def six_dof_between_residual(T_w_i, T_w_j, T_ij_meas):

@@ -9,6 +9,9 @@ imports nothing of that package:
   reference database's matrix, row ids and mask;
 * :func:`messages_from_reference` — a reference message dataclass into the
   port's, field by field;
+* :func:`preintegrated_from_reference` and :func:`gba_problem_from_reference`
+  — a reference `Preintegrated` / `GBAProblem` (any object with those
+  fields) into the port's, on a device;
 * `Map.load` reads the npz that the reference `Map.save` writes.
 """
 
@@ -20,11 +23,15 @@ import numpy as np
 import torch
 
 from covins_tpu_torch.comm import messages as msgs
-from covins_tpu_torch.device import DeviceLike
+from covins_tpu_torch.device import DeviceLike, resolve_device
 from covins_tpu_torch.models.kf_database import KeyframeDatabase
+from covins_tpu_torch.ops import gba as gba_mod
+from covins_tpu_torch.ops import imu as imu_mod
+from covins_tpu_torch.utils import cameras as cam_mod
 
 __all__ = ["vocabulary_from_reference", "database_from_reference",
-           "messages_from_reference"]
+           "messages_from_reference", "preintegrated_from_reference",
+           "gba_problem_from_reference"]
 
 _MESSAGE_TYPES = {cls.__name__: cls for cls in (
     msgs.VICalibration, msgs.PreintegrationData, msgs.MsgKeyframe,
@@ -76,3 +83,43 @@ def messages_from_reference(msg):
             v = messages_from_reference(v)
         kw[f.name] = v
     return cls(**kw)
+
+
+def _tensor(x, device, index=False):
+    a = np.asarray(x)
+    if index:
+        return torch.as_tensor(a.astype(np.int64), device=device)
+    if a.dtype == bool:
+        return torch.as_tensor(a, device=device)
+    return torch.as_tensor(a.astype(np.float64), device=device)
+
+
+def preintegrated_from_reference(pre, device: DeviceLike = None) -> imu_mod.Preintegrated:
+    """A reference `Preintegrated` (batched or not) as the port's, field by
+    field, float64 on ``device``."""
+    dev = resolve_device(device)
+    return imu_mod.Preintegrated(**{
+        f.name: _tensor(getattr(pre, f.name), dev)
+        for f in dataclasses.fields(imu_mod.Preintegrated)})
+
+
+def gba_problem_from_reference(p, device: DeviceLike = None) -> gba_mod.GBAProblem:
+    """A reference `GBAProblem` as the port's: indices int64, masks bool,
+    everything else float64, the camera and the preintegrated factors
+    converted field by field."""
+    dev = resolve_device(device)
+    cam = p.cam
+    kw = {}
+    for f in dataclasses.fields(gba_mod.GBAProblem):
+        v = getattr(p, f.name)
+        if f.name == "cam":
+            kw[f.name] = cam_mod.Camera(
+                intrinsics=_tensor(cam.intrinsics, dev), dist=_tensor(cam.dist, dev),
+                T_s_c=_tensor(cam.T_s_c, dev), cam_model=int(cam.cam_model),
+                dist_model=int(cam.dist_model))
+        elif f.name == "imu_pre":
+            kw[f.name] = preintegrated_from_reference(v, dev)
+        else:
+            kw[f.name] = _tensor(v, dev, index=f.name in (
+                "obs_kf", "obs_lm", "imu_i", "imu_j", "loop_i", "loop_j"))
+    return gba_mod.GBAProblem(**kw)

@@ -125,3 +125,85 @@ def generate_landmarks(rng: np.random.Generator, n=500, radius=12.0):
     pts = rng.uniform(-1.0, 1.0, (n, 3))
     return pts * np.asarray([radius, radius, radius * 0.4]) + np.asarray(
         [0.0, 0.0, 2.0])
+
+
+# forward-looking camera of the GBA problems: optical axis = body x, i.e.
+# R_s_c = [[0, 0, 1], [-1, 0, 0], [0, -1, 0]] as a quaternion
+_T_S_C_FORWARD = (0.5, -0.5, 0.5, -0.5, 0.0, 0.0, 0.0)
+
+
+def build_gba_problem(n_kf=12, n_lm=96, seed=0, max_obs=None, device=None):
+    """Synthetic visual-inertial GBA problem, the counterpart of the JAX
+    package's `__graft_entry__._build_problem` (bench.py's GBA leg): the
+    figure-8 trajectory with exact IMU at 100 Hz, ``n_lm`` landmarks, a
+    forward-looking pinhole-radtan camera (458, 457, 376, 240, zero
+    distortion), every landmark seen by every keyframe that has it in
+    front (z > 0.3) and inside the 752 x 480 image, the visibility list
+    subsampled with a stride to at most ``max_obs``, padded to a multiple
+    of 8; keyframe 0 fixed, the others' poses perturbed by 0.02 per tangent
+    component.  The draws are numpy's (``seed``), not ``jax.random``'s, so
+    landmarks, perturbations and the observation count differ from the
+    reference's.  Returns (problem on ``device``, ground-truth poses
+    (K, 7), ground-truth landmarks (n_lm, 3)), numpy for the ground truth."""
+    from covins_tpu_torch.device import resolve_device
+    from covins_tpu_torch.ops import gba, imu
+    from covins_tpu_torch.utils import cameras as cam_mod
+    from covins_tpu_torch.utils import geometry as geo
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    traj = generate(n_keyframes=n_kf, kf_dt=0.5, imu_rate=100.0)
+    lms_gt = generate_landmarks(rng, n=n_lm)
+    cam_cpu = cam_mod.Camera(
+        intrinsics=torch.tensor([458.0, 457.0, 376.0, 240.0, 0.0], dtype=torch.float64),
+        dist=torch.zeros(4, dtype=torch.float64),
+        T_s_c=torch.tensor(_T_S_C_FORWARD, dtype=torch.float64),
+        cam_model=cam_mod.PINHOLE, dist_model=cam_mod.RADTAN)
+    poses_gt = torch.from_numpy(traj.poses)
+    T_c_w = geo.pose_inverse(geo.pose_compose(poses_gt, cam_cpu.T_s_c))
+    p_c = geo.pose_apply(T_c_w[:, None], torch.from_numpy(lms_gt)[None])  # (K, L, 3)
+    uv, valid = cam_mod.project3(cam_cpu, p_c)
+    uv, valid, p_c = uv.numpy(), valid.numpy(), p_c.numpy()
+    ok = (valid & (p_c[..., 2] > 0.3) & (uv[..., 0] > 0) & (uv[..., 0] < 752)
+          & (uv[..., 1] > 0) & (uv[..., 1] < 480))
+    kk, ll = np.nonzero(ok)
+    if max_obs is not None and len(kk) > max_obs:
+        stride = len(kk) // max_obs + 1
+        kk, ll = kk[::stride], ll[::stride]
+    n_obs = len(kk)
+    pad = (-n_obs) % 8
+    obs_kf = np.concatenate([kk, np.zeros(pad, np.int64)])
+    obs_lm = np.concatenate([ll, np.zeros(pad, np.int64)])
+    obs_uv = np.concatenate([uv[kk, ll], np.zeros((pad, 2))])
+    n_lm_pad = n_lm + (-n_lm) % 8
+
+    def t(a, dtype=torch.float64):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    noise = imu.default_noise()
+    zeros = torch.zeros((n_kf - 1, 3), dtype=torch.float64, device=dev)
+    pre = imu.preintegrate(t(traj.imu_acc), t(traj.imu_gyro), t(traj.imu_dts),
+                           t(traj.imu_mask), zeros, zeros, noise)
+    xi = 0.02 * rng.normal(size=(n_kf, 6)) * (np.arange(n_kf) > 0)[:, None]
+    poses = geo.pose_boxplus(poses_gt, torch.from_numpy(xi))
+    fixed = np.zeros(n_kf, bool)
+    fixed[0] = True
+    problem = gba.GBAProblem(
+        poses=t(poses), vels=t(traj.vels), biases=t(np.zeros((n_kf, 6))),
+        kf_mask=t(np.ones(n_kf, bool), torch.bool), kf_fixed=t(fixed, torch.bool),
+        cam=cam_mod.Camera(t(cam_cpu.intrinsics), t(cam_cpu.dist), t(cam_cpu.T_s_c),
+                           cam_mod.PINHOLE, cam_mod.RADTAN),
+        lms=t(np.concatenate([lms_gt, np.zeros((n_lm_pad - n_lm, 3))])),
+        lm_mask=t(np.arange(n_lm_pad) < n_lm, torch.bool),
+        obs_kf=t(obs_kf, torch.int64), obs_lm=t(obs_lm, torch.int64), obs_uv=t(obs_uv),
+        obs_w=t(np.full(len(obs_kf), 0.5)),
+        obs_mask=t(np.arange(n_obs + pad) < n_obs, torch.bool),
+        imu_i=t(np.arange(n_kf - 1), torch.int64), imu_j=t(np.arange(1, n_kf), torch.int64),
+        imu_pre=pre, imu_sqrt_info=gba.imu_sqrt_info_from_cov(pre.cov),
+        bias_sqrt_info=gba.bias_walk_sqrt_info(noise, pre.dt),
+        imu_mask=t(np.ones(n_kf - 1, bool), torch.bool),
+        gravity=t([0.0, 0.0, -GRAVITY]),
+        loop_i=t([0], torch.int64), loop_j=t([0], torch.int64),
+        loop_T=t([[1.0, 0, 0, 0, 0, 0, 0]]), loop_sqrt_info=t(np.zeros((1, 6, 6))),
+        loop_mask=t([False], torch.bool))
+    return problem, traj.poses, lms_gt

@@ -25,7 +25,8 @@ def test_port_modules_import_without_jax():
     for name in ("models.session", "models.placerec", "models.map_manager",
                  "ops.loopverify", "ops.projmatch", "ops.pnp", "ops.pgo",
                  "ops.relpose", "ops.residuals", "ops.polynomial", "ops.ransac",
-                 "ops.linalg", "utils.geometry", "utils.cameras"):
+                 "ops.linalg", "ops.gba", "ops.imu", "utils.geometry",
+                 "utils.cameras", "utils.synthetic"):
         assert f"covins_tpu_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"

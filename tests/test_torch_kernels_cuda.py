@@ -1,4 +1,4 @@
-"""The seven CUDA kernels against their plain versions, on the card.
+"""The ten CUDA kernels against their plain versions, on the card.
 
 These tests need a CUDA card and the CUDA toolkit (the kernels are built
 with nvcc at first use); without a card they skip.  On the machine with the
@@ -18,7 +18,13 @@ exactly; K5's matches and distances exactly (its float64 gates are built
 without FMA contraction, as the plain version's separate operations
 round); K6's counts, best pose and inlier mask exactly, except for a
 correspondence within 1e-12 rad of the threshold; K7 to 1e-12 relative
-and bit for bit between two launches.
+and bit for bit between two launches; K8 and K10 to 1e-13 relative, K9
+to 1e-13 of the sums of magnitudes behind each output (a landmark seen
+once or twice has a nearly singular Hll, so its terms cancel), all
+float64, built without FMA contraction, summing each keyframe's and
+landmark's observations in the plain version's order and rounded apart
+only where PyTorch's library products sum another way; bit for bit
+between two launches; K8's validity and outlier decisions exactly.
 """
 
 import numpy as np
@@ -224,3 +230,139 @@ def test_pgo_matvec_kernel_matches_plain(dev, N, E):
     ref = pgo.matvec_plain(v, free, Ji, Jj, graph, 1e-6)
     rel = (out - ref).abs().max() / ref.abs().max()
     assert float(rel) <= 1e-12
+
+
+def _gba_problem(n_kf, n_lm, max_obs, dev, seed=0):
+    """A synthetic GBA problem on the card, with a dead keyframe, dead
+    landmarks, masked and invalid observations and one live loop edge."""
+    import dataclasses
+
+    from covins_tpu_torch.ops import gba
+    from covins_tpu_torch.utils import synthetic
+
+    p, _, _ = synthetic.build_gba_problem(n_kf=n_kf, n_lm=n_lm, seed=seed,
+                                          max_obs=max_obs, device="cpu")
+    rng = np.random.default_rng(seed)
+    o = p.obs_kf.shape[0]
+    uv = p.obs_uv.clone()
+    uv[: o // 10] += torch.from_numpy(20.0 * rng.normal(size=(o // 10, 2)))
+    lms = p.lms.clone()
+    lms[int(p.obs_lm[0])] = p.poses[int(p.obs_kf[0]), 4:7]  # at the camera: invalid
+    kf_mask = p.kf_mask.clone()
+    kf_mask[n_kf // 2] = False
+    lm_mask = p.lm_mask & torch.from_numpy(rng.random(p.lm_mask.shape[0]) > 0.05)
+    obs_mask = p.obs_mask & torch.from_numpy(rng.random(o) > 0.05)
+    obs_w = p.obs_w * torch.from_numpy(1.0 / (1.0 + rng.integers(0, 4, o)))
+    p = dataclasses.replace(p, obs_uv=uv, lms=lms, kf_mask=kf_mask, lm_mask=lm_mask,
+                            obs_mask=obs_mask, obs_w=obs_w,
+                            loop_i=torch.tensor([1]), loop_j=torch.tensor([n_kf - 1]),
+                            loop_T=p.poses[None, 0].clone(),
+                            loop_sqrt_info=torch.eye(6, dtype=torch.float64)[None],
+                            loop_mask=torch.tensor([True]))
+    return p, gba.problem_to(p, dev)
+
+
+def _rel(a, b):
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-300)) if b.numel() else 0.0
+
+
+@pytest.mark.parametrize("F,S", [(1, 1), (7, 50), (255, 256)])
+def test_imu_preintegrate_kernel_matches_plain(dev, F, S):
+    from covins_tpu_torch.ops import imu
+
+    rng = np.random.default_rng(F + S)
+    acc = rng.normal(size=(F, S, 3)) + [0.0, 0.0, 9.81]
+    gyro = 0.5 * rng.normal(size=(F, S, 3))
+    dts = np.full((F, S), 0.005)
+    mask = (np.arange(S)[None, :] < rng.integers(1, S + 1, F)[:, None]).astype(np.float64)
+    bg, ba = 0.01 * rng.normal(size=(F, 3)), 0.05 * rng.normal(size=(F, 3))
+    args = [torch.tensor(x, device=dev) for x in (acc, gyro, dts, mask, bg, ba)]
+    before = imu.preintegrate.launches
+    got = imu.preintegrate(*args, imu.default_noise())
+    assert imu.preintegrate.launches == before + 1
+    again = imu.preintegrate(*args, imu.default_noise())
+    ref = imu.preintegrate_plain(*args, imu.default_noise())
+    for name in ("dq", "dv", "dp", "J_q_bg", "J_v_bg", "J_v_ba", "J_p_bg", "J_p_ba",
+                 "cov", "dt"):
+        g, r = getattr(got, name), getattr(ref, name)
+        assert torch.equal(g, getattr(again, name)), name
+        assert _rel(g, r) <= 1e-13, (name, _rel(g, r))
+
+
+@pytest.mark.parametrize("huber", [0.0, 2.447])
+@pytest.mark.parametrize("n_kf,n_lm,max_obs", [(3, 16, None), (12, 150, 700)])
+def test_gba_reproj_blocks_kernel_matches_plain(dev, huber, n_kf, n_lm, max_obs):
+    from covins_tpu_torch.ops import gba
+
+    pc, pd = _gba_problem(n_kf, n_lm, max_obs, dev)
+    gc, gd = gba.obs_graph(pc), gba.obs_graph(pd)
+    before = gba.reproj_blocks.launches
+    got = gba.reproj_blocks(pd, gd, huber, "linearize")
+    assert gba.reproj_blocks.launches == before + 1
+    again = gba.reproj_blocks(pd, gd, huber, "linearize")
+    ref = gba.reproj_blocks_plain(pd, gd, huber, "linearize")
+    cpu = gba.reproj_blocks(pc, gc, huber, "linearize")
+    for g, a, r, c in zip(got, again, ref, cpu):
+        assert torch.equal(g, a)
+        assert _rel(g, r) <= 1e-13 and _rel(g.cpu(), c) <= 1e-13
+    for mode in ("cost", "outlier"):
+        val, valid = gba.reproj_blocks(pd, gd, huber, mode)
+        rval, rvalid = gba.reproj_blocks_plain(pd, gd, huber, mode)
+        assert torch.equal(valid, rvalid) and not bool(valid.all())
+        assert _rel(val, rval) <= 1e-13
+    # the outlier decision at the threshold is the plain version's
+    val, valid = gba.reproj_blocks(pd, gd, 0.0, "outlier")
+    cval, cvalid = gba.reproj_blocks(pc, gc, 0.0, "outlier")
+    assert torch.equal((val < 0.92).cpu(), cval < 0.92)
+
+
+@pytest.mark.parametrize("n_kf,n_lm,max_obs", [(3, 16, None), (12, 150, 700)])
+def test_gba_reduced_matvec_kernel_matches_plain(dev, n_kf, n_lm, max_obs):
+    from covins_tpu_torch.ops import gba, linalg
+
+    _, pd = _gba_problem(n_kf, n_lm, max_obs, dev)
+    g = gba.obs_graph(pd)
+    _, Jp, Jl, _, _, _, Hll = gba.reproj_blocks_plain(pd, g, 0.0, "linearize")
+    eye = torch.eye(3, dtype=torch.float64, device=dev)
+    Hinv = (linalg.inv33(Hll + 1e-4 * eye) * pd.lm_mask[:, None, None]).contiguous()
+    rng = np.random.default_rng(n_kf)
+    n, m = pd.poses.shape[0], pd.lms.shape[0]
+    v6 = torch.tensor(rng.normal(size=(n, 6)), device=dev)
+    c = torch.tensor(rng.normal(size=(m, 3)), device=dev)
+    for vv, cc, t_only in ((v6, None, False), (None, c, False), (v6, c, False),
+                           (v6, None, True)):
+        before = gba.reduced_matvec.launches
+        got = gba.reduced_matvec(vv, cc, Jp, Jl, Hinv, g, n, t_only)
+        assert gba.reduced_matvec.launches == before + 1
+        assert torch.equal(got, gba.reduced_matvec(vv, cc, Jp, Jl, Hinv, g, n, t_only))
+        ref = gba.reduced_matvec_plain(vv, cc, Jp, Jl, Hinv, g, n, t_only)
+        # relative to the sums of magnitudes behind each output: a landmark
+        # seen once or twice has a nearly singular Hll, and J_lm Hll^-1 (...)
+        # cancels terms many orders larger than its result
+        a = [None if x is None else x.abs() for x in (vv, cc, Jp, Jl, Hinv)]
+        t = gba.reduced_matvec_plain(a[0], None, a[2], a[3], a[4], g, n, t_only=True)
+        if t_only:
+            scale = t
+        else:
+            scale = gba.reduced_matvec_plain(a[0], None, a[2], a[3], a[4] * 0, g, n) \
+                - gba.reduced_matvec_plain(None, t if a[1] is None else t + a[1], a[2],
+                                           a[3], a[4], g, n)
+        assert float(((got - ref).abs() / scale.clamp(min=1e-300)).max()) <= 1e-13
+
+
+def test_gba_kernels_refuse_bad_inputs(dev):
+    from covins_tpu_torch.ops import gba, imu
+
+    _, pd = _gba_problem(3, 16, None, dev)
+    g = gba.obs_graph(pd)
+    _, Jp, Jl, _, _, _, Hll = gba.reproj_blocks_plain(pd, g, 0.0, "linearize")
+    n = pd.poses.shape[0]
+    with pytest.raises(ValueError):
+        gba.reduced_matvec(torch.zeros((n, 5), dtype=torch.float64, device=dev), None,
+                           Jp, Jl, Hll, g, n)
+    with pytest.raises(RuntimeError):
+        gba.reduced_matvec(torch.zeros((n, 6), dtype=torch.float64), None, Jp, Jl, Hll, g, n)
+    z = torch.zeros((2, 4, 3), dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError):
+        imu.preintegrate(z, z, z[..., 0], z[..., 0], z[:, 0], z[:, 0], imu.default_noise())

@@ -110,6 +110,14 @@ def test_verification_matches_reference(maps, q_row, c_row):
 
 
 def test_relative_pose_refinement_matches_reference():
+    """The port's refinement against the reference: the same inliers, and
+    the refined pose within 1e-8.  The bound is measured
+    (`scripts/port_relpose_spread.py`, CPU): the port's result moves by
+    2.67e-9 across ATen's CPU kernel sets (``default`` lands 3.9e-12 from
+    the reference, ``avx2`` and ``avx512`` 2.67e-9), and the reference's
+    own result moves by 2.67e-9 when p1 changes by one ulp (by 1.9e-16
+    for T0), with no change of its inliers.  1e-8 is the larger, 2.67e-9,
+    times a safety factor of 3.75."""
     rng = np.random.default_rng(11)
     intr = np.asarray([458.654, 457.296, 367.215, 248.375, 0.0])
     dist = np.asarray([-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05])
@@ -138,7 +146,7 @@ def test_relative_pose_refinement_matches_reference():
         torch.tensor(mask), th_outlier=1.3)
     assert int(nn) == int(rn) > 100
     np.testing.assert_array_equal(inl.numpy(), np.asarray(rinl))
-    np.testing.assert_allclose(T.numpy(), np.asarray(rT), rtol=0, atol=1e-9)
+    np.testing.assert_allclose(T.numpy(), np.asarray(rT), rtol=0, atol=1e-8)
 
 
 @pytest.mark.parametrize("dist_model", [cam.DIST_NONE, cam.RADTAN])
