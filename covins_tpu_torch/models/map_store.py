@@ -806,7 +806,7 @@ class Map:
 
         # observation weights from the octave, in float32 as the reference
         octs = self.kp_aors[self.obs_kf[:o], self.obs_feat[:o], 1]
-        obs_w = 1.0 / (octave_base_sigma * (octs + 1.0))
+        obs_w = res_mod.reprojection_weight(torch.from_numpy(octs), octave_base_sigma)
         obs_uv = self.kp_uv[self.obs_kf[:o], self.obs_feat[:o]]
 
         # IMU factors: KF j's stored window covers (pred(j) -> j)

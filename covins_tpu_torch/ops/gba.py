@@ -282,6 +282,23 @@ def reduced_matvec_plain(v6, c, Jp, Jl, Hll_inv, graph: ObsGraph, n: int,
     return a6 - b6
 
 
+def reduced_matvec_error_scale(v6, c, Jp, Jl, Hll_inv, graph: ObsGraph, n: int,
+                               t_only: bool = False):
+    """The sums of magnitudes behind each output of :func:`reduced_matvec`:
+    the plain version's two terms on the inputs' absolute values, added.
+    Hll^-1 of a landmark seen once or twice is nearly singular, so J_lm w
+    cancels terms many orders larger than its result; a rounding
+    difference is relative to these sums, not to the result."""
+    a = [None if x is None else x.abs() for x in (v6, c, Jp, Jl, Hll_inv)]
+    t = reduced_matvec_plain(a[0], None, a[2], a[3], a[4], graph, n, t_only=True)
+    if t_only:
+        return t
+    pos = reduced_matvec_plain(a[0], None, a[2], a[3], a[4] * 0, graph, n)
+    neg = reduced_matvec_plain(None, t if a[1] is None else t + a[1], a[2], a[3], a[4],
+                               graph, n)
+    return pos - neg
+
+
 def reduced_matvec(v6: Optional[torch.Tensor], c: Optional[torch.Tensor], Jp, Jl,
                    Hll_inv, graph: ObsGraph, n: int, t_only: bool = False):
     """The observation part of the reduced camera matrix (K9).
@@ -334,7 +351,10 @@ _PRE_FIELDS = tuple(f.name for f in dataclasses.fields(imu_mod.Preintegrated))
 
 
 def _imu_r(p: GBAProblem):
-    """Whitened IMU residuals (F, 15) alone: [S9 r9, S6 (b_j - b_i)]."""
+    """Whitened IMU residuals (F, 15) alone: [S9 r9, S6 (b_j - b_i)].  The
+    cost evaluations (eight per step) take this and :func:`_loop_r`, not
+    the `_r_J` functions, whose forward mode issues many times the
+    operations on a step the host bounds."""
     i, j = p.imu_i, p.imu_j
     r9 = imu_mod.imu_residual(p.imu_pre, p.poses[i], p.vels[i], p.biases[i, :3],
                               p.biases[i, 3:], p.poses[j], p.vels[j],
@@ -576,13 +596,13 @@ def _gn_schur_step(p: GBAProblem, graph: ObsGraph, state, lam, n_cg: int,
 
 
 def _gba_rounds(p: GBAProblem, graph: ObsGraph, n_gn: int, n_cg: int, lam0: float,
-                visual_only: bool, huber_k: float = 0.0, cg_variant: str = "fused"):
+                visual_only: bool, huber_k: float = 0.0):
     state = (p.poses, p.vels, p.biases, p.lms)
     lam = torch.tensor(lam0, dtype=p.poses.dtype, device=p.poses.device)
     costs = []
     for _ in range(n_gn):
         state, lam, cost = _gn_schur_step(p, graph, state, lam, n_cg, visual_only,
-                                          huber_k, cg_variant)
+                                          huber_k)
         costs.append(cost)
     return state, torch.stack(costs)
 
@@ -599,7 +619,7 @@ def global_bundle_adjustment(p: GBAProblem, n_gn: int = 10, n_cg: int = 60,
                              outlier_removal: bool = True, th_outlier: float = 0.92,
                              n_gn_round1: int = 5,
                              time_budget_s: Optional[float] = None,
-                             th_huber: float = 2.447, cg_variant: str = "fused"):
+                             th_huber: float = 2.447):
     """Two-round VI-GBA (`optimization_be.cpp:56-618`): a Huber-robust
     round 1 of ``n_gn_round1`` steps, pruning of reprojection outliers,
     then a clean round 2 of ``n_gn`` steps.  ``time_budget_s`` skips round
@@ -613,7 +633,7 @@ def global_bundle_adjustment(p: GBAProblem, n_gn: int = 10, n_cg: int = 60,
     info = {}
     if outlier_removal:
         st, costs1 = _gba_rounds(p, graph, n_gn_round1, n_cg, lam0, visual_only,
-                                 th_huber, cg_variant)
+                                 th_huber)
         p = _with_state(p, st)
         new_mask = _reproj_outlier_mask(p, graph, th_outlier)
         info["n_pruned"] = int(torch.sum(p.obs_mask & ~new_mask))
@@ -626,7 +646,7 @@ def global_bundle_adjustment(p: GBAProblem, n_gn: int = 10, n_cg: int = 60,
                 info["costs"] = costs1
                 info["time_budget_hit"] = True
                 return p, info
-    st, costs2 = _gba_rounds(p, graph, n_gn, n_cg, lam0, visual_only, 0.0, cg_variant)
+    st, costs2 = _gba_rounds(p, graph, n_gn, n_cg, lam0, visual_only, 0.0)
     info["costs"] = costs2
     return _with_state(p, st), info
 

@@ -337,17 +337,7 @@ def test_gba_reduced_matvec_kernel_matches_plain(dev, n_kf, n_lm, max_obs):
         assert gba.reduced_matvec.launches == before + 1
         assert torch.equal(got, gba.reduced_matvec(vv, cc, Jp, Jl, Hinv, g, n, t_only))
         ref = gba.reduced_matvec_plain(vv, cc, Jp, Jl, Hinv, g, n, t_only)
-        # relative to the sums of magnitudes behind each output: a landmark
-        # seen once or twice has a nearly singular Hll, and J_lm Hll^-1 (...)
-        # cancels terms many orders larger than its result
-        a = [None if x is None else x.abs() for x in (vv, cc, Jp, Jl, Hinv)]
-        t = gba.reduced_matvec_plain(a[0], None, a[2], a[3], a[4], g, n, t_only=True)
-        if t_only:
-            scale = t
-        else:
-            scale = gba.reduced_matvec_plain(a[0], None, a[2], a[3], a[4] * 0, g, n) \
-                - gba.reduced_matvec_plain(None, t if a[1] is None else t + a[1], a[2],
-                                           a[3], a[4], g, n)
+        scale = gba.reduced_matvec_error_scale(vv, cc, Jp, Jl, Hinv, g, n, t_only)
         assert float(((got - ref).abs() / scale.clamp(min=1e-300)).max()) <= 1e-13
 
 
