@@ -13,16 +13,22 @@ package beside it.  Phases:
    K1, K2, K4 and K5 exactly, K3 to rtol 1e-6, K6 exactly up to
    correspondences within 1e-12 rad of the threshold, K7 to 1e-12
    relative, K8 and K10 to 1e-13 relative, K9 to 1e-13 of the sums of
-   magnitudes behind each output, K7-K10 bit for bit across two launches
-   (K8-K10 at bench.py's GBA problem and at ragged problems down to two
-   keyframes);
+   magnitudes behind each output, the two PCG kernels (pgo_pcg, 100
+   iterations, at a 256-pose graph of 1270 edges and ragged ones; gba_pcg,
+   60 iterations) within GBA_FACTOR times their eager loop's own change
+   when one ulp is added to b, K7-K10 and both PCG kernels bit for bit
+   across two launches (K8-K10 and gba_pcg at bench.py's GBA problem and
+   at ragged problems down to two keyframes); K7 and K9 beside one
+   torch.mv of their matrix assembled densely;
 2. the full main path at the workload of the JAX package's benchmark
    (2 agents x 128 KF over 2000 landmarks, 512-word vocabulary trained on
    the card, 1024-message windows, the default ``Config()`` with
    ``placerec_defer=True``): a warm-up on the stream's first windows, then
    the measured pass with every launch counter set to 0 just before it
-   and read just after, timing the ingest and the place-recognition drain
-   apart; traced runs (device busy time from torch.profiler over an
+   and read just after (pgo_pcg once per pose-graph Gauss-Newton step,
+   the standalone K7 never), timing the ingest, the place-recognition
+   drain and its pose-graph solves apart, and those solves replayed with
+   the PCG kernel and with the eager loop in turns; traced runs (device busy time from torch.profiler over an
    ingest and the first agent's drain of the stream's first windows, host
    self time by layer from cProfile over the second agent's drain of
    those windows and an ingest); then the same streams through the port
@@ -37,7 +43,9 @@ package beside it.  Phases:
 5. bench.py's GBA problem (256 KF, 8192 landmarks, max_obs 61440) through
    ``global_bundle_adjustment(n_gn=10, n_cg=60)`` with the counters set to
    0 just before it (the problem's build, K10, included) and read just
-   after: ms per Gauss-Newton step, wall time, a torch.profiler trace of
+   after (gba_pcg once per Gauss-Newton step, K9 seven times): ms per
+   Gauss-Newton step with the PCG kernel and with the eager loop in turns,
+   wall time of a solve with each, a torch.profiler trace of
    one solve, costs that never increase, the ATE to the ground truth
    falling; the same problem on the CPU, held within GBA_FACTOR times the
    CPU's own one-ulp spread, with the same pruned observations;
@@ -48,9 +56,9 @@ package beside it.  Phases:
    observations differently than GBA_FACTOR times what one ulp of input
    changes on the CPU, the ATE to the agents' ground truth before and
    after;
-7. one JSON line per the kernel table (K1-K7 timed on phase 2's inputs
-   with phase 2's launches, K8-K10 on bench.py's GBA problem with phase
-   6's launches), the card line, and the result line
+7. one JSON line per the kernel table (K1-K7 and pgo_pcg timed on phase
+   2's inputs with phase 2's launches, K8-K10 and gba_pcg on bench.py's
+   GBA problem with phase 6's launches), the card line, and the result line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -128,6 +136,22 @@ def cuda_ms(fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def busy_ms(fn, reps):
+    """The card's busy time per call of ``fn`` (the kernels alone, without
+    the host's cadence): torch.profiler's device intervals over ``reps``
+    calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return _device_busy_ms(prof)[0] / reps
 
 
 def bound(bytes_moved, *ops_at_rate):
@@ -307,7 +331,25 @@ def k6_case(T, P, B, mask, valid, thr, reps):
     }
 
 
-def k7_case(v, free, Ji, Jj, graph, damping, reps):
+def dense_normal_matrix(free, Ji, Jj, graph, damping):
+    """The pose graph's damped normal matrix assembled densely (6N x 6N):
+    F J^T J F + damping I with J the (6E, 6N) whitened Jacobian and F the
+    free mask.  Used only as K7's library yardstick (one torch.mv); the
+    port never builds it."""
+    import torch
+
+    E, N = Ji.shape[0], free.shape[0]
+    dev = Ji.device
+    J = torch.zeros((E * 6, N * 6), dtype=torch.float64, device=dev)
+    rows = torch.arange(E * 6, device=dev).reshape(E, 6, 1).expand(E, 6, 6)
+    for ends, blocks in ((graph.edge_i, Ji), (graph.edge_j, Jj)):
+        cols = (ends[:, None, None] * 6 + torch.arange(6, device=dev)[None, None, :]
+                ).expand(E, 6, 6)
+        J.index_put_((rows, cols), blocks * free[ends][:, None, None], accumulate=True)
+    return J.T @ J + damping * torch.eye(N * 6, dtype=torch.float64, device=dev)
+
+
+def k7_case(v, free, Ji, Jj, graph, damping, reps, library=False):
     import torch
 
     from covins_tpu_torch.ops import pgo
@@ -322,11 +364,22 @@ def k7_case(v, free, Ji, Jj, graph, damping, reps):
     N, E = v.shape[0], Ji.shape[0]
     bnd, by = bound(2 * E * 36 * 8 + N * 6 * 8 * 2 + N * 8 + E * 8
                     + (N + 1) * 4 + 2 * E * 4, (300.0 * E, FP64_OPS_S))
+    lib_ms = None
+    if library:
+        H = dense_normal_matrix(free, Ji, Jj, graph, damping)
+        vv = v.reshape(-1)
+        check(_rel(torch.mv(H, vv).reshape(N, 6), out) <= 1e-9,
+              "dense normal matrix disagrees with K7")
+        lib_ms = cuda_ms(lambda: torch.mv(H, vv), reps)
+        lib_busy = busy_ms(lambda: torch.mv(H, vv), reps)
+        del H
     return {
         "kernel_ms": cuda_ms(lambda: pgo.matvec(v, free, Ji, Jj, graph, damping), reps),
+        "busy_ms": busy_ms(lambda: pgo.matvec(v, free, Ji, Jj, graph, damping), reps),
+        "library_busy_ms": lib_busy if library else None,
         "plain_ms": cuda_ms(lambda: pgo.matvec_plain(v, free, Ji, Jj, graph, damping),
                             reps),
-        "library_ms": None,
+        "library_ms": lib_ms,
         "bound_ms": bnd, "bound_by": by,
         "max_abs_err": float((out - ref).abs().max().item()), "max_rel_err": rel,
     }
@@ -442,15 +495,110 @@ def k9_case(v6, c, Jp, Jl, Hinv, graph, n, reps, library=False):
         dense = torch.mv(S, v).reshape(n, 6)
         check(_rel(dense, out) <= 1e-9, "dense reduced matrix disagrees with K9")
         lib_ms = cuda_ms(lambda: torch.mv(S, v), reps)
+        lib_busy = busy_ms(lambda: torch.mv(S, v), reps)
         del S
     return {
         "kernel_ms": cuda_ms(lambda: gba.reduced_matvec(v6, None, Jp, Jl, Hinv, graph, n),
                              reps),
+        "busy_ms": busy_ms(lambda: gba.reduced_matvec(v6, None, Jp, Jl, Hinv, graph, n),
+                           reps),
+        "library_busy_ms": lib_busy if library else None,
         "plain_ms": cuda_ms(lambda: gba.reduced_matvec_plain(v6, None, Jp, Jl, Hinv, graph,
                                                              n), max(1, reps // 10)),
         "library_ms": lib_ms, "bound_ms": bnd, "bound_by": by,
         "max_abs_err": float((out - ref).abs().max().item()) if out.numel() else 0.0,
         "max_rel_err": err,
+    }
+
+
+def ulp_spread_check(name, kernel, plain, b):
+    """Launch ``kernel(b)`` twice (equal bits) and hold it to the plain
+    loop ``plain(b)`` within GBA_FACTOR times the plain loop's own change
+    when one ulp is added to every entry of b.  Returns (kernel result,
+    difference, spread)."""
+    import torch
+
+    x, again = kernel(b), kernel(b)
+    x0 = plain(b)
+    x1 = plain(torch.nextafter(b, torch.full_like(b, float("inf"))))
+    torch.cuda.synchronize()
+    check(torch.equal(x, again), f"{name} differs between two launches")
+    diff = float((x - x0).abs().max()) if x.numel() else 0.0
+    spread = float((x1 - x0).abs().max()) if x.numel() else 0.0
+    check(diff <= GBA_FACTOR * spread,
+          f"{name} differs from its plain loop by {diff}; one ulp of b moves the plain "
+          f"loop by {spread}")
+    return x, diff, spread
+
+
+def pgo_eager_pcg(b, Minv, free, Ji, Jj, graph, damping, n_iters):
+    """The pose-graph PCG as the eager loop `_pcg` around K7, as a Gauss-
+    Newton step ran it before the persistent kernel (the plain version's
+    loop; on the card its matvec is K7)."""
+    from covins_tpu_torch.ops import pgo
+
+    return pgo._pcg(lambda v: pgo.matvec(v, free, Ji, Jj, graph, damping), b, Minv, free,
+                    n_iters)
+
+
+def pgo_pcg_case(b, Minv, free, Ji, Jj, graph, damping, n_iters, reps):
+    from covins_tpu_torch.ops import pgo
+
+    def kernel(bb):
+        return pgo.pcg(bb, Minv, free, Ji, Jj, graph, damping, n_iters)
+
+    def plain(bb):
+        return pgo_eager_pcg(bb, Minv, free, Ji, Jj, graph, damping, n_iters)
+
+    _, diff, spread = ulp_spread_check("pgo_pcg", kernel, plain, b)
+    N, E = b.shape[0], Ji.shape[0]
+    # inputs read once, x written once; per iteration (and once more for the
+    # initial product) about 444 float64 operations per edge (y_e and both
+    # ends' J^T y_e) and 160 per pose (M^-1 r, the vector updates and dots)
+    nbytes = 2 * E * 36 * 8 + N * (6 + 36 + 1 + 6) * 8 + E * 8 + (N + 1 + 2 * E) * 4
+    bnd, by = bound(nbytes, ((n_iters + 1) * (444.0 * E + 160.0 * N), FP64_OPS_S))
+    return {
+        "kernel_ms": cuda_ms(lambda: kernel(b), reps),
+        "busy_ms": busy_ms(lambda: kernel(b), reps),
+        "plain_ms": cuda_ms(lambda: plain(b), max(1, reps // 5)),
+        "library_ms": None, "bound_ms": bnd, "bound_by": by,
+        "max_abs_err": diff, "one_ulp_spread": spread, "n_iters": n_iters,
+    }
+
+
+def gba_pcg_case(s, graph, n_cg, reps):
+    import dataclasses as dc
+
+    from covins_tpu_torch.ops import gba
+
+    def kernel(b):
+        return gba.pcg(dc.replace(s, b_red=b), graph, n_cg)
+
+    def plain(b):
+        return gba.pcg_plain(dc.replace(s, b_red=b), graph, n_cg)
+
+    _, diff, spread = ulp_spread_check("gba_pcg", kernel, plain, s.b_red)
+    n, o, m = s.b_red.shape[0], s.Jp.shape[0], s.Hll_inv.shape[0]
+    L = s.fac.loop_i.shape[0]
+    F = 0 if s.fac.Ji_f is None else s.fac.imu_i.shape[0]
+    C = graph.n_chunks
+    # inputs read once (observations' Jacobians and four indices, the chunk
+    # layout, landmark and keyframe blocks and vectors, the loop and IMU
+    # factors and their CSRs), x written once; per iteration (and once more
+    # for the initial product) about 96 float64 operations per observation,
+    # 18 per landmark, 288 per loop edge, 1800 per IMU factor, 700 per
+    # keyframe
+    nbytes = o * (144 + 16) + (2 * C + 1 + n + 1) * 4 + m * (72 + 4) + n * (15 * 4 + 225) * 8 \
+        + L * (2 * 288 + 16) + F * (2 * 1800 + 16) + 2 * (n + 1) * 4 + 4 * (L + F) * 4 \
+        + n * 15 * 8
+    ops = (n_cg + 1) * (96.0 * o + 18.0 * m + 288.0 * L + 1800.0 * F + 700.0 * n)
+    bnd, by = bound(nbytes, (ops, FP64_OPS_S))
+    return {
+        "kernel_ms": cuda_ms(lambda: kernel(s.b_red), reps),
+        "busy_ms": busy_ms(lambda: kernel(s.b_red), reps),
+        "plain_ms": cuda_ms(lambda: plain(s.b_red), max(1, reps // 5)),
+        "library_ms": None, "bound_ms": bnd, "bound_by": by,
+        "max_abs_err": diff, "one_ulp_spread": spread, "n_cg": n_cg,
     }
 
 
@@ -593,7 +741,8 @@ def phase1(dev):
     """Kernels against their plain versions on the card, with edge cases."""
     import torch
 
-    from covins_tpu_torch.ops import bow, descriptors, landmark_ops
+    from covins_tpu_torch.ops import bow, descriptors, gba, landmark_ops, pgo
+    from covins_tpu_torch.utils import synthetic
 
     rng = np.random.default_rng(SEED)
     t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
@@ -647,8 +796,19 @@ def phase1(dev):
         print(json.dumps({"phase": 1, "kernel": "p3p_score", "shape": [H, N], **r}))
     # K7 at the merged bench map's graph size, ragged
     for N, E in ((256, 1300), (1, 1), (9, 20)):
-        r = k7_case(*_k7_inputs(rng, N, E, dev), 1e-6, reps=50)
+        r = k7_case(*_k7_inputs(rng, N, E, dev), 1e-6, reps=50, library=N == 256)
         print(json.dumps({"phase": 1, "kernel": "pgo_matvec", "shape": [N, E], **r}))
+    # the pose-graph PCG kernel at the merged bench map's graph size (256
+    # poses, 1270 edges, 100 iterations) and ragged
+    for n_kf, n_iters in ((256, 100), (37, 100), (37, 1), (2, 1)):
+        g, _ = synthetic.build_pose_graph(n_kf=n_kf, seed=SEED, device=dev)
+        free = (~g.fixed & g.pose_mask).to(torch.float64)
+        graph = pgo.matvec_graph(g.edge_i, g.edge_j, n_kf)
+        _, _, Ji, Jj, b, Minv = pgo.normal_equations(g.poses, g, free, 1e-6, 0.0)
+        r = pgo_pcg_case(b, Minv, free, Ji, Jj, graph, 1e-6, n_iters,
+                         reps=10 if n_kf == 256 else 2)
+        print(json.dumps({"phase": 1, "kernel": "pgo_pcg", "shape": [n_kf, Ji.shape[0]],
+                          **r}))
     # K8-K10 at bench.py's GBA problem and at ragged sizes (down to two
     # keyframes with no observation in common); the bench shape's rows go
     # into the kernel table
@@ -666,6 +826,11 @@ def phase1(dev):
                     library=bench)
         print(json.dumps({"phase": 1, "kernel": "gba_reduced_matvec", "shape": shape, **r}))
         table.setdefault("gba_reduced_matvec", {**r, "shape": shape})
+        s = gba.reduced_system(p, graph, (p.poses, p.vels, p.biases, p.lms),
+                               torch.tensor(1e-4, dtype=torch.float64, device=dev), False)
+        r = gba_pcg_case(s, graph, 60, reps=10 if bench else 2)
+        print(json.dumps({"phase": 1, "kernel": "gba_pcg", "shape": shape, **r}))
+        table.setdefault("gba_pcg", {**r, "shape": shape})
         r = k10_case(k10, reps=5 if bench else 2, time_plain=bench)
         print(json.dumps({"phase": 1, "kernel": "imu_preintegrate",
                           "shape": list(k10[0].shape[:2]), **r}))
@@ -895,6 +1060,69 @@ class Recorder:
         return [move(x) for x in self.largest[name][1]]
 
 
+class PgoTimer:
+    """While active, times every pose-graph solve of the path (host clock,
+    card synchronised before and after) and keeps its graph and options, so
+    that the solves can be replayed with the PCG kernel and with the eager
+    loop (:meth:`replay`)."""
+
+    def __enter__(self):
+        from covins_tpu_torch.ops import pgo
+
+        self._fn = fn = pgo.optimize_pose_graph
+        self.calls, self.seconds = [], 0.0
+
+        def timed(g, **kw):
+            import torch
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(g, **kw)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.calls.append((g, kw))
+            return out
+        pgo.optimize_pose_graph = timed
+        return self
+
+    def __exit__(self, *exc):
+        from covins_tpu_torch.ops import pgo
+
+        pgo.optimize_pose_graph = self._fn
+
+    def replay(self):
+        """Seconds of the recorded solves with the kernel and with the eager
+        loop `_pcg` around K7, in turns (kernel, eager, eager, kernel), and
+        the largest difference of the two routes' poses."""
+        import torch
+
+        from covins_tpu_torch.ops import pgo
+
+        def run(eager):
+            pgo.pcg = pgo_eager_pcg if eager else kernel
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                poses = [self._fn(g, **kw)[0] for g, kw in self.calls]
+                torch.cuda.synchronize()
+                return time.perf_counter() - t0, poses
+            finally:
+                pgo.pcg = kernel
+
+        kernel = pgo.pcg
+        times = {"kernel": [], "eager": []}
+        for eager in (False, True, True, False):
+            t, poses = run(eager)
+            times["eager" if eager else "kernel"].append(t)
+            if eager:
+                eager_poses = poses
+            else:
+                kernel_poses = poses
+        diff = max((float((a - b).abs().max()) for a, b in zip(kernel_poses, eager_poses)),
+                   default=0.0)
+        return times, diff
+
+
 def _layer(filename, funcname):
     """Layer of a profiled function: a module of the port, or the library
     whose native code it is."""
@@ -1011,15 +1239,20 @@ def kernel_wrappers():
             "project_match": projmatch.gated_match,
             "p3p_score": pnp.p3p_score,
             "pgo_matvec": pgo.matvec,
+            "pgo_pcg": pgo.pcg,
             "gba_reproj_blocks": gba.reproj_blocks,
             "gba_reduced_matvec": gba.reduced_matvec,
+            "gba_pcg": gba.pcg,
             "imu_preintegrate": imu.preintegrate}
 
 
-# the kernels of the ingest and place-recognition drain (phase 2) and of GBA
+# the kernels of the ingest and place-recognition drain (phase 2) and of GBA;
+# the pose-graph solves launch pgo_pcg once per Gauss-Newton step and the
+# standalone K7 matvec never, a GBA step gba_pcg once and K9 seven times
 DRAIN_KERNELS = ("hamming_argmin", "representative_descriptors", "bow_insert",
-                 "hamming_mutual_nn", "project_match", "p3p_score", "pgo_matvec")
-GBA_KERNELS = ("gba_reproj_blocks", "gba_reduced_matvec", "imu_preintegrate")
+                 "hamming_mutual_nn", "project_match", "p3p_score", "pgo_pcg")
+GBA_KERNELS = ("gba_reproj_blocks", "gba_reduced_matvec", "gba_pcg", "imu_preintegrate")
+K9_PER_STEP = 7  # b_red and the six ladder scales
 
 
 def reference_counts():
@@ -1056,6 +1289,7 @@ def phase2(dev, card):
         (projmatch, "gated_match", lambda *a: a[0].shape[0] * a[5].shape[0]),
         (pnp, "p3p_score", lambda T, P, *a: T.shape[0] * P.shape[0]),
         (pgo, "matvec", lambda v, f, Ji, *a: Ji.shape[0]),
+        (pgo, "pcg", lambda b, M, f, Ji, *a: Ji.shape[0]),
     ])
     t0 = time.perf_counter()
     # warm-up: the stream's first WARM_WINDOWS windows, ingested and drained,
@@ -1064,7 +1298,8 @@ def phase2(dev, card):
     t_warm = time.perf_counter() - t0
     for k in wrappers.values():
         k.launches = 0
-    gpu = run_slice(vocab, windows, n_agents, "cuda")
+    with PgoTimer() as pgo_timer:
+        gpu = run_slice(vocab, windows, n_agents, "cuda")
     launches = {name: k.launches for name, k in wrappers.items()}
     for name in DRAIN_KERNELS:
         check(launches[name] > 0, f"main path never launched {name}")
@@ -1072,6 +1307,15 @@ def phase2(dev, card):
     out = outcome(gpu)
     check(out["loops"] >= 1 and out["merges"] >= 1,
           f"the card closed {out['loops']} loops and {out['merges']} merges")
+    n_gn = gpu["mgr"].cfg.pgo_iteration_limit
+    check(launches["pgo_matvec"] == 0
+          and launches["pgo_pcg"] == n_gn * out["pgo_solves"] == n_gn * len(pgo_timer.calls),
+          f"{out['pgo_solves']} pose-graph solves launched pgo_pcg {launches['pgo_pcg']} "
+          f"times and pgo_matvec {launches['pgo_matvec']} times, expected {n_gn} per "
+          f"solve and none")
+    pgo_times, pgo_diff = pgo_timer.replay()
+    check(pgo_diff <= POSE_TOL, f"the kernel's and the eager loop's PGO poses differ by "
+                                f"{pgo_diff}")
     print(json.dumps({
         "phase": 2, "card": card, "n_agents": n_agents, "n_keyframes": n_total,
         "windows": len(windows), "db_rows": gpu["mgr"].database.n,
@@ -1084,6 +1328,9 @@ def phase2(dev, card):
         "stream_build_s": t_streams, "warmup_pass_s": t_warm, "launches": launches,
         "launches_per_candidate": {k: v / max(out["candidates"], 1)
                                    for k, v in launches.items()},
+        "pgo_launches_per_solve": launches["pgo_pcg"] / max(out["pgo_solves"], 1),
+        "drain_pgo_s": pgo_timer.seconds,
+        "pgo_replay_s": pgo_times, "pgo_kernel_vs_eager_pose_diff": pgo_diff,
     }))
     print(json.dumps({"phase": 2, "accepted": out["accepted"]}))
 
@@ -1123,8 +1370,12 @@ def phase2(dev, card):
     table["p3p_score"] = {**k6_case(T, P, B, msk, valid, thr, reps=50),
                           "shape": [T.shape[0], P.shape[0]]}
     v, free, Ji, Jj, graph, damping = rec.on("matvec", dev)
-    table["pgo_matvec"] = {**k7_case(v, free, Ji, Jj, graph, damping, reps=200),
+    table["pgo_matvec"] = {**k7_case(v, free, Ji, Jj, graph, damping, reps=200,
+                                     library=True),
                            "shape": [v.shape[0], Ji.shape[0]]}
+    args = rec.on("pcg", dev)
+    table["pgo_pcg"] = {**pgo_pcg_case(*args, reps=10), "shape": [args[0].shape[0],
+                                                                   args[3].shape[0]]}
     for name, row in table.items():
         row["launches"] = launches[name]
     return table, gpu, vocab, world
@@ -1251,6 +1502,11 @@ def phase5(dev, card):
         check(n > 0, f"GBA never launched {name}")
     costs1 = info["round1_costs"].cpu().numpy()
     costs = info["costs"].cpu().numpy()
+    n_steps = len(costs1) + len(costs)
+    check(launches["gba_pcg"] == n_steps
+          and launches["gba_reduced_matvec"] == K9_PER_STEP * n_steps,
+          f"{n_steps} GBA steps launched gba_pcg {launches['gba_pcg']} times and K9 "
+          f"{launches['gba_reduced_matvec']} times")
     check(np.isfinite(costs1).all() and np.isfinite(costs).all(), "GBA costs not finite")
     check((np.diff(costs1) <= 0).all() and (np.diff(costs) <= 0).all(),
           f"GBA costs increase: {costs1} {costs}")
@@ -1259,11 +1515,28 @@ def phase5(dev, card):
     ate1 = ate(p_card.poses[:, 4:7].cpu().numpy(), poses_gt[:, 4:7])
     check(ate1 < ate0, f"GBA did not lower the ATE: {ate0} -> {ate1}")
 
-    # one GN step at a time (CUDA events), and one traced solve
+    # one GN step at a time (CUDA events), with the PCG kernel and with the
+    # eager loop pcg_plain around K9, in turns; a whole solve with the eager
+    # loop; and one traced solve
     graph = gba.obs_graph(p)
     state = (p.poses, p.vels, p.biases, p.lms)
     lam = torch.tensor(1e-4, dtype=torch.float64, device=dev)
-    step_ms = cuda_ms(lambda: gba._gn_schur_step(p, graph, state, lam, 60, False), 3)
+    kernel_pcg = gba.pcg
+    step_ms = {"kernel": [], "eager": []}
+    try:
+        for eager in (False, True, True, False):
+            gba.pcg = gba.pcg_plain if eager else kernel_pcg
+            step_ms["eager" if eager else "kernel"].append(
+                cuda_ms(lambda: gba._gn_schur_step(p, graph, state, lam, 60, False), 3))
+        gba.pcg = gba.pcg_plain
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p_eager, _ = gba.global_bundle_adjustment(p, n_gn=10, n_cg=60)
+        torch.cuda.synchronize()
+        wall_eager = time.perf_counter() - t0
+    finally:
+        gba.pcg = kernel_pcg
+    eager_diff = _max_diff(_states(p_card), _states(p_eager))
 
     # a cost evaluation (eight per step: the ladder's seven and the old
     # state) with the residual-only IMU and loop factors, against one that
@@ -1309,11 +1582,16 @@ def phase5(dev, card):
     check(torch.equal(p_card.obs_mask.cpu(), p_cpu.obs_mask), "pruned observations differ")
     check(diff <= GBA_FACTOR * spread,
           f"card and CPU GBA differ by {diff}, the CPU's one-ulp spread is {spread}")
+    check(eager_diff <= GBA_FACTOR * spread,
+          f"the PCG kernel's and the eager loop's solves differ by {eager_diff}, the "
+          f"CPU's one-ulp spread is {spread}")
     print(json.dumps({
         "phase": 5, "card": card, "n_kf": p.poses.shape[0], "n_lm": p.lms.shape[0],
         "n_obs": n_valid, "reference_n_obs_bench_r05": 52647,
         "imu_factors": p.imu_i.shape[0], "n_gn": 10, "n_gn_round1": 5, "n_cg": 60,
-        "build_s": t_build, "wall_s": wall, "gn_step_ms": step_ms,
+        "build_s": t_build, "wall_s": wall, "wall_eager_pcg_s": wall_eager,
+        "gn_step_ms": step_ms["kernel"], "gn_step_eager_pcg_ms": step_ms["eager"],
+        "kernel_vs_eager_pcg_state_diff": eager_diff,
         "cost_eval_ms": cost_ms, "cost_eval_via_r_J_ms": cost_r_J_ms,
         "round1_costs": costs1.tolist(), "costs": costs.tolist(),
         "n_pruned": info["n_pruned"], "ate_before_m": ate0, "ate_after_m": ate1,
@@ -1430,6 +1708,12 @@ def phase6(dev, card, gpu_run, vocab, world):
         check(launches[name] > 0, f"run_gba never launched {name}")
     check(np.isfinite(info["costs"]).all() and (np.diff(info["costs"]) <= 0).all(),
           f"run_gba costs: {info['costs']}")
+    n_steps = len(info.get("round1_costs", ())) + (
+        0 if info.get("time_budget_hit") else len(info["costs"]))
+    check(launches["gba_pcg"] == n_steps
+          and launches["gba_reduced_matvec"] == K9_PER_STEP * n_steps,
+          f"run_gba's {n_steps} steps launched gba_pcg {launches['gba_pcg']} times and "
+          f"K9 {launches['gba_reduced_matvec']} times")
     ate1 = map_ate(mp)
 
     torch.set_num_threads(CPU_THREADS)
@@ -1486,10 +1770,14 @@ SOURCES = {
                   "covins_tpu/ops/pnp.py:338"),
     "pgo_matvec": ("covins_tpu_torch/csrc/pgo_matvec.cu",
                    "covins_tpu/ops/pgo.py:187"),
+    "pgo_pcg": ("covins_tpu_torch/csrc/pgo_matvec.cu",
+                "covins_tpu/ops/pgo.py:124"),
     "gba_reproj_blocks": ("covins_tpu_torch/csrc/gba_reproj_blocks.cu",
                           "covins_tpu/ops/gba.py:115"),
     "gba_reduced_matvec": ("covins_tpu_torch/csrc/gba_reduced_matvec.cu",
                            "covins_tpu/ops/gba.py:214"),
+    "gba_pcg": ("covins_tpu_torch/csrc/gba_reduced_matvec.cu",
+                "covins_tpu/ops/gba.py:399"),
     "imu_preintegrate": ("covins_tpu_torch/csrc/imu_preintegrate.cu",
                          "covins_tpu/ops/imu.py:137"),
 }
@@ -1518,7 +1806,8 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"[ptxas {name}] {line.strip()}")
     print(json.dumps({"phase": 0, "build_s": t_build, "kernels": sorted(logs)}))
-    check(sorted(logs) == sorted(SOURCES), "a kernel source was not built")
+    check(sorted(f"covins_tpu_torch/csrc/{n}.cu" for n in logs)
+          == sorted({src for src, _ in SOURCES.values()}), "a kernel source was not built")
 
     gba_table = phase1(dev)
     print(json.dumps({"phase": 1, "elapsed_s": time.perf_counter() - t_start}))
@@ -1545,6 +1834,7 @@ def main():
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": row["shape"],
+            **{k: row[k] for k in ("busy_ms", "library_busy_ms") if k in row},
         })
     print(card_line())
     print(json.dumps({"kernels": kernels}))

@@ -54,15 +54,18 @@ SIGNATURES = {
     },
     "pgo_matvec": {
         "covins_pgo_matvec": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _D, _P,
-                              _P],
+                              _P, _P],
+        "covins_pgo_pcg": [_P] * 7 + [_I, _P, _P, _I, _D, _I, _P, _P, _P, _I, _P],
     },
     "gba_reproj_blocks": {
         "covins_gba_reproj_blocks": [_I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I,
                                      _P, _P, _I, _P, _P, _I, _D] + [_P] * 10,
     },
     "gba_reduced_matvec": {
-        "covins_gba_reduced_matvec": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I,
-                                      _P, _P, _I, _I, _P, _P, _P, _P],
+        "covins_gba_reduced_matvec": [_P] * 9 + [_I] + [_P] * 3 + [_I] * 4 + [_P] * 6,
+        "covins_gba_pcg": [_P] * 11 + [_I] + [_P] * 3 + [_I] * 3 + [_P] * 4 + [_I]
+                          + [_P] * 2 + [_P] * 4 + [_I] + [_P] * 2 + [_I] + [_P] * 7
+                          + [_I, _P],
     },
     "imu_preintegrate": {
         "covins_imu_preintegrate": [_P] * 6 + [_I, _I, _D, _D] + [_P] * 7,
@@ -73,6 +76,7 @@ SIGNATURES = {
 EXTRA_FLAGS = {
     "project_match": ["--fmad=false"],
     "p3p_score": ["--fmad=false"],
+    "pgo_matvec": ["--fmad=false"],
     "gba_reproj_blocks": ["--fmad=false"],
     "gba_reduced_matvec": ["--fmad=false"],
     "imu_preintegrate": ["--fmad=false"],

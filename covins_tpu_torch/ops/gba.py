@@ -23,13 +23,18 @@ behind a wrapper with a plain PyTorch version in this module:
   outlier norm alone;
 * K9 :func:`reduced_matvec` (`csrc/gba_reduced_matvec.cu`): the
   observation part of the reduced camera matrix times a vector,
-  Hpp(reproj) v - Hpl Hll^-1 Hlp v.
+  Hpp(reproj) v - Hpl Hll^-1 Hlp v (for b_red and the step ladder);
+* :func:`pcg` (the same source): each Gauss-Newton step's whole block-
+  Jacobi PCG on the reduced camera system in one cooperative launch,
+  with :func:`pcg_plain`, the eager loop around K9, as its plain version.
 
-Both sum in the fixed order of a keyframe -> observation and a landmark ->
-observation CSR built once per problem (:func:`obs_graph`), so equal
-inputs give equal bits.  The IMU and loop factors (a few hundred) stay
-batched PyTorch with ``torch.func.vmap(jacfwd)`` Jacobians, as the
-reference's ``jax.jacfwd``.  Every scalar of a solve (the CG scalars, the
+They sum in the fixed order of a keyframe -> observation and a landmark ->
+observation CSR and a chunk layout built once per problem
+(:func:`obs_graph`) and of node -> factor CSRs built once per step
+(:func:`factors`), so equal inputs give equal bits.  The IMU and loop
+factors' residuals and Jacobians (a few hundred factors) stay batched
+PyTorch with ``torch.func.vmap(jacfwd)``, as the reference's
+``jax.jacfwd``.  Every scalar of a solve (the CG scalars, the
 step ladder's choice, the damping, the accept flag) stays a device
 tensor, so a Gauss-Newton step never waits for the card.
 """
@@ -109,11 +114,16 @@ def _retract_kf(pose, vel, bias, xi):
 
 
 # ------------------------------------------------------- observation graph
+KF_CHUNK = 8  # observations per chunk of a keyframe's sums in K9
+
+
 @dataclasses.dataclass(frozen=True)
 class ObsGraph:
     """The observations grouped per keyframe and per landmark: CSR row
     pointers and observation indices in ascending order, the order a
-    sequential scatter-add sums in."""
+    sequential scatter-add sums in; and each keyframe's row of ``kf_obs``
+    cut into chunks of at most KF_CHUNK consecutive entries, the fixed
+    first level of K9's keyframe sums."""
 
     obs_kf32: torch.Tensor  # (O,) int32
     obs_lm32: torch.Tensor  # (O,) int32
@@ -121,20 +131,49 @@ class ObsGraph:
     kf_obs: torch.Tensor  # (O,) int32
     lm_rowptr: torch.Tensor  # (M + 1,) int32
     lm_obs: torch.Tensor  # (O,) int32
+    chunk_ptr: torch.Tensor  # (C + 1,) int32, chunk c is kf_obs[chunk_ptr[c]:chunk_ptr[c + 1]]
+    kf_chunk_ptr: torch.Tensor  # (N + 1,) int32, keyframe k's chunks
+
+    @property
+    def n_chunks(self) -> int:
+        return self.chunk_ptr.shape[0] - 1
 
 
 def _csr(keys, n):
+    """Row pointers (n + 1,) and the stably sorted order of ``keys``, both
+    int32; the counts come from a scatter-add, so nothing waits for the
+    card."""
     order = torch.sort(keys, stable=True).indices
+    counts = torch.zeros(n, dtype=torch.int64, device=keys.device).index_add_(
+        0, keys, torch.ones_like(keys))
     rowptr = torch.zeros(n + 1, dtype=torch.int32, device=keys.device)
-    rowptr[1:] = torch.cumsum(torch.bincount(keys, minlength=n), 0)
+    rowptr[1:] = torch.cumsum(counts, 0)
     return rowptr, order.to(torch.int32)
+
+
+def _chunks(kf_rowptr, o: int):
+    """Cut each keyframe's CSR row into chunks of at most KF_CHUNK entries:
+    (chunk_ptr, kf_chunk_ptr).  Reads the chunk count on the host
+    (once per problem)."""
+    dev = kf_rowptr.device
+    n = kf_rowptr.shape[0] - 1
+    counts = (kf_rowptr[1:] - kf_rowptr[:-1]).long()
+    per_kf = (counts + KF_CHUNK - 1) // KF_CHUNK
+    kf_chunk_ptr = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    kf_chunk_ptr[1:] = torch.cumsum(per_kf, 0)
+    chunk_kf = torch.repeat_interleave(torch.arange(n, device=dev), per_kf)
+    local = torch.arange(chunk_kf.shape[0], device=dev) - kf_chunk_ptr[chunk_kf]
+    start = kf_rowptr[chunk_kf].long() + local * KF_CHUNK
+    chunk_ptr = torch.cat([start, torch.full((1,), o, dtype=torch.int64, device=dev)])
+    return chunk_ptr.to(torch.int32), kf_chunk_ptr.to(torch.int32)
 
 
 def obs_graph(p: GBAProblem) -> ObsGraph:
     kf_rowptr, kf_obs = _csr(p.obs_kf, p.poses.shape[0])
     lm_rowptr, lm_obs = _csr(p.obs_lm, p.lms.shape[0])
     return ObsGraph(p.obs_kf.to(torch.int32), p.obs_lm.to(torch.int32),
-                    kf_rowptr, kf_obs, lm_rowptr, lm_obs)
+                    kf_rowptr, kf_obs, lm_rowptr, lm_obs,
+                    *_chunks(kf_rowptr, p.obs_kf.shape[0]))
 
 
 # ------------------------------------------------------------------- K8
@@ -299,6 +338,25 @@ def reduced_matvec_error_scale(v6, c, Jp, Jl, Hll_inv, graph: ObsGraph, n: int,
     return pos - neg
 
 
+def _check_graph(name: str, graph: ObsGraph, n: int, m: int, o: int):
+    if graph.kf_rowptr.shape != (n + 1,) or graph.lm_rowptr.shape != (m + 1,) \
+            or graph.kf_obs.shape != (o,) or graph.kf_chunk_ptr.shape != (n + 1,):
+        raise ValueError(f"{name}: graph does not match the problem")
+
+
+def _graph_args(graph: ObsGraph, m: int):
+    """The graph arguments of both K9 entries: obs_kf, obs_lm, lm_rowptr,
+    lm_obs, M, kf_obs, chunk_ptr, kf_chunk_ptr, C."""
+    return (graph.obs_kf32.data_ptr(), graph.obs_lm32.data_ptr(),
+            graph.lm_rowptr.data_ptr(), graph.lm_obs.data_ptr(), m,
+            graph.kf_obs.data_ptr(), graph.chunk_ptr.data_ptr(),
+            graph.kf_chunk_ptr.data_ptr(), graph.n_chunks)
+
+
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()
+
+
 def reduced_matvec(v6: Optional[torch.Tensor], c: Optional[torch.Tensor], Jp, Jl,
                    Hll_inv, graph: ObsGraph, n: int, t_only: bool = False):
     """The observation part of the reduced camera matrix (K9).
@@ -321,26 +379,23 @@ def reduced_matvec(v6: Optional[torch.Tensor], c: Optional[torch.Tensor], Jp, Jl
                               or not t.is_contiguous()):
             raise ValueError(f"gba reduced matvec: {name} must be a contiguous "
                              f"{shape} float64 tensor, got {tuple(t.shape)} {t.dtype}")
-    if graph.kf_rowptr.shape != (n + 1,) or graph.lm_rowptr.shape != (m + 1,) \
-            or graph.kf_obs.shape != (o,):
-        raise ValueError("gba reduced matvec: graph does not match the problem")
-    f64 = dict(dtype=torch.float64, device=dev)
-    t_out = torch.empty((m, 3), **f64)
-    w_buf = torch.empty((m, 3), **f64)
-    out = None if t_only else torch.empty((n, 6), **f64)
-    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+    _check_graph("gba reduced matvec", graph, n, m, o)
+    # one allocation: t (M, 3), then the scratch y (O, 2), w (M, 3), part
+    # (C, 12), then out (N, 6)
+    sizes = (3 * m, 2 * o, 3 * m, 12 * graph.n_chunks, 0 if t_only else 6 * n)
+    buf = torch.empty(sum(sizes), dtype=torch.float64, device=dev)
+    t_out, y, w_buf, part, out = torch.split(buf, sizes)
     lib = cuda_build.library("gba_reduced_matvec")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.covins_gba_reduced_matvec(
-            ptr(v6), ptr(c), Jp.data_ptr(), Jl.data_ptr(), Hll_inv.data_ptr(),
-            graph.obs_kf32.data_ptr(), graph.obs_lm32.data_ptr(), o,
-            graph.kf_rowptr.data_ptr(), graph.kf_obs.data_ptr(), n,
-            graph.lm_rowptr.data_ptr(), graph.lm_obs.data_ptr(), m,
-            int(t_only), t_out.data_ptr(), w_buf.data_ptr(), ptr(out), stream)
+            _ptr(v6), _ptr(c), Jp.data_ptr(), Jl.data_ptr(), Hll_inv.data_ptr(),
+            *_graph_args(graph, m), n, o, int(t_only),
+            y.data_ptr(), t_out.data_ptr(), w_buf.data_ptr(), part.data_ptr(),
+            out.data_ptr(), stream)
     cuda_build.check(rc, "gba reduced matvec")
     reduced_matvec.launches += 1
-    return t_out if t_only else out
+    return t_out.view(m, 3) if t_only else out.view(n, 6)
 
 
 reduced_matvec.launches = 0
@@ -452,17 +507,64 @@ def total_cost(p: GBAProblem, graph: ObsGraph, st, visual_only: bool,
 
 
 # ------------------------------------------------- one damped GN step
-def _safe_div(a, b):
-    return a / torch.where(torch.abs(b) < 1e-30, 1e-30, b)
+@dataclasses.dataclass(frozen=True)
+class Factors:
+    """The loop-edge and IMU factors' Jacobians of one Gauss-Newton step
+    (the IMU ones None when visual only), and the node -> factor CSRs the
+    PCG kernel sums their terms in: entry f < F is factor f's i end, F + f
+    its j end; a node's entries are its i ends in factor order, then its j
+    ends, the order of the plain version's index_adds."""
+
+    loop_i: torch.Tensor  # (L,) int64
+    loop_j: torch.Tensor
+    Ji_l: torch.Tensor  # (L, 6, 6)
+    Jj_l: torch.Tensor
+    imu_i: torch.Tensor  # (F,) int64
+    imu_j: torch.Tensor
+    Ji_f: Optional[torch.Tensor]  # (F, 15, 15)
+    Jj_f: Optional[torch.Tensor]
+    loop_rowptr: torch.Tensor  # (N + 1,) int32
+    loop_entries: torch.Tensor  # (2L,) int32
+    imu_rowptr: torch.Tensor
+    imu_entries: torch.Tensor
 
 
-def _gn_schur_step(p: GBAProblem, graph: ObsGraph, state, lam, n_cg: int,
-                   visual_only: bool, huber_k: float = 0.0,
-                   cg_variant: str = "fused"):
-    """One Levenberg-Marquardt step with Schur landmark elimination
-    (`gba.py:214-450` of the reference).  ``lam`` is the adaptive
-    Marquardt parameter, a device scalar; returns (state, lam, cost)."""
-    poses, vels, biases, lms = state
+def factors(loop_i, loop_j, Ji_l, Jj_l, imu_i, imu_j, Ji_f, Jj_f, n: int) -> Factors:
+    """:class:`Factors` with their node CSRs (no IMU terms when ``Ji_f`` is
+    None)."""
+    if Ji_f is None:
+        imu_i = imu_j = loop_i[:0]
+    loop_rowptr, loop_entries = _csr(torch.cat([loop_i, loop_j]), n)
+    imu_rowptr, imu_entries = _csr(torch.cat([imu_i, imu_j]), n)
+    return Factors(loop_i, loop_j, Ji_l, Jj_l, imu_i, imu_j, Ji_f, Jj_f,
+                   loop_rowptr, loop_entries, imu_rowptr, imu_entries)
+
+
+@dataclasses.dataclass(frozen=True)
+class ReducedSystem:
+    """The damped reduced camera system of one Gauss-Newton step: Hpp -
+    Hpl Hll^-1 Hlp + diag(lam_diag) on the free components, its right-hand
+    side and block-Jacobi preconditioner, and what the landmark back-
+    substitution needs."""
+
+    b_red: torch.Tensor  # (N, 15)
+    M_inv: torch.Tensor  # (N, 15, 15)
+    free: torch.Tensor  # (N, 15) 0/1
+    lam_diag: torch.Tensor  # (N, 15)
+    Jp: torch.Tensor  # (O, 2, 6) whitened
+    Jl: torch.Tensor  # (O, 2, 3)
+    Hll_inv: torch.Tensor  # (M, 3, 3)
+    b_l: torch.Tensor  # (M, 3)
+    lm_free: torch.Tensor  # (M, 1)
+    fac: Factors
+
+
+def reduced_system(p: GBAProblem, graph: ObsGraph, state, lam, visual_only: bool,
+                   huber_k: float = 0.0) -> ReducedSystem:
+    """Linearise at ``state`` and eliminate the landmarks (`gba.py:214-343`
+    of the reference); ``lam`` is the Marquardt parameter, a device
+    scalar."""
+    poses = state[0]
     pp = _with_state(p, state)
     n = poses.shape[0]
     dtype, dev = poses.dtype, poses.device
@@ -475,6 +577,7 @@ def _gn_schur_step(p: GBAProblem, graph: ObsGraph, state, lam, n_cg: int,
 
     r_o, Jp_o, Jl_o, b6, M6, b_l, Hll = reproj_blocks(pp, graph, huber_k, "linearize")
     r_l, Ji_l, Jj_l = _loop_r_J(pp)
+    Ji_f = Jj_f = None
     if not visual_only:
         r_f, J_f = _imu_r_J(pp)
         Ji_f, Jj_f = J_f[:, :, :15], J_f[:, :, 15:]
@@ -504,77 +607,175 @@ def _gn_schur_step(p: GBAProblem, graph: ObsGraph, state, lam, n_cg: int,
     lam_diag = lam * dpp + 1e-8
     M_inv = linalg.inv_psd_small(M_blocks + torch.diag_embed(lam_diag))
 
-    def hpp_factors(v, out6):
-        """Add the loop-edge and IMU terms of Hpp v to the observation
-        part ``out6``; returns (N, 15)."""
-        v6 = v[:, :6]
-        y_l = (Ji_l @ v6[p.loop_i][..., None])[..., 0] + (Jj_l @ v6[p.loop_j][..., None])[..., 0]
-        out6 = out6.index_add(0, p.loop_i, _bt(Ji_l, y_l)).index_add(0, p.loop_j, _bt(Jj_l, y_l))
-        out = _pad15(out6)
-        if not visual_only:
-            y_f = (Ji_f @ v[p.imu_i][..., None])[..., 0] + (Jj_f @ v[p.imu_j][..., None])[..., 0]
-            out = out.index_add(0, p.imu_i, _bt(Ji_f, y_f)).index_add(0, p.imu_j, _bt(Jj_f, y_f))
-        return out
-
-    def reduced_Hv(v):
-        v = v * free
-        obs6 = reduced_matvec(v[:, :6].contiguous(), None, Jp_o, Jl_o, Hll_inv, graph, n)
-        return hpp_factors(v, obs6) * free + lam_diag * v
-
     b_red = (b_p + _pad15(reduced_matvec(None, b_l.contiguous(), Jp_o, Jl_o, Hll_inv,
                                          graph, n))) * free
+    fac = factors(p.loop_i, p.loop_j, Ji_l, Jj_l, p.imu_i, p.imu_j, Ji_f, Jj_f, n)
+    return ReducedSystem(b_red, M_inv, free, lam_diag, Jp_o, Jl_o, Hll_inv, b_l, lm_free,
+                         fac)
 
-    def apply_M(r):
-        return (M_inv @ r[..., None])[..., 0] * free
 
+def _hpp_factors(v, out6, fac: Factors):
+    """Add the loop-edge and IMU terms of Hpp v to the observation part
+    ``out6``; returns (N, 15)."""
+    v6 = v[:, :6]
+    y_l = (fac.Ji_l @ v6[fac.loop_i][..., None])[..., 0] \
+        + (fac.Jj_l @ v6[fac.loop_j][..., None])[..., 0]
+    out6 = out6.index_add(0, fac.loop_i, _bt(fac.Ji_l, y_l)).index_add(
+        0, fac.loop_j, _bt(fac.Jj_l, y_l))
+    out = _pad15(out6)
+    if fac.Ji_f is not None:
+        y_f = (fac.Ji_f @ v[fac.imu_i][..., None])[..., 0] \
+            + (fac.Jj_f @ v[fac.imu_j][..., None])[..., 0]
+        out = out.index_add(0, fac.imu_i, _bt(fac.Ji_f, y_f)).index_add(
+            0, fac.imu_j, _bt(fac.Jj_f, y_f))
+    return out
+
+
+def reduced_Hv(s: ReducedSystem, graph: ObsGraph, v):
+    """The damped reduced camera matrix times v (N, 15), its observation
+    part through K9."""
+    v = v * s.free
+    obs6 = reduced_matvec(v[:, :6].contiguous(), None, s.Jp, s.Jl, s.Hll_inv, graph,
+                          v.shape[0])
+    return _hpp_factors(v, obs6, s.fac) * s.free + s.lam_diag * v
+
+
+def _apply_M(s: ReducedSystem, r):
+    return (s.M_inv @ r[..., None])[..., 0] * s.free
+
+
+def _safe_div(a, b):
+    return a / torch.where(torch.abs(b) < 1e-30, 1e-30, b)
+
+
+def pcg_plain(s: ReducedSystem, graph: ObsGraph, n_cg: int):
+    """Plain version of :func:`pcg`: Chronopoulos-Gear PCG, both scalars
+    of an iteration from the same vectors, algebraically identical to the
+    classic loop; eager PyTorch around K9 (any device)."""
+    r = s.b_red
+    u = _apply_M(s, r)
+    w = reduced_Hv(s, graph, u)
+    gamma = torch.sum(r * u)
+    alpha = _safe_div(gamma, torch.sum(w * u))
+    x = torch.zeros_like(s.b_red)
+    pvec, svec = u, w
+    for _ in range(n_cg):
+        x = x + alpha * pvec
+        r = r - alpha * svec
+        u = _apply_M(s, r)
+        w = reduced_Hv(s, graph, u)
+        gamma1 = torch.sum(r * u)
+        delta1 = torch.sum(w * u)
+        beta1 = _safe_div(gamma1, gamma)
+        alpha = _safe_div(gamma1, delta1 - _safe_div(beta1 * gamma1, alpha))
+        pvec = u + beta1 * pvec
+        svec = w + beta1 * svec
+        gamma = gamma1
+    return x
+
+
+def _pcg_classic(s: ReducedSystem, graph: ObsGraph, n_cg: int):
+    x, r = torch.zeros_like(s.b_red), s.b_red
+    z = _apply_M(s, s.b_red)
+    pvec = z
+    for _ in range(n_cg):
+        Hp = reduced_Hv(s, graph, pvec)
+        rz = torch.sum(r * z)
+        alpha = _safe_div(rz, torch.sum(pvec * Hp))
+        x = x + alpha * pvec
+        r = r - alpha * Hp
+        z = _apply_M(s, r)
+        beta = _safe_div(torch.sum(r * z), rz)
+        pvec = z + beta * pvec
+    return x
+
+
+SLOT_CAP = 2048  # the most blocks a PCG kernel's grid may have
+
+
+def pcg(s: ReducedSystem, graph: ObsGraph, n_cg: int):
+    """Solve the reduced camera system by ``n_cg`` iterations of
+    Chronopoulos-Gear block-Jacobi PCG from x = 0; returns x (N, 15).  CPU
+    tensors take the plain version; CUDA tensors run the whole loop in one
+    cooperative launch of the K9 source's PCG kernel, or raise."""
+    ts = (s.b_red, s.M_inv, s.free, s.lam_diag, s.Jp, s.Jl, s.Hll_inv, s.fac.Ji_l,
+          s.fac.Ji_f, graph.kf_rowptr)
+    if all(t is None or is_cpu(t) for t in ts):
+        return pcg_plain(s, graph, n_cg)
+    dev = check_cuda("gba pcg", *ts)
+    n, o, m = s.b_red.shape[0], s.Jp.shape[0], s.Hll_inv.shape[0]
+    fac = s.fac
+    n_loop = fac.loop_i.shape[0]
+    n_imu = 0 if fac.Ji_f is None else fac.imu_i.shape[0]
+    for name, t, shape in (("b_red", s.b_red, (n, 15)), ("M_inv", s.M_inv, (n, 15, 15)),
+                           ("free", s.free, (n, 15)), ("lam_diag", s.lam_diag, (n, 15)),
+                           ("Jp", s.Jp, (o, 2, 6)), ("Jl", s.Jl, (o, 2, 3)),
+                           ("Hll_inv", s.Hll_inv, (m, 3, 3)),
+                           ("Ji_l", fac.Ji_l, (n_loop, 6, 6)), ("Jj_l", fac.Jj_l, (n_loop, 6, 6)),
+                           ("Ji_f", fac.Ji_f, (n_imu, 15, 15)),
+                           ("Jj_f", fac.Jj_f, (n_imu, 15, 15))):
+        if t is not None and (t.shape != shape or t.dtype != torch.float64):
+            raise ValueError(f"gba pcg: {name} must be a {shape} float64 tensor, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    _check_graph("gba pcg", graph, n, m, o)
+    if fac.loop_rowptr.shape != (n + 1,) or fac.imu_rowptr.shape != (n + 1,):
+        raise ValueError("gba pcg: factor CSRs do not match the problem")
+    if n_cg < 0:
+        raise ValueError(f"gba pcg: n_cg must be >= 0, got {n_cg}")
+    cont = [t.contiguous() for t in (s.b_red, s.M_inv, s.free, s.lam_diag, s.Jp, s.Jl,
+                                     s.Hll_inv, fac.Ji_l, fac.Jj_l)]
+    i32 = [t.to(torch.int32) for t in (fac.loop_i, fac.loop_j, fac.imu_i, fac.imu_j)]
+    imu = (None, None) if fac.Ji_f is None else (fac.Ji_f.contiguous(),
+                                                 fac.Jj_f.contiguous())
+    # one allocation: x (the result), r, u, v, p, s, w (N, 15) each, then
+    # the scratch y (O, 2), w_lm (M, 3), part (C, 12), the loop and IMU
+    # ends' J^T y (2L, 6), (2F, 15) and the block slots
+    sizes = (7 * 15 * n, 2 * o, 3 * m, 12 * graph.n_chunks, 12 * n_loop,
+             30 * n_imu, 2 * SLOT_CAP)
+    buf = torch.empty(sum(sizes), dtype=torch.float64, device=dev)
+    parts = torch.split(buf, sizes)
+    lib = cuda_build.library("gba_reduced_matvec")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.covins_gba_pcg(
+            *(t.data_ptr() for t in cont[:7]), *_graph_args(graph, m), n, o,
+            i32[0].data_ptr(), i32[1].data_ptr(), cont[7].data_ptr(), cont[8].data_ptr(),
+            n_loop, fac.loop_rowptr.data_ptr(), fac.loop_entries.data_ptr(),
+            i32[2].data_ptr(), i32[3].data_ptr(), _ptr(imu[0]), _ptr(imu[1]), n_imu,
+            fac.imu_rowptr.data_ptr(), fac.imu_entries.data_ptr(), int(n_cg),
+            *(t.data_ptr() for t in parts), SLOT_CAP, stream)
+    cuda_build.check(rc, "gba pcg")
+    pcg.launches += 1
+    return parts[0][:15 * n].view(n, 15)
+
+
+pcg.launches = 0
+
+
+def _gn_schur_step(p: GBAProblem, graph: ObsGraph, state, lam, n_cg: int,
+                   visual_only: bool, huber_k: float = 0.0,
+                   cg_variant: str = "fused"):
+    """One Levenberg-Marquardt step with Schur landmark elimination
+    (`gba.py:214-450` of the reference).  ``lam`` is the adaptive
+    Marquardt parameter, a device scalar; returns (state, lam, cost)."""
+    poses, vels, biases, lms = state
+    n = poses.shape[0]
+    s = reduced_system(p, graph, state, lam, visual_only, huber_k)
     if cg_variant == "classic":
-        x, r = torch.zeros_like(b_red), b_red
-        z = apply_M(b_red)
-        pvec = z
-        for _ in range(n_cg):
-            Hp = reduced_Hv(pvec)
-            rz = torch.sum(r * z)
-            alpha = _safe_div(rz, torch.sum(pvec * Hp))
-            x = x + alpha * pvec
-            r = r - alpha * Hp
-            z = apply_M(r)
-            beta = _safe_div(torch.sum(r * z), rz)
-            pvec = z + beta * pvec
-        dx_p = x
+        dx_p = _pcg_classic(s, graph, n_cg)
     elif cg_variant == "fused":
-        # Chronopoulos-Gear PCG: both scalars of an iteration from the same
-        # vectors, algebraically identical to the classic loop
-        r = b_red
-        u = apply_M(r)
-        w = reduced_Hv(u)
-        gamma = torch.sum(r * u)
-        alpha = _safe_div(gamma, torch.sum(w * u))
-        x = torch.zeros_like(b_red)
-        pvec, svec = u, w
-        for _ in range(n_cg):
-            x = x + alpha * pvec
-            r = r - alpha * svec
-            u = apply_M(r)
-            w = reduced_Hv(u)
-            gamma1 = torch.sum(r * u)
-            delta1 = torch.sum(w * u)
-            beta1 = _safe_div(gamma1, gamma)
-            alpha = _safe_div(gamma1, delta1 - _safe_div(beta1 * gamma1, alpha))
-            pvec = u + beta1 * pvec
-            svec = w + beta1 * svec
-            gamma = gamma1
-        dx_p = x
+        dx_p = pcg(s, graph, n_cg)
     else:
         raise ValueError(f"unknown cg_variant {cg_variant!r}")
-    dx_p = dx_p * free
+    dx_p = dx_p * s.free
 
     # the step-length ladder: every scale's cost, the best one taken if it
     # lowers the cost
     def state_at(alpha):
         dxp = alpha * dx_p
-        t = reduced_matvec(dxp[:, :6].contiguous(), None, Jp_o, Jl_o, Hll_inv, graph,
+        t = reduced_matvec(dxp[:, :6].contiguous(), None, s.Jp, s.Jl, s.Hll_inv, graph,
                            n, t_only=True)
-        dxl = (Hll_inv @ (b_l - t)[..., None])[..., 0] * lm_free
+        dxl = (s.Hll_inv @ (s.b_l - t)[..., None])[..., 0] * s.lm_free
         return (geo.pose_boxplus(poses, dxp[:, :6]), vels + dxp[:, 6:9],
                 biases + dxp[:, 9:15], lms + dxl)
 

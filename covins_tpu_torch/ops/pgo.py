@@ -6,11 +6,13 @@ neighbour odometry edges, loop edges with fixed or covariance weights and
 an optional Cauchy loss, a fixed-pose gauge.  Each Gauss-Newton step
 evaluates all edge residuals and their Jacobians at once
 (``torch.func.vmap`` of ``torch.func.jacfwd``), then solves the normal
-equations matrix-free by Chronopoulos-Gear PCG, whose matvec is a CUDA
-kernel on the card (K7, `csrc/pgo_matvec.cu`) behind :func:`matvec`.
+equations matrix-free by Chronopoulos-Gear PCG.  On the card the whole
+PCG of a step is one cooperative launch (:func:`pcg`, `csrc/pgo_matvec.cu`),
+whose source also holds the standalone matvec K7 (:func:`matvec`); the
+plain version is the eager loop :func:`_pcg` around :func:`matvec`.
 
 Every scalar of the solve stays a device tensor: no ``.item()`` and no
-Python branch on a device value inside the 10 x 100 iterations, so the
+Python branch on a device value inside the Gauss-Newton steps, so the
 host queues the whole solve without waiting for the card.
 """
 
@@ -90,7 +92,8 @@ class MatvecGraph:
 def matvec_graph(edge_i, edge_j, n: int) -> MatvecGraph:
     keys = torch.cat([edge_i, edge_j])
     order = torch.sort(keys, stable=True).indices
-    counts = torch.bincount(keys, minlength=n)
+    counts = torch.zeros(n, dtype=torch.int64, device=keys.device).index_add_(
+        0, keys, torch.ones_like(keys))
     rowptr = torch.zeros(n + 1, dtype=torch.int32, device=keys.device)
     rowptr[1:] = torch.cumsum(counts, 0)
     return MatvecGraph(edge_i, edge_j, edge_i.to(torch.int32),
@@ -111,25 +114,32 @@ def matvec_plain(v, free, Ji, Jj, graph: MatvecGraph, damping: float):
     return out * free[:, None] + damping * v
 
 
+def _check(name, graph: MatvecGraph, n: int, e: int, *named):
+    """Raise unless every (name, tensor, shape) is a contiguous float64
+    tensor of that shape and the graph has n nodes and e edges."""
+    for what, t, shape in named:
+        if t.shape != shape or t.dtype != torch.float64 or not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be a contiguous {shape} "
+                             f"float64 tensor, got {tuple(t.shape)} {t.dtype}")
+    if graph.rowptr.shape != (n + 1,) or graph.entries.shape != (2 * e,):
+        raise ValueError(f"{name}: graph does not match the problem")
+
+
 def matvec(v, free, Ji, Jj, graph: MatvecGraph, damping: float):
     """``(sum_e J_e^T (Ji v_i f_i + Jj v_j f_j)) * free + damping * v``
     for v (N, 6), free (N,) and whitened Jacobians Ji, Jj (E, 6, 6), all
     float64.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel (K7), which sums each node's terms in the graph's fixed order,
-    or raise."""
+    kernel (K7: y_e once per edge, then each node's terms summed in the
+    graph's fixed order), or raise."""
     ts = (v, free, Ji, Jj, graph.rowptr)
     if all(is_cpu(t) for t in ts):
         return matvec_plain(v, free, Ji, Jj, graph, damping)
     dev = check_cuda("pgo matvec", *ts)
     n, e = v.shape[0], Ji.shape[0]
-    for name, t, shape in (("v", v, (n, 6)), ("free", free, (n,)),
-                           ("Ji", Ji, (e, 6, 6)), ("Jj", Jj, (e, 6, 6))):
-        if t.shape != shape or t.dtype != torch.float64 or not t.is_contiguous():
-            raise ValueError(f"pgo matvec: {name} must be a contiguous {shape} "
-                             f"float64 tensor, got {tuple(t.shape)} {t.dtype}")
-    if graph.rowptr.shape != (n + 1,) or graph.entries.shape != (2 * e,):
-        raise ValueError("pgo matvec: graph does not match the problem")
+    _check("pgo matvec", graph, n, e, ("v", v, (n, 6)), ("free", free, (n,)),
+           ("Ji", Ji, (e, 6, 6)), ("Jj", Jj, (e, 6, 6)))
     out = torch.empty_like(v)
+    contrib = torch.empty((2 * e, 6), dtype=torch.float64, device=dev)
     lib = cuda_build.library("pgo_matvec")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -137,7 +147,7 @@ def matvec(v, free, Ji, Jj, graph: MatvecGraph, damping: float):
             v.data_ptr(), free.data_ptr(), Ji.data_ptr(), Jj.data_ptr(),
             graph.ei32.data_ptr(), graph.ej32.data_ptr(), e,
             graph.rowptr.data_ptr(), graph.entries.data_ptr(), n,
-            float(damping), out.data_ptr(), stream)
+            float(damping), contrib.data_ptr(), out.data_ptr(), stream)
     cuda_build.check(rc, "pgo matvec")
     matvec.launches += 1
     return out
@@ -179,46 +189,90 @@ def _pcg(Hv, b, Minv_blocks, free, n_iters: int):
     return x
 
 
+SLOT_CAP = 2048  # the most blocks the PCG kernel's grid may have
+
+
+def pcg(b, Minv, free, Ji, Jj, graph: MatvecGraph, damping: float, n_iters: int):
+    """``n_iters`` iterations of block-Jacobi PCG on H x = b from x = 0,
+    H v = :func:`matvec`; returns x (N, 6).  CPU tensors take the plain
+    version, :func:`_pcg` around :func:`matvec`; CUDA tensors run the whole
+    loop in one cooperative launch of the K7 source's PCG kernel, or
+    raise."""
+    ts = (b, Minv, free, Ji, Jj, graph.rowptr)
+    if all(is_cpu(t) for t in ts):
+        return _pcg(lambda v: matvec(v, free, Ji, Jj, graph, damping), b, Minv, free,
+                    n_iters)
+    dev = check_cuda("pgo pcg", *ts)
+    n, e = b.shape[0], Ji.shape[0]
+    _check("pgo pcg", graph, n, e, ("b", b, (n, 6)), ("Minv", Minv, (n, 6, 6)),
+           ("free", free, (n,)), ("Ji", Ji, (e, 6, 6)), ("Jj", Jj, (e, 6, 6)))
+    if n_iters < 0:
+        raise ValueError(f"pgo pcg: n_iters must be >= 0, got {n_iters}")
+    # one allocation: x (the result), r, u, p, s, w (N, 6) each, the edge
+    # ends' terms (2E, 6) and the block slots
+    sizes = (36 * n, 12 * e, 2 * SLOT_CAP)
+    work, contrib, slots = torch.split(
+        torch.empty(sum(sizes), dtype=torch.float64, device=dev), sizes)
+    lib = cuda_build.library("pgo_matvec")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.covins_pgo_pcg(
+            b.data_ptr(), Minv.data_ptr(), free.data_ptr(), Ji.data_ptr(), Jj.data_ptr(),
+            graph.ei32.data_ptr(), graph.ej32.data_ptr(), e, graph.rowptr.data_ptr(),
+            graph.entries.data_ptr(), n, float(damping), int(n_iters), work.data_ptr(),
+            contrib.data_ptr(), slots.data_ptr(), SLOT_CAP, stream)
+    cuda_build.check(rc, "pgo pcg")
+    pcg.launches += 1
+    return work[:6 * n].view(n, 6)
+
+
+pcg.launches = 0
+
+
+def normal_equations(poses, g: PoseGraph, free, damping: float, cauchy_scale: float):
+    """Linearise every edge at ``poses``: (edge residuals r (E, 6), edge
+    weights w (E,), whitened Jacobians Ji_w, Jj_w (E, 6, 6), the gradient
+    b (N, 6) and the inverse block-Jacobi blocks Minv (N, 6, 6))."""
+    n = poses.shape[0]
+    dt = poses.dtype
+    eye = torch.eye(6, dtype=dt, device=poses.device)
+    r, Ji, Jj = _edge_residual_jac(poses, g)
+    w = g.edge_mask.to(dt)
+    if cauchy_scale > 0:
+        cw = res.cauchy_weight(torch.sum(r * r, dim=-1), cauchy_scale)
+        w = w * torch.where(g.edge_is_loop, cw, 1.0)
+    sw = torch.sqrt(w)[:, None]
+    r_w = r * sw
+    Ji_w = (Ji * sw[..., None]).contiguous()
+    Jj_w = (Jj * sw[..., None]).contiguous()
+
+    bi = -torch.einsum("eri,er->ei", Ji_w, r_w)
+    bj = -torch.einsum("eri,er->ei", Jj_w, r_w)
+    b = (torch.zeros((n, 6), dtype=dt, device=poses.device)
+         .index_add_(0, g.edge_i, bi).index_add_(0, g.edge_j, bj)
+         ) * free[:, None]
+
+    Pi = torch.einsum("eri,erj->eij", Ji_w, Ji_w)
+    Pj = torch.einsum("eri,erj->eij", Jj_w, Jj_w)
+    M = (torch.zeros((n, 6, 6), dtype=dt, device=poses.device)
+         .index_add_(0, g.edge_i, Pi).index_add_(0, g.edge_j, Pj)
+         ) + (damping + 1e-9) * eye
+    return r, w, Ji_w, Jj_w, b, linalg.inv_psd_small(M)
+
+
 def optimize_pose_graph(g: PoseGraph, n_gn: int = 8, n_cg: int = 100,
                         damping: float = 1e-6, cauchy_scale: float = 0.0):
     """Gauss-Newton + PCG pose-graph optimisation.
 
     Returns (poses (N, 7), final_cost ()), both device tensors."""
     n = g.poses.shape[0]
-    dt = g.poses.dtype
-    free = (~g.fixed & g.pose_mask).to(dt)
-    eye = torch.eye(6, dtype=dt, device=g.poses.device)
+    free = (~g.fixed & g.pose_mask).to(g.poses.dtype)
     graph = matvec_graph(g.edge_i, g.edge_j, n)
     poses = g.poses
     cost = None
     for _ in range(n_gn):
-        r, Ji, Jj = _edge_residual_jac(poses, g)
-        w = g.edge_mask.to(dt)
-        if cauchy_scale > 0:
-            cw = res.cauchy_weight(torch.sum(r * r, dim=-1), cauchy_scale)
-            w = w * torch.where(g.edge_is_loop, cw, 1.0)
-        sw = torch.sqrt(w)[:, None]
-        r_w = r * sw
-        Ji_w = (Ji * sw[..., None]).contiguous()
-        Jj_w = (Jj * sw[..., None]).contiguous()
-
-        bi = -torch.einsum("eri,er->ei", Ji_w, r_w)
-        bj = -torch.einsum("eri,er->ei", Jj_w, r_w)
-        b = (torch.zeros((n, 6), dtype=dt, device=poses.device)
-             .index_add_(0, g.edge_i, bi).index_add_(0, g.edge_j, bj)
-             ) * free[:, None]
-
-        Pi = torch.einsum("eri,erj->eij", Ji_w, Ji_w)
-        Pj = torch.einsum("eri,erj->eij", Jj_w, Jj_w)
-        M = (torch.zeros((n, 6, 6), dtype=dt, device=poses.device)
-             .index_add_(0, g.edge_i, Pi).index_add_(0, g.edge_j, Pj)
-             ) + (damping + 1e-9) * eye
-        Minv = linalg.inv_psd_small(M)
-
-        def Hv(v):
-            return matvec(v, free, Ji_w, Jj_w, graph, damping)
-
-        dx = _pcg(Hv, b, Minv, free, n_cg) * free[:, None]
+        r, w, Ji_w, Jj_w, b, Minv = normal_equations(poses, g, free, damping, cauchy_scale)
+        dx = pcg(b, Minv, free, Ji_w, Jj_w, graph, damping, n_cg) * free[:, None]
         poses_new = geo.pose_boxplus(poses, dx)
         # accept only if the cost fell (guard against CG blow-ups)
         r_new = _edge_residual(poses_new, g)

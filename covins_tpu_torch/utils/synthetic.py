@@ -207,3 +207,55 @@ def build_gba_problem(n_kf=12, n_lm=96, seed=0, max_obs=None, device=None):
         loop_T=t([[1.0, 0, 0, 0, 0, 0, 0]]), loop_sqrt_info=t(np.zeros((1, 6, 6))),
         loop_mask=t([False], torch.bool))
     return problem, traj.poses, lms_gt
+
+
+def build_pose_graph(n_kf=256, n_neighbors=5, n_loops=5, seed=0, drift=0.01,
+                     device=None):
+    """Synthetic pose graph of the size a merged map's deferred solve has:
+    the keyframes of :func:`generate`'s trajectory, an edge from each
+    keyframe to each of its ``n_neighbors`` successors (odometry and
+    covisibility), ``n_loops`` loop edges between keyframes at least ten
+    apart, measurements the true relative poses with 0.005 of noise per
+    tangent component, the start a random walk of ``drift`` per keyframe
+    and component away from the truth; keyframe 0 fixed.  The weights are
+    those `Map.to_pose_graph` gives with the default `Config`: rotation 100
+    and translation 10 to the first successor, 50 and 5 to the second and
+    third, 33.3 and 3.33 beyond, and loop edges 100 and 1e4.  At the
+    default sizes, 256 poses and 1270 edges.  Returns (graph on ``device``,
+    true poses (K, 7) numpy)."""
+    from covins_tpu_torch.device import resolve_device
+    from covins_tpu_torch.ops import pgo
+    from covins_tpu_torch.utils import geometry as geo
+    from covins_tpu_torch.utils.config import Config
+
+    dev = resolve_device(device)
+    cfg = Config()
+    rng = np.random.default_rng(seed)
+    gt = torch.from_numpy(generate(n_keyframes=n_kf, imu_rate=2.0).poses)
+    pairs = [(i, i + k) for k in range(1, n_neighbors + 1) for i in range(n_kf - k)]
+    loops = []
+    while len(loops) < n_loops and n_kf > 10:
+        i, j = sorted(int(x) for x in rng.integers(0, n_kf, 2))
+        if j - i >= 10:
+            loops.append((i, j))
+    ei, ej = (torch.tensor([p[s] for p in pairs + loops], dtype=torch.int64)
+              for s in (0, 1))
+    e = ei.shape[0]
+    T = geo.pose_boxplus(geo.pose_relative(gt[ei], gt[ej]),
+                         torch.from_numpy(0.005 * rng.normal(size=(e, 6))))
+    walk = torch.from_numpy(np.cumsum(drift * rng.normal(size=(n_kf, 6)), axis=0))
+    walk[0] = 0.0
+    hop = np.array([j - i for i, j in pairs])
+    mult = np.where(hop == 1, cfg.wt_kf_n1,
+                    cfg.wt_kf_n1 / np.where(hop <= 3, cfg.wt_kf_n23, cfg.wt_kf_n45))
+    diag = np.concatenate([
+        np.repeat(np.stack([cfg.wt_kf_R * mult, cfg.wt_kf_T * mult], 1), 3, 1),
+        np.tile([100.0] * 3 + [1e4] * 3, (len(loops), 1))])
+    g = pgo.PoseGraph(
+        poses=geo.pose_boxplus(gt, walk), pose_mask=torch.ones(n_kf, dtype=torch.bool),
+        fixed=torch.arange(n_kf) == 0, edge_i=ei, edge_j=ej, edge_T=T,
+        edge_sqrt_info=torch.diag_embed(torch.from_numpy(diag)),
+        edge_mask=torch.ones(e, dtype=torch.bool),
+        edge_is_loop=torch.arange(e) >= len(pairs))
+    return pgo.PoseGraph(**{f.name: getattr(g, f.name).to(dev)
+                            for f in dataclasses.fields(g)}), gt.numpy()

@@ -1,4 +1,4 @@
-"""The ten CUDA kernels against their plain versions, on the card.
+"""The CUDA kernels against their plain versions, on the card.
 
 These tests need a CUDA card and the CUDA toolkit (the kernels are built
 with nvcc at first use); without a card they skip.  On the machine with the
@@ -21,10 +21,16 @@ correspondence within 1e-12 rad of the threshold; K7 to 1e-12 relative
 and bit for bit between two launches; K8 and K10 to 1e-13 relative, K9
 to 1e-13 of the sums of magnitudes behind each output (a landmark seen
 once or twice has a nearly singular Hll, so its terms cancel), all
-float64, built without FMA contraction, summing each keyframe's and
-landmark's observations in the plain version's order and rounded apart
-only where PyTorch's library products sum another way; bit for bit
-between two launches; K8's validity and outlier decisions exactly.
+float64, built without FMA contraction, summing each landmark's
+observations in the plain version's order (K9's keyframe sums in fixed
+chunks of consecutive observations, then the chunks in order) and rounded
+apart only where PyTorch's library products sum another way; bit for bit
+between two launches; K8's validity and outlier decisions exactly.  The
+two PCG kernels (a Gauss-Newton step's whole loop per launch) within 10x
+their plain loop's own change under a one-ulp change of b, at ragged
+sizes (two poses, five keyframes, landmarks seen 0, 1 and 2 times, visual
+only, no loop edge, 0, 1 and full iteration counts), and bit for bit
+between two launches.
 """
 
 import numpy as np
@@ -356,3 +362,180 @@ def test_gba_kernels_refuse_bad_inputs(dev):
     z = torch.zeros((2, 4, 3), dtype=torch.float32, device=dev)
     with pytest.raises(ValueError):
         imu.preintegrate(z, z, z[..., 0], z[..., 0], z[:, 0], z[:, 0], imu.default_noise())
+
+
+# ------------------------------------------------- the PCG kernels
+# Each PCG kernel runs a Gauss-Newton step's whole loop in one launch; it
+# is held to its plain loop on the same inputs within PCG_FACTOR times the
+# plain loop's own change when one ulp is added to every entry of b (the
+# loops stop far from convergence and amplify any rounding difference
+# alike; the kernel sums its dot products in another order than
+# torch.sum), and bit for bit across two launches.
+PCG_FACTOR = 10.0
+
+
+def _ulp_check(kernel, plain, b):
+    """(kernel result, its difference to the plain loop, the plain loop's
+    one-ulp spread); the kernel launched twice with equal bits."""
+    x, again = kernel(b), kernel(b)
+    assert torch.equal(x, again)
+    x0 = plain(b)
+    x1 = plain(torch.nextafter(b, torch.full_like(b, float("inf"))))
+    diff = float((x - x0).abs().max()) if x.numel() else 0.0
+    spread = float((x1 - x0).abs().max()) if x.numel() else 0.0
+    assert diff <= PCG_FACTOR * spread, (diff, spread)
+    return x, diff, spread
+
+
+def _pose_graph_system(n_kf, dev, n_loops=5):
+    from covins_tpu_torch.utils import synthetic
+
+    g, _ = synthetic.build_pose_graph(n_kf=n_kf, n_loops=n_loops, seed=n_kf, device=dev)
+    free = (~g.fixed & g.pose_mask).to(torch.float64)
+    graph = pgo.matvec_graph(g.edge_i, g.edge_j, n_kf)
+    _, _, Ji, Jj, b, Minv = pgo.normal_equations(g.poses, g, free, 1e-6, 0.0)
+    return b, Minv, free, Ji, Jj, graph
+
+
+@pytest.mark.parametrize("n_kf,n_iters", [(2, 1), (37, 0), (37, 1), (37, 100),
+                                          (256, 100)])
+def test_pgo_pcg_kernel_matches_plain_loop(dev, n_kf, n_iters):
+    b, Minv, free, Ji, Jj, graph = _pose_graph_system(n_kf, dev)
+    before = (pgo.pcg.launches, pgo.matvec.launches)
+
+    def kernel(bb):
+        return pgo.pcg(bb, Minv, free, Ji, Jj, graph, 1e-6, n_iters)
+
+    def plain(bb):
+        return pgo._pcg(lambda v: pgo.matvec_plain(v, free, Ji, Jj, graph, 1e-6), bb, Minv,
+                        free, n_iters)
+
+    x, _, _ = _ulp_check(kernel, plain, b)
+    assert (pgo.pcg.launches, pgo.matvec.launches) == (before[0] + 2, before[1])
+    if n_iters == 0:
+        assert not bool(x.any())
+
+
+def test_pgo_pcg_refuses_bad_inputs(dev):
+    b, Minv, free, Ji, Jj, graph = _pose_graph_system(9, dev)
+    with pytest.raises(ValueError):
+        pgo.pcg(b[:, :5].contiguous(), Minv, free, Ji, Jj, graph, 1e-6, 3)
+    with pytest.raises(ValueError):
+        pgo.pcg(b, Minv.float(), free, Ji, Jj, graph, 1e-6, 3)
+    with pytest.raises(ValueError):
+        pgo.pcg(b, Minv, free, Ji, Jj, graph, 1e-6, -1)
+    with pytest.raises(RuntimeError):
+        pgo.pcg(b.cpu(), Minv, free, Ji, Jj, graph, 1e-6, 3)
+
+
+def _thin(p, counts):
+    """``p`` with the first landmarks seen three times or more keeping only
+    their first counts[k] observations."""
+    import dataclasses
+
+    keep = torch.ones(p.obs_kf.shape[0], dtype=torch.bool)
+    seen = torch.bincount(p.obs_lm, minlength=p.lms.shape[0])
+    for lm, c in zip(torch.nonzero(seen >= 3)[:, 0].tolist(), counts):
+        idx = torch.nonzero(p.obs_lm == lm)[:, 0]
+        keep[idx[c:]] = False
+    return dataclasses.replace(p, obs_kf=p.obs_kf[keep], obs_lm=p.obs_lm[keep],
+                               obs_uv=p.obs_uv[keep], obs_w=p.obs_w[keep],
+                               obs_mask=p.obs_mask[keep])
+
+
+def _gba_system(dev, n_kf=12, n_lm=150, max_obs=700, thin=False, loops=True,
+                visual_only=False, huber=0.0):
+    import dataclasses
+
+    from covins_tpu_torch.ops import gba
+
+    pc, _ = _gba_problem(n_kf, n_lm, max_obs, dev)
+    if thin:  # landmarks seen 0, 1 and 2 times
+        pc = _thin(pc, [0, 1, 2, 0, 1, 2])
+    pd = gba.problem_to(pc, dev)
+    g = gba.obs_graph(pd)
+    s = gba.reduced_system(pd, g, (pd.poses, pd.vels, pd.biases, pd.lms),
+                           torch.tensor(1e-4, dtype=torch.float64, device=dev),
+                           visual_only, huber)
+    if not loops:  # no loop factor at all (L = 0)
+        f = s.fac
+        s = dataclasses.replace(s, fac=gba.factors(
+            f.loop_i[:0], f.loop_j[:0], f.Ji_l[:0], f.Jj_l[:0], f.imu_i, f.imu_j, f.Ji_f,
+            f.Jj_f, pd.poses.shape[0]))
+    return s, g, pd
+
+
+GBA_PCG_CASES = {
+    "bench_like": dict(), "huber": dict(huber=2.447), "visual_only": dict(visual_only=True),
+    "no_loops": dict(loops=False), "thin_landmarks": dict(thin=True),
+    "five_keyframes": dict(n_kf=5, n_lm=40, max_obs=None),
+}
+
+
+@pytest.mark.parametrize("n_cg", [0, 1, 60])
+@pytest.mark.parametrize("case", list(GBA_PCG_CASES))
+def test_gba_pcg_kernel_matches_plain_loop(dev, case, n_cg):
+    import dataclasses
+
+    from covins_tpu_torch.ops import gba
+
+    s, g, _ = _gba_system(dev, **GBA_PCG_CASES[case])
+    before = (gba.pcg.launches, gba.reduced_matvec.launches)
+
+    def kernel(b):
+        return gba.pcg(dataclasses.replace(s, b_red=b), g, n_cg)
+
+    def plain(b):
+        return gba.pcg_plain(dataclasses.replace(s, b_red=b), g, n_cg)
+
+    x, _, _ = _ulp_check(kernel, plain, s.b_red)
+    assert gba.pcg.launches == before[0] + 2
+    if n_cg == 0:
+        assert not bool(x.any())
+
+
+def test_gba_step_launches(dev):
+    """One Gauss-Newton step launches the PCG kernel once and K9 seven times
+    (b_red and the six ladder scales), never inside the PCG."""
+    from covins_tpu_torch.ops import gba
+
+    _, g, pd = _gba_system(dev)
+    before = (gba.pcg.launches, gba.reduced_matvec.launches)
+    gba._gn_schur_step(pd, g, (pd.poses, pd.vels, pd.biases, pd.lms),
+                       torch.tensor(1e-4, dtype=torch.float64, device=dev), 60, False)
+    assert (gba.pcg.launches - before[0], gba.reduced_matvec.launches - before[1]) == (1, 7)
+
+
+@pytest.mark.parametrize("case", ["thin_landmarks", "five_keyframes"])
+def test_gba_reduced_matvec_ragged_matches_plain(dev, case):
+    from covins_tpu_torch.ops import gba
+
+    s, g, pd = _gba_system(dev, **GBA_PCG_CASES[case])
+    n, m = pd.poses.shape[0], pd.lms.shape[0]
+    rng = np.random.default_rng(m)
+    v6 = torch.tensor(rng.normal(size=(n, 6)), device=dev)
+    c = torch.tensor(rng.normal(size=(m, 3)), device=dev)
+    for vv, cc, t_only in ((v6, None, False), (None, c, False), (v6, c, False),
+                           (v6, None, True)):
+        got = gba.reduced_matvec(vv, cc, s.Jp, s.Jl, s.Hll_inv, g, n, t_only)
+        assert torch.equal(got, gba.reduced_matvec(vv, cc, s.Jp, s.Jl, s.Hll_inv, g, n,
+                                                   t_only))
+        ref = gba.reduced_matvec_plain(vv, cc, s.Jp, s.Jl, s.Hll_inv, g, n, t_only)
+        scale = gba.reduced_matvec_error_scale(vv, cc, s.Jp, s.Jl, s.Hll_inv, g, n, t_only)
+        assert float(((got - ref).abs() / scale.clamp(min=1e-300)).max()) <= 1e-13
+
+
+def test_gba_pcg_refuses_bad_inputs(dev):
+    import dataclasses
+
+    from covins_tpu_torch.ops import gba
+
+    s, g, _ = _gba_system(dev, n_kf=3, n_lm=16, max_obs=None)
+    with pytest.raises(ValueError):
+        gba.pcg(dataclasses.replace(s, b_red=s.b_red[:, :14].contiguous()), g, 3)
+    with pytest.raises(ValueError):
+        gba.pcg(dataclasses.replace(s, M_inv=s.M_inv.float()), g, 3)
+    with pytest.raises(ValueError):
+        gba.pcg(s, g, -1)
+    with pytest.raises(RuntimeError):
+        gba.pcg(dataclasses.replace(s, b_red=s.b_red.cpu()), g, 3)
