@@ -539,3 +539,23 @@ def test_gba_pcg_refuses_bad_inputs(dev):
         gba.pcg(s, g, -1)
     with pytest.raises(RuntimeError):
         gba.pcg(dataclasses.replace(s, b_red=s.b_red.cpu()), g, 3)
+
+
+def test_pcg_kernels_raise_when_the_launch_is_refused(dev, monkeypatch):
+    """A cooperative launch the C side refuses (here: a grid larger than
+    the block slots the wrapper provides) raises; no eager loop runs
+    instead and no launch is counted."""
+    from covins_tpu_torch.ops import gba
+
+    s, g, _ = _gba_system(dev, n_kf=5, n_lm=40, max_obs=None)
+    b, Minv, free, Ji, Jj, graph = _pose_graph_system(9, dev)
+    monkeypatch.setattr(gba, "SLOT_CAP", 0)
+    monkeypatch.setattr(pgo, "SLOT_CAP", 0)
+    before = (gba.pcg.launches, pgo.pcg.launches, gba.reduced_matvec.launches,
+              pgo.matvec.launches)
+    with pytest.raises(RuntimeError):
+        gba.pcg(s, g, 3)
+    with pytest.raises(RuntimeError):
+        pgo.pcg(b, Minv, free, Ji, Jj, graph, 1e-6, 3)
+    assert (gba.pcg.launches, pgo.pcg.launches, gba.reduced_matvec.launches,
+            pgo.matvec.launches) == before
