@@ -14,9 +14,10 @@ package beside it.  Phases:
    correspondences within 1e-12 rad of the threshold, K7 to 1e-12
    relative, K8 and K10 to 1e-13 relative, K9 to 1e-13 of the sums of
    magnitudes behind each output, the two PCG kernels (pgo_pcg, 100
-   iterations, at a 256-pose graph of 1270 edges and ragged ones; gba_pcg,
-   60 iterations) within GBA_FACTOR times their eager loop's own change
-   when one ulp is added to b, K7-K10 and both PCG kernels bit for bit
+   iterations, at a 256-pose graph of 1270 edges with the default edge
+   weights and with all weights 100, and at ragged ones; gba_pcg, 60
+   iterations) within GBA_FACTOR times their plain loop's own rounding
+   spread (:func:`pcg_check`), K7-K10 and both PCG kernels bit for bit
    across two launches (K8-K10 and gba_pcg at bench.py's GBA problem and
    at ragged problems down to two keyframes); K7 and K9 beside one
    torch.mv of their matrix assembled densely;
@@ -28,7 +29,10 @@ package beside it.  Phases:
    and read just after (pgo_pcg once per pose-graph Gauss-Newton step,
    the standalone K7 never), timing the ingest, the place-recognition
    drain and its pose-graph solves apart, and those solves replayed with
-   the PCG kernel and with the eager loop in turns; traced runs (device busy time from torch.profiler over an
+   the PCG kernel and with the eager loop in turns, then once more with
+   every Gauss-Newton step's pgo_pcg read against its plain loop (the
+   rounding readings of phase 1, recorded, not held);
+   traced runs (device busy time from torch.profiler over an
    ingest and the first agent's drain of the stream's first windows, host
    self time by layer from cProfile over the second agent's drain of
    those windows and an ingest); then the same streams through the port
@@ -139,9 +143,37 @@ def cuda_ms(fn, reps):
 
 
 def busy_ms(fn, reps):
-    """The card's busy time per call of ``fn`` (the kernels alone, without
-    the host's cadence): torch.profiler's device intervals over ``reps``
-    calls."""
+    """The card's time per call of ``fn`` without the host's cadence: the
+    ``reps`` calls are queued behind a spin kernel (``torch.cuda._sleep``)
+    that outlasts the host's issuing of them, and timed with CUDA events
+    from the spin's end to the last call's end.  None if the host could
+    not get ahead of the card (``fn`` waits for the card)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 24
+    for _ in range(8):
+        spin, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        spin.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        end.synchronize()
+        if spin.elapsed_time(start) > 1.5 * host_ms:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    return None
+
+
+def profiled_ms(fn, reps):
+    """torch.profiler's reading of the same: the card's kernel and copy
+    intervals per call over ``reps`` calls, and how many intervals it
+    recorded."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -151,7 +183,9 @@ def busy_ms(fn, reps):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return _device_busy_ms(prof)[0] / reps
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA]
+    return sum(e.duration_ns() for e in events) / 1e6 / reps, len(events)
 
 
 def bound(bytes_moved, *ops_at_rate):
@@ -511,73 +545,128 @@ def k9_case(v6, c, Jp, Jl, Hinv, graph, n, reps, library=False):
     }
 
 
-def ulp_spread_check(name, kernel, plain, b):
-    """Launch ``kernel(b)`` twice (equal bits) and hold it to the plain
-    loop ``plain(b)`` within GBA_FACTOR times the plain loop's own change
-    when one ulp is added to every entry of b.  Returns (kernel result,
-    difference, spread)."""
+def reversed_total(x):
+    """One running float64 sum over the elements in reverse order: another
+    summation order than torch.sum's."""
+    import torch
+
+    return torch.cumsum(x.reshape(-1).flip(0), 0)[-1]
+
+
+def rounding_readings(plain, b):
+    """The plain PCG loop ``plain(b, total)`` at b, and how far its result
+    moves under three rounding differences of its own: one ulp added to
+    every entry of b, one ulp taken off, and its two dot products per
+    iteration summed by :func:`reversed_total` instead of torch.sum (the
+    kind of difference a kernel with its own reduction order brings)."""
+    import torch
+
+    x0 = plain(b, torch.sum)
+    moved = {"one_ulp_up": plain(torch.nextafter(b, torch.full_like(b, float("inf"))),
+                                 torch.sum),
+             "one_ulp_down": plain(torch.nextafter(b, torch.full_like(b, -float("inf"))),
+                                   torch.sum),
+             "reordered_sums": plain(b, reversed_total)}
+    return x0, {k: float((x - x0).abs().max()) if x.numel() else 0.0
+                for k, x in moved.items()}
+
+
+def pcg_readings(name, kernel, plain, b):
+    """Launch ``kernel(b)`` twice (equal bits, checked) and read how far it
+    ends from the plain loop and the loop's rounding readings
+    (:func:`rounding_readings`).  Returns (kernel result, {max_abs_err,
+    rounding_spread (the largest reading), the readings})."""
     import torch
 
     x, again = kernel(b), kernel(b)
-    x0 = plain(b)
-    x1 = plain(torch.nextafter(b, torch.full_like(b, float("inf"))))
+    x0, readings = rounding_readings(plain, b)
     torch.cuda.synchronize()
     check(torch.equal(x, again), f"{name} differs between two launches")
     diff = float((x - x0).abs().max()) if x.numel() else 0.0
-    spread = float((x1 - x0).abs().max()) if x.numel() else 0.0
-    check(diff <= GBA_FACTOR * spread,
-          f"{name} differs from its plain loop by {diff}; one ulp of b moves the plain "
-          f"loop by {spread}")
-    return x, diff, spread
+    return x, {"max_abs_err": diff, "rounding_spread": max(readings.values()), **readings}
+
+
+def pcg_check(name, kernel, plain, b):
+    """:func:`pcg_readings`, the kernel held to the plain loop within
+    GBA_FACTOR times the largest reading (one reading alone swings up to
+    200-fold between +1 and -1 ulp of the same b)."""
+    x, res = pcg_readings(name, kernel, plain, b)
+    check(res["max_abs_err"] <= GBA_FACTOR * res["rounding_spread"],
+          f"{name} differs from its plain loop by {res['max_abs_err']}; the loop's own "
+          f"rounding readings are {res}")
+    return x, res
 
 
 def pgo_eager_pcg(b, Minv, free, Ji, Jj, graph, damping, n_iters):
     """The pose-graph PCG as the eager loop `_pcg` around K7, as a Gauss-
-    Newton step ran it before the persistent kernel (the plain version's
-    loop; on the card its matvec is K7)."""
+    Newton step ran it before the persistent kernel (timed only)."""
     from covins_tpu_torch.ops import pgo
 
     return pgo._pcg(lambda v: pgo.matvec(v, free, Ji, Jj, graph, damping), b, Minv, free,
                     n_iters)
 
 
-def pgo_pcg_case(b, Minv, free, Ji, Jj, graph, damping, n_iters, reps):
+def pgo_pcg_check(b, Minv, free, Ji, Jj, graph, damping, n_iters, wrapper=None,
+                  hold=pcg_check):
+    """``hold`` (:func:`pcg_check`, or :func:`pcg_readings` to read only)
+    of pgo_pcg (``wrapper``, by default `pgo.pcg`) against `_pcg` around
+    the plain matvec."""
     from covins_tpu_torch.ops import pgo
 
     def kernel(bb):
-        return pgo.pcg(bb, Minv, free, Ji, Jj, graph, damping, n_iters)
+        return (wrapper or pgo.pcg)(bb, Minv, free, Ji, Jj, graph, damping, n_iters)
 
-    def plain(bb):
-        return pgo_eager_pcg(bb, Minv, free, Ji, Jj, graph, damping, n_iters)
+    def plain(bb, total):
+        return pgo._pcg(lambda v: pgo.matvec_plain(v, free, Ji, Jj, graph, damping), bb,
+                        Minv, free, n_iters, total)
+    return hold("pgo_pcg", kernel, plain, b)
 
-    _, diff, spread = ulp_spread_check("pgo_pcg", kernel, plain, b)
+
+def pgo_pcg_case(b, Minv, free, Ji, Jj, graph, damping, n_iters, reps):
+    import torch
+
+    from covins_tpu_torch.ops import pgo
+
+    def kernel():
+        return pgo.pcg(b, Minv, free, Ji, Jj, graph, damping, n_iters)
+
+    _, res = pgo_pcg_check(b, Minv, free, Ji, Jj, graph, damping, n_iters)
     N, E = b.shape[0], Ji.shape[0]
     # inputs read once, x written once; per iteration (and once more for the
-    # initial product) about 444 float64 operations per edge (y_e and both
-    # ends' J^T y_e) and 160 per pose (M^-1 r, the vector updates and dots)
+    # initial product) about 300 float64 operations per edge (y_e and both
+    # ends' J^T y_e, the node sums) and 150 per pose (M^-1 r, the vector
+    # updates and dots), as the source's header counts
     nbytes = 2 * E * 36 * 8 + N * (6 + 36 + 1 + 6) * 8 + E * 8 + (N + 1 + 2 * E) * 4
-    bnd, by = bound(nbytes, ((n_iters + 1) * (444.0 * E + 160.0 * N), FP64_OPS_S))
+    bnd, by = bound(nbytes, ((n_iters + 1) * (300.0 * E + 150.0 * N), FP64_OPS_S))
+    prof_ms, prof_events = profiled_ms(kernel, reps)
     return {
-        "kernel_ms": cuda_ms(lambda: kernel(b), reps),
-        "busy_ms": busy_ms(lambda: kernel(b), reps),
-        "plain_ms": cuda_ms(lambda: plain(b), max(1, reps // 5)),
-        "library_ms": None, "bound_ms": bnd, "bound_by": by,
-        "max_abs_err": diff, "one_ulp_spread": spread, "n_iters": n_iters,
+        "kernel_ms": cuda_ms(kernel, reps), "busy_ms": busy_ms(kernel, reps),
+        "profiler_ms": prof_ms, "profiler_intervals": prof_events,
+        "plain_ms": cuda_ms(lambda: pgo._pcg(
+            lambda v: pgo.matvec_plain(v, free, Ji, Jj, graph, damping), b, Minv, free,
+            n_iters, torch.sum), max(1, reps // 5)),
+        "eager_kernel_ms": cuda_ms(lambda: pgo_eager_pcg(b, Minv, free, Ji, Jj, graph,
+                                                         damping, n_iters),
+                                   max(1, reps // 5)),
+        "library_ms": None, "bound_ms": bnd, "bound_by": by, "n_iters": n_iters, **res,
     }
 
 
 def gba_pcg_case(s, graph, n_cg, reps):
     import dataclasses as dc
 
+    import torch
+
     from covins_tpu_torch.ops import gba
 
     def kernel(b):
         return gba.pcg(dc.replace(s, b_red=b), graph, n_cg)
 
-    def plain(b):
-        return gba.pcg_plain(dc.replace(s, b_red=b), graph, n_cg)
+    def plain(b, total):
+        return gba.pcg_plain(dc.replace(s, b_red=b), graph, n_cg, gba.reduced_matvec_plain,
+                             total)
 
-    _, diff, spread = ulp_spread_check("gba_pcg", kernel, plain, s.b_red)
+    _, res = pcg_check("gba_pcg", kernel, plain, s.b_red)
     n, o, m = s.b_red.shape[0], s.Jp.shape[0], s.Hll_inv.shape[0]
     L = s.fac.loop_i.shape[0]
     F = 0 if s.fac.Ji_f is None else s.fac.imu_i.shape[0]
@@ -596,9 +685,9 @@ def gba_pcg_case(s, graph, n_cg, reps):
     return {
         "kernel_ms": cuda_ms(lambda: kernel(s.b_red), reps),
         "busy_ms": busy_ms(lambda: kernel(s.b_red), reps),
-        "plain_ms": cuda_ms(lambda: plain(s.b_red), max(1, reps // 5)),
-        "library_ms": None, "bound_ms": bnd, "bound_by": by,
-        "max_abs_err": diff, "one_ulp_spread": spread, "n_cg": n_cg,
+        "plain_ms": cuda_ms(lambda: plain(s.b_red, torch.sum), max(1, reps // 5)),
+        "eager_kernel_ms": cuda_ms(lambda: gba.pcg_plain(s, graph, n_cg), max(1, reps // 5)),
+        "library_ms": None, "bound_ms": bnd, "bound_by": by, "n_cg": n_cg, **res,
     }
 
 
@@ -799,16 +888,23 @@ def phase1(dev):
         r = k7_case(*_k7_inputs(rng, N, E, dev), 1e-6, reps=50, library=N == 256)
         print(json.dumps({"phase": 1, "kernel": "pgo_matvec", "shape": [N, E], **r}))
     # the pose-graph PCG kernel at the merged bench map's graph size (256
-    # poses, 1270 edges, 100 iterations) and ragged
-    for n_kf, n_iters in ((256, 100), (37, 100), (37, 1), (2, 1)):
+    # poses, 1270 edges, 100 iterations), with the default edge weights and
+    # with all weights 100 (where the CG stagnates and one ulp of b moves
+    # the loop least predictably), and ragged
+    for n_kf, n_iters, weights in ((256, 100, "config"), (256, 100, "100"),
+                                   (37, 100, "config"), (37, 1, "config"),
+                                   (2, 1, "config")):
         g, _ = synthetic.build_pose_graph(n_kf=n_kf, seed=SEED, device=dev)
+        if weights == "100":
+            g = dataclasses.replace(g, edge_sqrt_info=pgo.make_sqrt_info(
+                100.0, 100.0, g.edge_i.shape[0], device=dev).contiguous())
         free = (~g.fixed & g.pose_mask).to(torch.float64)
         graph = pgo.matvec_graph(g.edge_i, g.edge_j, n_kf)
         _, _, Ji, Jj, b, Minv = pgo.normal_equations(g.poses, g, free, 1e-6, 0.0)
         r = pgo_pcg_case(b, Minv, free, Ji, Jj, graph, 1e-6, n_iters,
                          reps=10 if n_kf == 256 else 2)
         print(json.dumps({"phase": 1, "kernel": "pgo_pcg", "shape": [n_kf, Ji.shape[0]],
-                          **r}))
+                          "edge_weights": weights, **r}))
     # K8-K10 at bench.py's GBA problem and at ragged sizes (down to two
     # keyframes with no observation in common); the bench shape's rows go
     # into the kernel table
@@ -1090,6 +1186,29 @@ class PgoTimer:
 
         pgo.optimize_pose_graph = self._fn
 
+    def step_readings(self):
+        """The recorded solves once more, with each Gauss-Newton step's
+        pgo_pcg read against its plain loop (:func:`pcg_readings`: equal
+        bits on relaunch checked, the distance to the loop and the loop's
+        rounding readings recorded); returns each step's readings."""
+        from covins_tpu_torch.ops import pgo
+
+        kernel, steps = pgo.pcg, []
+
+        def read(b, Minv, free, Ji, Jj, graph, damping, n_iters):
+            x, res = pgo_pcg_check(b, Minv, free, Ji, Jj, graph, damping, n_iters, kernel,
+                                   pcg_readings)
+            steps.append({"shape": [b.shape[0], Ji.shape[0]], **res})
+            return x
+        read.launches = 0  # the wrapper counts on its module-level name
+        pgo.pcg = read
+        try:
+            for g, kw in self.calls:
+                self._fn(g, **kw)
+        finally:
+            pgo.pcg = kernel
+        return steps
+
     def replay(self):
         """Seconds of the recorded solves with the kernel and with the eager
         loop `_pcg` around K7, in turns (kernel, eager, eager, kernel), and
@@ -1316,6 +1435,8 @@ def phase2(dev, card):
     pgo_times, pgo_diff = pgo_timer.replay()
     check(pgo_diff <= POSE_TOL, f"the kernel's and the eager loop's PGO poses differ by "
                                 f"{pgo_diff}")
+    for step in pgo_timer.step_readings():
+        print(json.dumps({"phase": 2, "drain_pgo_pcg_step": step}))
     print(json.dumps({
         "phase": 2, "card": card, "n_agents": n_agents, "n_keyframes": n_total,
         "windows": len(windows), "db_rows": gpu["mgr"].database.n,
@@ -1834,7 +1955,8 @@ def main():
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": row["shape"],
-            **{k: row[k] for k in ("busy_ms", "library_busy_ms") if k in row},
+            **{k: row[k] for k in ("busy_ms", "library_busy_ms", "eager_kernel_ms",
+                                   "profiler_ms", "profiler_intervals") if k in row},
         })
     print(card_line())
     print(json.dumps({"kernels": kernels}))

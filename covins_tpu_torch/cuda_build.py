@@ -71,6 +71,9 @@ SIGNATURES = {
         "covins_imu_preintegrate": [_P] * 6 + [_I, _I, _D, _D] + [_P] * 7,
     },
 }
+# the most blocks a PCG kernel's grid may have: the size of the block slots
+# its wrapper allocates for the dot products' partial sums
+SLOT_CAP = 2048
 # sources whose float64 arithmetic must round as the plain versions'
 # separate tensor operations do: no fused multiply-add contraction
 EXTRA_FLAGS = {

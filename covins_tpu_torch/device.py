@@ -54,3 +54,13 @@ def check_cuda(name: str, *tensors: Optional[torch.Tensor]) -> torch.device:
             raise RuntimeError(f"{name}: tensors on {dev} and {t.device}")
         dev = t.device
     return dev
+
+
+def check_f64(name: str, *named) -> None:
+    """Common wrapper check: every (what, tensor, shape) is a contiguous
+    float64 tensor of that shape; a None tensor passes."""
+    for what, t, shape in named:
+        if t is not None and (t.shape != shape or t.dtype != torch.float64
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name}: {what} must be a contiguous {shape} float64 "
+                             f"tensor, got {tuple(t.shape)} {t.dtype}")

@@ -48,7 +48,7 @@ from typing import Optional
 import torch
 
 from covins_tpu_torch import cuda_build
-from covins_tpu_torch.device import check_cuda, is_cpu
+from covins_tpu_torch.device import check_cuda, check_f64, is_cpu
 from covins_tpu_torch.ops import imu as imu_mod
 from covins_tpu_torch.ops import linalg
 from covins_tpu_torch.ops import residuals as res
@@ -373,12 +373,8 @@ def reduced_matvec(v6: Optional[torch.Tensor], c: Optional[torch.Tensor], Jp, Jl
         return reduced_matvec_plain(v6, c, Jp, Jl, Hll_inv, graph, n, t_only)
     dev = check_cuda("gba reduced matvec", *ts)
     o, m = Jp.shape[0], Hll_inv.shape[0]
-    for name, t, shape in (("v6", v6, (n, 6)), ("c", c, (m, 3)), ("Jp", Jp, (o, 2, 6)),
-                           ("Jl", Jl, (o, 2, 3)), ("Hll_inv", Hll_inv, (m, 3, 3))):
-        if t is not None and (t.shape != shape or t.dtype != torch.float64
-                              or not t.is_contiguous()):
-            raise ValueError(f"gba reduced matvec: {name} must be a contiguous "
-                             f"{shape} float64 tensor, got {tuple(t.shape)} {t.dtype}")
+    check_f64("gba reduced matvec", ("v6", v6, (n, 6)), ("c", c, (m, 3)),
+              ("Jp", Jp, (o, 2, 6)), ("Jl", Jl, (o, 2, 3)), ("Hll_inv", Hll_inv, (m, 3, 3)))
     _check_graph("gba reduced matvec", graph, n, m, o)
     # one allocation: t (M, 3), then the scratch y (O, 2), w (M, 3), part
     # (C, 12), then out (N, 6)
@@ -509,11 +505,12 @@ def total_cost(p: GBAProblem, graph: ObsGraph, st, visual_only: bool,
 # ------------------------------------------------- one damped GN step
 @dataclasses.dataclass(frozen=True)
 class Factors:
-    """The loop-edge and IMU factors' Jacobians of one Gauss-Newton step
-    (the IMU ones None when visual only), and the node -> factor CSRs the
-    PCG kernel sums their terms in: entry f < F is factor f's i end, F + f
-    its j end; a node's entries are its i ends in factor order, then its j
-    ends, the order of the plain version's index_adds."""
+    """The loop-edge and IMU factors' contiguous Jacobians of one Gauss-
+    Newton step (the IMU ones None when visual only), their endpoints, and
+    the node -> factor CSRs the PCG kernel sums their terms in: entry f < F
+    is factor f's i end, F + f its j end; a node's entries are its i ends in
+    factor order, then its j ends, the order of the plain version's
+    index_adds."""
 
     loop_i: torch.Tensor  # (L,) int64
     loop_j: torch.Tensor
@@ -527,6 +524,10 @@ class Factors:
     loop_entries: torch.Tensor  # (2L,) int32
     imu_rowptr: torch.Tensor
     imu_entries: torch.Tensor
+    loop_i32: torch.Tensor  # the endpoints as int32, for the kernel
+    loop_j32: torch.Tensor
+    imu_i32: torch.Tensor
+    imu_j32: torch.Tensor
 
 
 def factors(loop_i, loop_j, Ji_l, Jj_l, imu_i, imu_j, Ji_f, Jj_f, n: int) -> Factors:
@@ -534,10 +535,13 @@ def factors(loop_i, loop_j, Ji_l, Jj_l, imu_i, imu_j, Ji_f, Jj_f, n: int) -> Fac
     None)."""
     if Ji_f is None:
         imu_i = imu_j = loop_i[:0]
+    else:
+        Ji_f, Jj_f = Ji_f.contiguous(), Jj_f.contiguous()
     loop_rowptr, loop_entries = _csr(torch.cat([loop_i, loop_j]), n)
     imu_rowptr, imu_entries = _csr(torch.cat([imu_i, imu_j]), n)
-    return Factors(loop_i, loop_j, Ji_l, Jj_l, imu_i, imu_j, Ji_f, Jj_f,
-                   loop_rowptr, loop_entries, imu_rowptr, imu_entries)
+    return Factors(loop_i, loop_j, Ji_l.contiguous(), Jj_l.contiguous(), imu_i, imu_j,
+                   Ji_f, Jj_f, loop_rowptr, loop_entries, imu_rowptr, imu_entries,
+                   *(t.to(torch.int32) for t in (loop_i, loop_j, imu_i, imu_j)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -631,12 +635,12 @@ def _hpp_factors(v, out6, fac: Factors):
     return out
 
 
-def reduced_Hv(s: ReducedSystem, graph: ObsGraph, v):
+def reduced_Hv(s: ReducedSystem, graph: ObsGraph, v, matvec=None):
     """The damped reduced camera matrix times v (N, 15), its observation
-    part through K9."""
+    part through ``matvec`` (K9, :func:`reduced_matvec`, by default)."""
     v = v * s.free
-    obs6 = reduced_matvec(v[:, :6].contiguous(), None, s.Jp, s.Jl, s.Hll_inv, graph,
-                          v.shape[0])
+    obs6 = (matvec or reduced_matvec)(v[:, :6].contiguous(), None, s.Jp, s.Jl, s.Hll_inv,
+                                      graph, v.shape[0])
     return _hpp_factors(v, obs6, s.fac) * s.free + s.lam_diag * v
 
 
@@ -648,24 +652,26 @@ def _safe_div(a, b):
     return a / torch.where(torch.abs(b) < 1e-30, 1e-30, b)
 
 
-def pcg_plain(s: ReducedSystem, graph: ObsGraph, n_cg: int):
+def pcg_plain(s: ReducedSystem, graph: ObsGraph, n_cg: int, matvec=None, total=torch.sum):
     """Plain version of :func:`pcg`: Chronopoulos-Gear PCG, both scalars
     of an iteration from the same vectors, algebraically identical to the
-    classic loop; eager PyTorch around K9 (any device)."""
+    classic loop; eager PyTorch around K9 (any device), or around another
+    observation ``matvec`` (:func:`reduced_Hv`), with each of the two
+    reductions per iteration ``total`` of a product."""
     r = s.b_red
     u = _apply_M(s, r)
-    w = reduced_Hv(s, graph, u)
-    gamma = torch.sum(r * u)
-    alpha = _safe_div(gamma, torch.sum(w * u))
+    w = reduced_Hv(s, graph, u, matvec)
+    gamma = total(r * u)
+    alpha = _safe_div(gamma, total(w * u))
     x = torch.zeros_like(s.b_red)
     pvec, svec = u, w
     for _ in range(n_cg):
         x = x + alpha * pvec
         r = r - alpha * svec
         u = _apply_M(s, r)
-        w = reduced_Hv(s, graph, u)
-        gamma1 = torch.sum(r * u)
-        delta1 = torch.sum(w * u)
+        w = reduced_Hv(s, graph, u, matvec)
+        gamma1 = total(r * u)
+        delta1 = total(w * u)
         beta1 = _safe_div(gamma1, gamma)
         alpha = _safe_div(gamma1, delta1 - _safe_div(beta1 * gamma1, alpha))
         pvec = u + beta1 * pvec
@@ -690,7 +696,25 @@ def _pcg_classic(s: ReducedSystem, graph: ObsGraph, n_cg: int):
     return x
 
 
-SLOT_CAP = 2048  # the most blocks a PCG kernel's grid may have
+def _check_pcg(s: ReducedSystem, graph: ObsGraph, n_cg: int):
+    """Raise unless ``s`` and ``graph`` are what the PCG kernel reads
+    (contiguous float64 blocks of matching shapes, matching CSRs);
+    returns the loop-edge and IMU factor counts."""
+    n, o, m = s.b_red.shape[0], s.Jp.shape[0], s.Hll_inv.shape[0]
+    fac = s.fac
+    n_loop = fac.loop_i.shape[0]
+    n_imu = 0 if fac.Ji_f is None else fac.imu_i.shape[0]
+    check_f64("gba pcg", ("b_red", s.b_red, (n, 15)), ("M_inv", s.M_inv, (n, 15, 15)),
+              ("free", s.free, (n, 15)), ("lam_diag", s.lam_diag, (n, 15)),
+              ("Jp", s.Jp, (o, 2, 6)), ("Jl", s.Jl, (o, 2, 3)), ("Hll_inv", s.Hll_inv, (m, 3, 3)),
+              ("Ji_l", fac.Ji_l, (n_loop, 6, 6)), ("Jj_l", fac.Jj_l, (n_loop, 6, 6)),
+              ("Ji_f", fac.Ji_f, (n_imu, 15, 15)), ("Jj_f", fac.Jj_f, (n_imu, 15, 15)))
+    _check_graph("gba pcg", graph, n, m, o)
+    if fac.loop_rowptr.shape != (n + 1,) or fac.imu_rowptr.shape != (n + 1,):
+        raise ValueError("gba pcg: factor CSRs do not match the problem")
+    if n_cg < 0:
+        raise ValueError(f"gba pcg: n_cg must be >= 0, got {n_cg}")
+    return n_loop, n_imu
 
 
 def pcg(s: ReducedSystem, graph: ObsGraph, n_cg: int):
@@ -703,47 +727,28 @@ def pcg(s: ReducedSystem, graph: ObsGraph, n_cg: int):
     if all(t is None or is_cpu(t) for t in ts):
         return pcg_plain(s, graph, n_cg)
     dev = check_cuda("gba pcg", *ts)
+    n_loop, n_imu = _check_pcg(s, graph, n_cg)
     n, o, m = s.b_red.shape[0], s.Jp.shape[0], s.Hll_inv.shape[0]
     fac = s.fac
-    n_loop = fac.loop_i.shape[0]
-    n_imu = 0 if fac.Ji_f is None else fac.imu_i.shape[0]
-    for name, t, shape in (("b_red", s.b_red, (n, 15)), ("M_inv", s.M_inv, (n, 15, 15)),
-                           ("free", s.free, (n, 15)), ("lam_diag", s.lam_diag, (n, 15)),
-                           ("Jp", s.Jp, (o, 2, 6)), ("Jl", s.Jl, (o, 2, 3)),
-                           ("Hll_inv", s.Hll_inv, (m, 3, 3)),
-                           ("Ji_l", fac.Ji_l, (n_loop, 6, 6)), ("Jj_l", fac.Jj_l, (n_loop, 6, 6)),
-                           ("Ji_f", fac.Ji_f, (n_imu, 15, 15)),
-                           ("Jj_f", fac.Jj_f, (n_imu, 15, 15))):
-        if t is not None and (t.shape != shape or t.dtype != torch.float64):
-            raise ValueError(f"gba pcg: {name} must be a {shape} float64 tensor, got "
-                             f"{tuple(t.shape)} {t.dtype}")
-    _check_graph("gba pcg", graph, n, m, o)
-    if fac.loop_rowptr.shape != (n + 1,) or fac.imu_rowptr.shape != (n + 1,):
-        raise ValueError("gba pcg: factor CSRs do not match the problem")
-    if n_cg < 0:
-        raise ValueError(f"gba pcg: n_cg must be >= 0, got {n_cg}")
-    cont = [t.contiguous() for t in (s.b_red, s.M_inv, s.free, s.lam_diag, s.Jp, s.Jl,
-                                     s.Hll_inv, fac.Ji_l, fac.Jj_l)]
-    i32 = [t.to(torch.int32) for t in (fac.loop_i, fac.loop_j, fac.imu_i, fac.imu_j)]
-    imu = (None, None) if fac.Ji_f is None else (fac.Ji_f.contiguous(),
-                                                 fac.Jj_f.contiguous())
     # one allocation: x (the result), r, u, v, p, s, w (N, 15) each, then
     # the scratch y (O, 2), w_lm (M, 3), part (C, 12), the loop and IMU
     # ends' J^T y (2L, 6), (2F, 15) and the block slots
     sizes = (7 * 15 * n, 2 * o, 3 * m, 12 * graph.n_chunks, 12 * n_loop,
-             30 * n_imu, 2 * SLOT_CAP)
+             30 * n_imu, 2 * cuda_build.SLOT_CAP)
     buf = torch.empty(sum(sizes), dtype=torch.float64, device=dev)
     parts = torch.split(buf, sizes)
     lib = cuda_build.library("gba_reduced_matvec")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.covins_gba_pcg(
-            *(t.data_ptr() for t in cont[:7]), *_graph_args(graph, m), n, o,
-            i32[0].data_ptr(), i32[1].data_ptr(), cont[7].data_ptr(), cont[8].data_ptr(),
-            n_loop, fac.loop_rowptr.data_ptr(), fac.loop_entries.data_ptr(),
-            i32[2].data_ptr(), i32[3].data_ptr(), _ptr(imu[0]), _ptr(imu[1]), n_imu,
-            fac.imu_rowptr.data_ptr(), fac.imu_entries.data_ptr(), int(n_cg),
-            *(t.data_ptr() for t in parts), SLOT_CAP, stream)
+            *(t.data_ptr() for t in (s.b_red, s.M_inv, s.free, s.lam_diag, s.Jp, s.Jl,
+                                     s.Hll_inv)), *_graph_args(graph, m), n, o,
+            fac.loop_i32.data_ptr(), fac.loop_j32.data_ptr(), fac.Ji_l.data_ptr(),
+            fac.Jj_l.data_ptr(), n_loop, fac.loop_rowptr.data_ptr(),
+            fac.loop_entries.data_ptr(), fac.imu_i32.data_ptr(), fac.imu_j32.data_ptr(),
+            _ptr(fac.Ji_f), _ptr(fac.Jj_f), n_imu, fac.imu_rowptr.data_ptr(),
+            fac.imu_entries.data_ptr(), int(n_cg), *(t.data_ptr() for t in parts),
+            cuda_build.SLOT_CAP, stream)
     cuda_build.check(rc, "gba pcg")
     pcg.launches += 1
     return parts[0][:15 * n].view(n, 15)

@@ -23,7 +23,7 @@ import dataclasses
 import torch
 
 from covins_tpu_torch import cuda_build
-from covins_tpu_torch.device import check_cuda, is_cpu
+from covins_tpu_torch.device import check_cuda, check_f64, is_cpu
 from covins_tpu_torch.ops import linalg
 from covins_tpu_torch.ops import residuals as res
 from covins_tpu_torch.utils import geometry as geo
@@ -117,10 +117,7 @@ def matvec_plain(v, free, Ji, Jj, graph: MatvecGraph, damping: float):
 def _check(name, graph: MatvecGraph, n: int, e: int, *named):
     """Raise unless every (name, tensor, shape) is a contiguous float64
     tensor of that shape and the graph has n nodes and e edges."""
-    for what, t, shape in named:
-        if t.shape != shape or t.dtype != torch.float64 or not t.is_contiguous():
-            raise ValueError(f"{name}: {what} must be a contiguous {shape} "
-                             f"float64 tensor, got {tuple(t.shape)} {t.dtype}")
+    check_f64(name, *named)
     if graph.rowptr.shape != (n + 1,) or graph.entries.shape != (2 * e,):
         raise ValueError(f"{name}: graph does not match the problem")
 
@@ -156,10 +153,10 @@ def matvec(v, free, Ji, Jj, graph: MatvecGraph, damping: float):
 matvec.launches = 0
 
 
-def _pcg(Hv, b, Minv_blocks, free, n_iters: int):
+def _pcg(Hv, b, Minv_blocks, free, n_iters: int, total=torch.sum):
     """Block-Jacobi preconditioned CG on H x = b (b, x: (N, 6)), in the
     reference's Chronopoulos-Gear form: one matvec and one fused pair of
-    reductions per iteration."""
+    reductions per iteration, each reduction ``total`` of a product."""
 
     def apply_M(r):
         return (Minv_blocks @ r[..., None])[..., 0] * free[:, None]
@@ -171,25 +168,22 @@ def _pcg(Hv, b, Minv_blocks, free, n_iters: int):
     r = b
     u = apply_M(r)
     w = Hv(u)
-    gamma = torch.sum(r * u)
-    alpha = safe_div(gamma, torch.sum(w * u))
+    gamma = total(r * u)
+    alpha = safe_div(gamma, total(w * u))
     p, s = u, w
     for _ in range(n_iters):
         x = x + alpha * p
         r = r - alpha * s
         u = apply_M(r)
         w = Hv(u)
-        gamma1 = torch.sum(r * u)
-        delta1 = torch.sum(w * u)
+        gamma1 = total(r * u)
+        delta1 = total(w * u)
         beta1 = safe_div(gamma1, gamma)
         alpha = safe_div(gamma1, delta1 - safe_div(beta1 * gamma1, alpha))
         p = u + beta1 * p
         s = w + beta1 * s
         gamma = gamma1
     return x
-
-
-SLOT_CAP = 2048  # the most blocks the PCG kernel's grid may have
 
 
 def pcg(b, Minv, free, Ji, Jj, graph: MatvecGraph, damping: float, n_iters: int):
@@ -210,7 +204,7 @@ def pcg(b, Minv, free, Ji, Jj, graph: MatvecGraph, damping: float, n_iters: int)
         raise ValueError(f"pgo pcg: n_iters must be >= 0, got {n_iters}")
     # one allocation: x (the result), r, u, p, s, w (N, 6) each, the edge
     # ends' terms (2E, 6) and the block slots
-    sizes = (36 * n, 12 * e, 2 * SLOT_CAP)
+    sizes = (36 * n, 12 * e, 2 * cuda_build.SLOT_CAP)
     work, contrib, slots = torch.split(
         torch.empty(sum(sizes), dtype=torch.float64, device=dev), sizes)
     lib = cuda_build.library("pgo_matvec")
@@ -220,7 +214,7 @@ def pcg(b, Minv, free, Ji, Jj, graph: MatvecGraph, damping: float, n_iters: int)
             b.data_ptr(), Minv.data_ptr(), free.data_ptr(), Ji.data_ptr(), Jj.data_ptr(),
             graph.ei32.data_ptr(), graph.ej32.data_ptr(), e, graph.rowptr.data_ptr(),
             graph.entries.data_ptr(), n, float(damping), int(n_iters), work.data_ptr(),
-            contrib.data_ptr(), slots.data_ptr(), SLOT_CAP, stream)
+            contrib.data_ptr(), slots.data_ptr(), cuda_build.SLOT_CAP, stream)
     cuda_build.check(rc, "pgo pcg")
     pcg.launches += 1
     return work[:6 * n].view(n, 6)

@@ -4,13 +4,13 @@ CPU (plain versions): the yardstick the card's PCG kernels are held to.
 
     python scripts/port_pcg_spread.py [--drain]
 
-For each system it prints the plain loop's change when one ulp is added to
-every entry of b (the yardstick of `chip_smoke.py` and
-`tests/test_torch_kernels_cuda.py`), and its change when the same loop
-sums its two dot products per iteration in another order (one float64
-running sum in reverse element order instead of `torch.sum`'s), which is
-the kind of rounding difference a kernel with its own reduction order
-brings, after 10, 30, 60 and the full iteration count.  Systems: the
+For each system it prints the readings the card's PCG kernels are held
+to (`chip_smoke.rounding_readings`): the plain loop's change when one ulp
+is added to every entry of b, when one ulp is taken off, and when the same
+loop sums its two dot products per iteration in another order (one
+float64 running sum in reverse element order instead of `torch.sum`'s),
+which is the kind of rounding difference a kernel with its own reduction
+order brings, after 10, 30, 60 and the full iteration count.  Systems: the
 synthetic 256-pose graph of `utils/synthetic.build_pose_graph` (100
 iterations), with its default weights and with all weights 100 instead;
 bench.py's GBA problem (256 keyframes, 8192 landmarks,
@@ -31,22 +31,16 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 
-def reversed_sum(x):
-    """One running float64 sum over the elements in reverse order."""
-    return torch.cumsum(x.reshape(-1).flip(0), 0)[-1]
-
-
 def spreads(run, b, iters):
-    """{iterations: (one-ulp change, reordered-sum change)} of ``run(b,
-    n, sum_fn)``."""
-    up = torch.nextafter(b, torch.full_like(b, float("inf")))
+    """{iterations: the readings of ``run(b, n, total)`` and the reordered
+    sums' change over the larger one-ulp change}."""
+    import chip_smoke
+
     out = {}
     for n in iters:
-        x0 = run(b, n, torch.sum)
-        ulp = float((run(up, n, torch.sum) - x0).abs().max())
-        order = float((run(b, n, reversed_sum) - x0).abs().max())
-        out[n] = {"one_ulp": ulp, "reordered_sums": order,
-                  "ratio": order / ulp if ulp else float("inf")}
+        _, r = chip_smoke.rounding_readings(lambda bb, total: run(bb, n, total), b)
+        ulp = max(r["one_ulp_up"], r["one_ulp_down"])
+        out[n] = {**r, "ratio": r["reordered_sums"] / ulp if ulp else float("inf")}
     return out
 
 
@@ -64,13 +58,8 @@ def pgo_run(b, Minv, free, Ji, Jj, graph, damping=1e-6):
     from covins_tpu_torch.ops import pgo
 
     def run(bb, n, total):
-        saved = torch.sum
-        pgo.torch.sum = total  # the loop's two dot products per iteration
-        try:
-            return pgo._pcg(lambda v: pgo.matvec_plain(v, free, Ji, Jj, graph, damping), bb,
-                            Minv, free, n)
-        finally:
-            pgo.torch.sum = saved
+        return pgo._pcg(lambda v: pgo.matvec_plain(v, free, Ji, Jj, graph, damping), bb,
+                        Minv, free, n, total)
     return run
 
 
@@ -78,12 +67,8 @@ def gba_run(s, graph):
     from covins_tpu_torch.ops import gba
 
     def run(b, n, total):
-        saved = torch.sum
-        gba.torch.sum = total
-        try:
-            return gba.pcg_plain(dataclasses.replace(s, b_red=b), graph, n)
-        finally:
-            gba.torch.sum = saved
+        return gba.pcg_plain(dataclasses.replace(s, b_red=b), graph, n,
+                             gba.reduced_matvec_plain, total)
     return run
 
 

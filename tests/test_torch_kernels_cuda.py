@@ -27,10 +27,12 @@ chunks of consecutive observations, then the chunks in order) and rounded
 apart only where PyTorch's library products sum another way; bit for bit
 between two launches; K8's validity and outlier decisions exactly.  The
 two PCG kernels (a Gauss-Newton step's whole loop per launch) within 10x
-their plain loop's own change under a one-ulp change of b, at ragged
-sizes (two poses, five keyframes, landmarks seen 0, 1 and 2 times, visual
-only, no loop edge, 0, 1 and full iteration counts), and bit for bit
-between two launches.
+the largest of their plain loop's own changes under three rounding
+differences (one ulp added to b, one ulp taken off, its dot products
+summed in another order), at ragged sizes (two poses, five keyframes,
+landmarks seen 0, 1 and 2 times, visual only, no loop edge, 0, 1 and full
+iteration counts) and on a pose graph whose edges all weigh 100, and bit
+for bit between two launches.
 """
 
 import numpy as np
@@ -366,51 +368,72 @@ def test_gba_kernels_refuse_bad_inputs(dev):
 
 # ------------------------------------------------- the PCG kernels
 # Each PCG kernel runs a Gauss-Newton step's whole loop in one launch; it
-# is held to its plain loop on the same inputs within PCG_FACTOR times the
-# plain loop's own change when one ulp is added to every entry of b (the
-# loops stop far from convergence and amplify any rounding difference
-# alike; the kernel sums its dot products in another order than
-# torch.sum), and bit for bit across two launches.
+# is held to its plain loop (PyTorch alone: its matvec the plain version
+# too) on the same inputs within PCG_FACTOR times the largest of the plain
+# loop's own changes under three rounding differences: one ulp added to
+# every entry of b, one ulp taken off, and its two dot products per
+# iteration summed in reverse order instead of torch.sum's (the loops stop
+# far from convergence and amplify any rounding difference alike; the
+# kernel sums in its own order), and bit for bit across two launches.
 PCG_FACTOR = 10.0
 
 
-def _ulp_check(kernel, plain, b):
-    """(kernel result, its difference to the plain loop, the plain loop's
-    one-ulp spread); the kernel launched twice with equal bits."""
+def _reversed_total(x):
+    return torch.cumsum(x.reshape(-1).flip(0), 0)[-1]
+
+
+def _pcg_check(kernel, plain, b):
+    """(kernel result, its difference to the plain loop ``plain(b,
+    total)``, the loop's readings); the kernel launched twice with equal
+    bits.  The readings are printed (``pytest -s`` shows them)."""
     x, again = kernel(b), kernel(b)
     assert torch.equal(x, again)
-    x0 = plain(b)
-    x1 = plain(torch.nextafter(b, torch.full_like(b, float("inf"))))
+    x0 = plain(b, torch.sum)
+    moved = {"one_ulp_up": plain(torch.nextafter(b, torch.full_like(b, float("inf"))),
+                                 torch.sum),
+             "one_ulp_down": plain(torch.nextafter(b, torch.full_like(b, -float("inf"))),
+                                   torch.sum),
+             "reordered_sums": plain(b, _reversed_total)}
+    readings = {k: float((y - x0).abs().max()) if y.numel() else 0.0
+                for k, y in moved.items()}
     diff = float((x - x0).abs().max()) if x.numel() else 0.0
-    spread = float((x1 - x0).abs().max()) if x.numel() else 0.0
-    assert diff <= PCG_FACTOR * spread, (diff, spread)
-    return x, diff, spread
+    print({"max_abs_err": diff, **readings})
+    assert diff <= PCG_FACTOR * max(readings.values()), (diff, readings)
+    return x, diff, readings
 
 
-def _pose_graph_system(n_kf, dev, n_loops=5):
+def _pose_graph_system(n_kf, dev, n_loops=5, weight=None):
+    import dataclasses
+
     from covins_tpu_torch.utils import synthetic
 
     g, _ = synthetic.build_pose_graph(n_kf=n_kf, n_loops=n_loops, seed=n_kf, device=dev)
+    if weight is not None:  # every edge's rotation and translation weight
+        g = dataclasses.replace(g, edge_sqrt_info=pgo.make_sqrt_info(
+            weight, weight, g.edge_i.shape[0], device=dev).contiguous())
     free = (~g.fixed & g.pose_mask).to(torch.float64)
     graph = pgo.matvec_graph(g.edge_i, g.edge_j, n_kf)
     _, _, Ji, Jj, b, Minv = pgo.normal_equations(g.poses, g, free, 1e-6, 0.0)
     return b, Minv, free, Ji, Jj, graph
 
 
-@pytest.mark.parametrize("n_kf,n_iters", [(2, 1), (37, 0), (37, 1), (37, 100),
-                                          (256, 100)])
-def test_pgo_pcg_kernel_matches_plain_loop(dev, n_kf, n_iters):
-    b, Minv, free, Ji, Jj, graph = _pose_graph_system(n_kf, dev)
+@pytest.mark.parametrize("n_kf,n_iters,weight", [
+    (2, 1, None), (37, 0, None), (37, 1, None), (37, 100, None), (256, 100, None),
+    # all weights 100: the CG stagnates and one ulp of b alone moves the loop
+    # 25-fold more or less from one b to the next
+    (256, 100, 100.0)])
+def test_pgo_pcg_kernel_matches_plain_loop(dev, n_kf, n_iters, weight):
+    b, Minv, free, Ji, Jj, graph = _pose_graph_system(n_kf, dev, weight=weight)
     before = (pgo.pcg.launches, pgo.matvec.launches)
 
     def kernel(bb):
         return pgo.pcg(bb, Minv, free, Ji, Jj, graph, 1e-6, n_iters)
 
-    def plain(bb):
+    def plain(bb, total):
         return pgo._pcg(lambda v: pgo.matvec_plain(v, free, Ji, Jj, graph, 1e-6), bb, Minv,
-                        free, n_iters)
+                        free, n_iters, total)
 
-    x, _, _ = _ulp_check(kernel, plain, b)
+    x, _, _ = _pcg_check(kernel, plain, b)
     assert (pgo.pcg.launches, pgo.matvec.launches) == (before[0] + 2, before[1])
     if n_iters == 0:
         assert not bool(x.any())
@@ -485,11 +508,12 @@ def test_gba_pcg_kernel_matches_plain_loop(dev, case, n_cg):
     def kernel(b):
         return gba.pcg(dataclasses.replace(s, b_red=b), g, n_cg)
 
-    def plain(b):
-        return gba.pcg_plain(dataclasses.replace(s, b_red=b), g, n_cg)
+    def plain(b, total):
+        return gba.pcg_plain(dataclasses.replace(s, b_red=b), g, n_cg,
+                             gba.reduced_matvec_plain, total)
 
-    x, _, _ = _ulp_check(kernel, plain, s.b_red)
-    assert gba.pcg.launches == before[0] + 2
+    x, _, _ = _pcg_check(kernel, plain, s.b_red)
+    assert (gba.pcg.launches, gba.reduced_matvec.launches) == (before[0] + 2, before[1])
     if n_cg == 0:
         assert not bool(x.any())
 
@@ -545,12 +569,12 @@ def test_pcg_kernels_raise_when_the_launch_is_refused(dev, monkeypatch):
     """A cooperative launch the C side refuses (here: a grid larger than
     the block slots the wrapper provides) raises; no eager loop runs
     instead and no launch is counted."""
+    from covins_tpu_torch import cuda_build
     from covins_tpu_torch.ops import gba
 
     s, g, _ = _gba_system(dev, n_kf=5, n_lm=40, max_obs=None)
     b, Minv, free, Ji, Jj, graph = _pose_graph_system(9, dev)
-    monkeypatch.setattr(gba, "SLOT_CAP", 0)
-    monkeypatch.setattr(pgo, "SLOT_CAP", 0)
+    monkeypatch.setattr(cuda_build, "SLOT_CAP", 0)
     before = (gba.pcg.launches, pgo.pcg.launches, gba.reduced_matvec.launches,
               pgo.matvec.launches)
     with pytest.raises(RuntimeError):

@@ -10,6 +10,10 @@ kernels to their plain versions.  Here, on the CPU:
   inline (copies of the inline versions below) on the JAX package's GBA
   problem (`tests/test_gba.py:_build_problem`, with a loop edge) and a
   synthetic pose graph;
+* the plain loops take the plain matvec and another summation order, as
+  the card's yardstick of the kernels uses them
+  (`chip_smoke.rounding_readings`), and the reduced system is what the GBA
+  PCG kernel reads (contiguous float64 blocks, int32 factor endpoints);
 * every index structure the kernels read (the landmark CSR, the chunk
   layout of the keyframe sums, the loop-edge and IMU node CSRs, the pose
   graph's node CSR) sums, through a gather in its fixed order, to exactly
@@ -271,6 +275,95 @@ def test_pgo_pcg_wrapper_takes_plain_version_on_cpu(pose_graph):
                     free, 40)
     assert torch.equal(x, want)
     assert torch.equal(pgo.pcg(b, Minv, free, Ji, Jj, graph, 1e-6, 0), torch.zeros_like(b))
+
+
+def _reversed_total(x):
+    return torch.cumsum(x.reshape(-1).flip(0), 0)[-1]
+
+
+def _counting(total, calls):
+    def counted(x):
+        calls.append(x.shape)
+        return total(x)
+    return counted
+
+
+@pytest.mark.parametrize("visual_only", [False, True])
+def test_gba_plain_loop_takes_plain_matvec_and_another_sum(problem, visual_only):
+    p = problem
+    graph = gba.obs_graph(p)
+    s = gba.reduced_system(p, graph, (p.poses, p.vels, p.biases, p.lms),
+                           torch.tensor(1e-4, dtype=torch.float64), visual_only)
+    want = gba.pcg_plain(s, graph, 20)
+    calls = []
+    got = gba.pcg_plain(s, graph, 20, gba.reduced_matvec_plain, _counting(torch.sum, calls))
+    assert torch.equal(got, want)
+    assert len(calls) == 2 + 2 * 20
+    # another summation order is a rounding difference, which this stiff
+    # system amplifies by up to 1e-2 of the result after 20 iterations
+    moved = gba.pcg_plain(s, graph, 20, gba.reduced_matvec_plain, _reversed_total)
+    assert bool(torch.isfinite(moved).all()) and not torch.equal(moved, want)
+
+
+def test_pgo_plain_loop_takes_another_sum(pose_graph):
+    g = pose_graph
+    free = (~g.fixed & g.pose_mask).to(torch.float64)
+    graph = pgo.matvec_graph(g.edge_i, g.edge_j, g.poses.shape[0])
+    _, _, Ji, Jj, b, Minv = pgo.normal_equations(g.poses, g, free, 1e-6, 0.0)
+
+    def Hv(v):
+        return pgo.matvec_plain(v, free, Ji, Jj, graph, 1e-6)
+    want = pgo._pcg(Hv, b, Minv, free, 40)
+    calls = []
+    assert torch.equal(pgo._pcg(Hv, b, Minv, free, 40, _counting(torch.sum, calls)), want)
+    assert len(calls) == 2 + 2 * 40
+    moved = pgo._pcg(Hv, b, Minv, free, 40, _reversed_total)
+    assert bool(torch.isfinite(moved).all()) and not torch.equal(moved, want)
+
+
+def test_rounding_readings_of_a_plain_loop(pose_graph):
+    """The card's yardstick on the CPU: each of the three readings moves
+    the loop, by far less than the loop's result."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    g = pose_graph
+    free = (~g.fixed & g.pose_mask).to(torch.float64)
+    graph = pgo.matvec_graph(g.edge_i, g.edge_j, g.poses.shape[0])
+    _, _, Ji, Jj, b, Minv = pgo.normal_equations(g.poses, g, free, 1e-6, 0.0)
+
+    def plain(bb, total):
+        return pgo._pcg(lambda v: pgo.matvec_plain(v, free, Ji, Jj, graph, 1e-6), bb, Minv,
+                        free, 40, total)
+    x0, readings = chip_smoke.rounding_readings(plain, b)
+    assert torch.equal(x0, plain(b, torch.sum))
+    assert set(readings) == {"one_ulp_up", "one_ulp_down", "reordered_sums"}
+    for v in readings.values():
+        assert 0.0 < v < 1e-6 * float(x0.abs().max())
+
+
+@pytest.mark.parametrize("visual_only,loops", [(False, True), (True, True), (False, False)])
+def test_reduced_system_is_what_the_gba_pcg_kernel_reads(problem, visual_only, loops):
+    p = problem
+    graph = gba.obs_graph(p)
+    s = gba.reduced_system(p, graph, (p.poses, p.vels, p.biases, p.lms),
+                           torch.tensor(1e-4, dtype=torch.float64), visual_only)
+    if not loops:
+        f = s.fac
+        s = dataclasses.replace(s, fac=gba.factors(
+            f.loop_i[:0], f.loop_j[:0], f.Ji_l[:0], f.Jj_l[:0], f.imu_i, f.imu_j, f.Ji_f,
+            f.Jj_f, p.poses.shape[0]))
+    n_loop, n_imu = gba._check_pcg(s, graph, 60)
+    assert (n_loop, n_imu) == (1 if loops else 0, 0 if visual_only else p.imu_i.shape[0])
+    f = s.fac
+    for wide, narrow in ((f.loop_i, f.loop_i32), (f.loop_j, f.loop_j32),
+                         (f.imu_i, f.imu_i32), (f.imu_j, f.imu_j32)):
+        assert narrow.dtype == torch.int32 and torch.equal(narrow.long(), wide)
+    with pytest.raises(ValueError):
+        gba._check_pcg(dataclasses.replace(s, lam_diag=s.lam_diag.t().contiguous().t()),
+                       graph, 60)
+    with pytest.raises(ValueError):
+        gba._check_pcg(s, graph, -1)
 
 
 # ------------------------------------------------------ index structures
