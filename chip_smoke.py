@@ -10,9 +10,14 @@ package beside it.  Phases:
    parallel);
 1. each kernel against its plain PyTorch version on the card, on inputs
    made from a numpy seed at the main path's shapes and at ragged ones:
-   K1, K2, K4 and K5 exactly, K3 to rtol 1e-6, K6 exactly up to
-   correspondences within 1e-12 rad of the threshold, K7 to 1e-12
-   relative, K8 and K10 to 1e-13 relative, K9 to 1e-13 of the sums of
+   K1, K2, K4 and K5 exactly (K5, the whole of project-and-match in one
+   launch, also with every landmark failing, the unified camera whose
+   prologue PyTorch computes, and more features than shared memory holds;
+   with the PyTorch operations one call issues), K3 to rtol 1e-6, K6
+   exactly up to correspondences within 1e-12 rad of the threshold, K7 to
+   1e-12 relative, K8 and K10 to 1e-13 relative (K8's linearisation, and
+   its cost of 1 and of 7 stacked states per state, each one launch and
+   timed), K9 to 1e-13 of the sums of
    magnitudes behind each output, the two PCG kernels (pgo_pcg, 100
    iterations, at a 256-pose graph of 1270 edges with the default edge
    weights and with all weights 100, and at ragged ones; gba_pcg, 60
@@ -39,7 +44,8 @@ package beside it.  Phases:
    on the CPU (plain versions, 4 torch threads), compared with the card's
    run on loops, merges, accepted pairs, loop transforms and every map's
    poses; then each kernel replayed on the card on the largest input the
-   CPU pass gave it, against its plain version, timed beside its bound;
+   CPU pass gave it (K5: the largest of verification stage 3 and of stage
+   5), against its plain version, timed beside its bound;
 3. a five-agent deployment (5 x 32 KF) with place recognition on, card
    only;
 4. the ingest-only path (``placerec_active=False``) on the benchmark
@@ -47,8 +53,11 @@ package beside it.  Phases:
 5. bench.py's GBA problem (256 KF, 8192 landmarks, max_obs 61440) through
    ``global_bundle_adjustment(n_gn=10, n_cg=60)`` with the counters set to
    0 just before it (the problem's build, K10, included) and read just
-   after (gba_pcg once per Gauss-Newton step, K9 seven times): ms per
+   after (gba_pcg once per Gauss-Newton step, K9 seven times, K8 twice and
+   once more for the pruning): ms per
    Gauss-Newton step with the PCG kernel and with the eager loop in turns,
+   the step ladder's seven costs stacked in one evaluation and as seven,
+   in turns,
    wall time of a solve with each, a torch.profiler trace of
    one solve, costs that never increase, the ATE to the ground truth
    falling; the same problem on the CPU, held within GBA_FACTOR times the
@@ -142,18 +151,29 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+# launches the host may queue behind busy_ms's spin kernel: a stream's
+# queue holds about a thousand, and a host that fills it waits for the card
+QUEUED_LAUNCHES = 800
+
+
 def busy_ms(fn, reps):
     """The card's time per call of ``fn`` without the host's cadence: the
     ``reps`` calls are queued behind a spin kernel (``torch.cuda._sleep``)
     that outlasts the host's issuing of them, and timed with CUDA events
-    from the spin's end to the last call's end.  None if the host could
-    not get ahead of the card (``fn`` waits for the card)."""
+    from the spin's end to the last call's end.  ``reps`` is cut so that
+    the calls' PyTorch operations stay within QUEUED_LAUNCHES.  None if the
+    host could not get ahead of the card (``fn`` waits for the card, or
+    one call alone fills the queue)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    ops = count_ops(fn)
+    if ops > QUEUED_LAUNCHES:
+        return None
+    reps = max(1, min(reps, QUEUED_LAUNCHES // max(ops, 1)))
     cycles = 1 << 24
-    for _ in range(8):
+    for _ in range(5):
         spin, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
         spin.record()
         torch.cuda._sleep(cycles)
@@ -306,29 +326,87 @@ def k4_case(a, am, b, bm, max_dist, reps):
     }
 
 
-def k5_case(args, max_dist, reps):
+def count_ops(fn):
+    """The PyTorch operations one call of ``fn`` issues, views included
+    (a TorchDispatchMode sees every ATen operation)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def k5_pairs(args, kwargs):
+    """The (landmark, feature) pairs one `project_match_core` call matches:
+    its landmarks that pass their own gates (the plain prologue) times its
+    free features."""
+    from covins_tpu_torch.ops import projmatch as pm
+
+    cam, T_cw, p_w, _, normal, mask, rng_ = args[:7]
+    passing = int(pm._prologue(cam, T_cw, p_w, normal, mask, rng_, args[13], args[14],
+                               kwargs.get("check_view_angle", True))[1].sum().item())
+    return passing, passing * int(args[10].sum().item())
+
+
+def k5_work(*args, **kwargs):
+    """A K5 call's size for the recorder: its pairs, then L x F."""
+    return k5_pairs(args, kwargs)[1], args[2].shape[0] * args[7].shape[0]
+
+
+def k5_case(args, kwargs, reps):
+    """K5 (project_match_core, one launch per call) against its plain
+    version on the same inputs, exactly; its call and busy times, the
+    operations one call issues, and its bound for this input."""
     import torch
 
     from covins_tpu_torch.ops import projmatch as pm
+    from covins_tpu_torch.utils import cameras as cm
 
-    feat, dist = pm.gated_match(*args, max_dist)
-    rfeat, rdist = pm.gated_match_plain(*args, max_dist)
+    def kernel():
+        return pm.project_match_core(*args, **kwargs)
+
+    before = pm.project_match_core.launches
+    feat, dist = kernel()
+    check(pm.project_match_core.launches == before + 1, "K5 did not launch once per call")
+    again = kernel()
+    rfeat, rdist = pm.project_match_plain(*args, **kwargs)
     torch.cuda.synchronize()
-    L, F = args[0].shape[0], args[5].shape[0]
+    L, F = args[2].shape[0], args[7].shape[0]
     check(torch.equal(feat, rfeat) and torch.equal(dist, rdist),
           f"K5 disagrees with its plain version at {L}x{F}")
-    # the pairs this data needs: passing landmarks x free features, each a
-    # float64 gate (about 10 operations) and a 256-bit Hamming distance
-    pairs = float(args[1].sum().item()) * float(args[8].sum().item())
-    bnd, by = bound(L * 58 + F * 65 + L * 8,
-                    (pairs * 512, INT8_OPS_S), (pairs * 10, FP64_OPS_S))
+    check(torch.equal(feat, again[0]) and torch.equal(dist, again[1]),
+          "K5 differs between two launches")
+    ops = count_ops(kernel)
+    fused = args[0].cam_model == cm.PINHOLE and args[0].dist_model in (cm.DIST_NONE,
+                                                                       cm.RADTAN)
+    check(not fused or ops <= 16, f"a K5 call issues {ops} PyTorch operations")
+    # this input's work: per landmark the prologue's float64 operations
+    # (rotation and translation 33, the offset from the camera centre 3
+    # and its norm 6, projection 6 and radtan distortion 28, the depth and
+    # image gates 5, the distance gate 5, the predicted octave 8, the view
+    # angle 13 where checked), then per passing landmark x free feature a
+    # float64 gate (10 operations) and a 256-bit Hamming distance (a +-1
+    # int8 dot product, 512 operations); inputs read once, outputs written
+    # once
+    passing, pairs = k5_pairs(args, kwargs)
+    per_lm = 33 + 3 + 6 + 6 + 28 * (args[0].dist_model == cm.RADTAN) + 5 + 5 + 8 \
+        + 13 * bool(kwargs.get("check_view_angle", True))
+    bnd, by = bound(L * (24 + 24 + 1 + 16 + 32) + F * (16 + 8 + 1 + 32) + L * 8,
+                    (pairs * 512.0, INT8_OPS_S), (pairs * 10.0 + L * per_lm, FP64_OPS_S))
     return {
-        "kernel_ms": cuda_ms(lambda: pm.gated_match(*args, max_dist), reps),
-        "plain_ms": cuda_ms(lambda: pm.gated_match_plain(*args, max_dist), reps),
-        "library_ms": None,
-        "bound_ms": bnd, "bound_by": by,
+        "kernel_ms": cuda_ms(kernel, reps), "busy_ms": busy_ms(kernel, reps),
+        "plain_ms": cuda_ms(lambda: pm.project_match_plain(*args, **kwargs), reps),
+        "library_ms": None, "bound_ms": bnd, "bound_by": by,
+        "ops_per_call": ops,
         "max_abs_err": int((feat - rfeat).abs().max().item()) if L else 0,
-        "matches": int((feat >= 0).sum().item()),
+        "matches": int((feat >= 0).sum().item()), "passing_landmarks": passing,
     }
 
 
@@ -427,50 +505,124 @@ def _rel(a, b):
                   / b.double().abs().max().clamp(min=1e-300)).item())
 
 
-def gba_bytes_ops(p, graph, valid_obs):
-    """(bytes, float64 operations) of one K8 linearisation: each input read
-    once and each output written once; about 600 operations per valid
-    observation for the residual and the Jacobians and 216 for its terms of
-    the keyframe and landmark blocks."""
+# K8's float64 operations, counted as its function needs them
+# (geometry.cuh's formulas), not as the kernel spends them: per keyframe
+# and state the inverse of T_w_s (conjugate, normalise, rotate the
+# translation: 54) and, for the Jacobians, its rotation matrix (36); the
+# same once for T_s_c; per observation two rotations with their
+# translations (66), the division (2), pixel and residual (6), radtan
+# distortion (28, or 58 with its Jacobian; none without distortion), the
+# weight (3, or 14 with Huber's)
+POSE_INV_OPS, ROT_MAT_OPS = 54, 36
+OBS_OPS = 66 + 2 + 6
+
+
+def gba_bytes_ops(p, graph, valid_obs, mode="linearize", S=1, huber=0.0):
+    """(bytes, float64 operations) of one K8 call on this input: each input
+    read once and each output written once; the operations above, with the
+    cost's square and sum (6 per valid observation and state), the outlier
+    norm's norm and scale (5 per observation: it covers every one), and the
+    linearisation's Jacobians (134), keyframe terms (114) and landmark terms
+    (48) per valid observation.  ``valid_obs`` counts the observations whose
+    observation, landmark and keyframe masks are set."""
+    from covins_tpu_torch.utils import cameras as cam_mod
+
     n, m, o = p.poses.shape[0], p.lms.shape[0], p.obs_kf.shape[0]
-    read = n * 7 * 8 + m * 3 * 8 + o * (2 * 8 + 8 + 2 * 4 + 2 * 4) + (n + m) * 8 \
-        + (n + m + 2) * 4
-    write = o * (2 + 12 + 6) * 8 + o + n * (6 + 36) * 8 + m * (3 + 9) * 8
-    return read + write, 816.0 * valid_obs
+    radtan = p.cam.dist_model == cam_mod.RADTAN
+    weight = 3 + (11 if huber > 0.0 else 0)
+    obs = o * (2 * 8 + 8 + 2 * 4)  # pixels, weight, keyframe and landmark
+    if mode == "cost":
+        ops = POSE_INV_OPS * (n * S + 1) + S * valid_obs * (OBS_OPS + 28 * radtan + weight + 6)
+        return obs + S * (n * 7 + m * 3) * 8 + (n + m) * 8 + S * 8, float(ops)
+    if mode == "outlier":
+        ops = POSE_INV_OPS * (n + 1) + o * (OBS_OPS + 28 * radtan + 5)
+        return obs + (n * 7 + m * 3) * 8 + o * 9, float(ops)
+    read = n * 7 * 8 + m * 3 * 8 + obs + o * 2 * 4 + (n + m) * 8 \
+        + (n + m + graph.n_chunks + 3) * 4
+    write = o * (2 + 12 + 6) * 8 + n * (6 + 36) * 8 + m * (3 + 9) * 8
+    ops = (POSE_INV_OPS + ROT_MAT_OPS) * (n + 1) \
+        + valid_obs * (OBS_OPS + 58 * radtan + weight + 2 + 134 + 114 + 48)
+    return read + write, float(ops)
 
 
 def k8_case(p, graph, huber, reps):
+    """K8 against its plain version: the linearisation to 1e-13 relative,
+    the cost of S = 1 and S = 7 stacked states (one launch each) per state
+    to 1e-13 relative, the outlier decisions exactly, each bit for bit
+    across two launches; call and busy times and launches of each, every
+    call given the problem's inputs built once, as a GBA round gives them."""
     import torch
 
     from covins_tpu_torch.ops import gba
+    from covins_tpu_torch.utils import synthetic
 
-    out = gba.reproj_blocks(p, graph, huber, "linearize")
-    again = gba.reproj_blocks(p, graph, huber, "linearize")
-    ref = gba.reproj_blocks_plain(p, graph, huber, "linearize")
+    inputs = gba.reproj_inputs(p)
+
+    def counted(fn):
+        before = gba.reproj_blocks.launches
+        out = fn()
+        return out, gba.reproj_blocks.launches - before
+
+    def lin():
+        return gba.reproj_blocks(p, graph, huber, "linearize", inputs)
+
+    out, launches = counted(lin)
+    again = lin()
+    ref = gba.reproj_blocks_plain(p, graph, huber, "linearize", inputs)
     torch.cuda.synchronize()
+    check(launches == 1, f"K8 linearisation took {launches} launches")
     err = 0.0
     for name, a, b, c in zip(("r", "J_pose", "J_lm", "b6", "M6", "b_lm", "Hll"),
                              out, again, ref):
         check(torch.equal(a, b), f"K8 {name} differs between two launches")
         err = max(err, _rel(a, c))
-    for mode in ("cost", "outlier"):
-        val, valid = gba.reproj_blocks(p, graph, huber, mode)
-        rval, rvalid = gba.reproj_blocks_plain(p, graph, huber, mode)
-        check(torch.equal(valid, rvalid), f"K8 {mode} validity differs")
-        err = max(err, _rel(val, rval))
-    val, _ = gba.reproj_blocks(p, graph, 0.0, "outlier")
+    valid_obs = int((p.obs_mask & p.lm_mask[p.obs_lm] & p.kf_mask[p.obs_kf]).sum().item())
+    row = {}
+    for S in (1, 7):
+        st = synthetic.stacked_states(p, S)
+        ps = gba._with_state(p, st)
+
+        def cost():
+            return gba.reproj_blocks(ps, graph, huber, "cost", inputs)
+
+        got, launches = counted(cost)
+        check(launches == 1 and got.shape == (S,), f"K8 cost of {S} states")
+        check(torch.equal(got, cost()), f"K8 cost of {S} states differs between two launches")
+        for k in range(S):
+            one = gba._with_state(p, tuple(x[k:k + 1] for x in st))
+            rel = _rel(got[k:k + 1], gba.reproj_blocks_plain(one, graph, huber, "cost",
+                                                               inputs))
+            check(rel <= 1e-13, f"K8 cost of state {k} of {S}: relative error {rel}")
+            err = max(err, rel)
+        row[f"cost_s{S}_ms"] = cuda_ms(cost, reps)
+        row[f"cost_s{S}_busy_ms"] = busy_ms(cost, reps)
+        row[f"cost_s{S}_launches"] = launches
+        nb, no = gba_bytes_ops(p, graph, valid_obs, "cost", S, huber)
+        row[f"cost_s{S}_bound_ms"] = bound(nb, (no, FP64_OPS_S))[0]
+    val, valid = gba.reproj_blocks(p, graph, huber, "outlier", inputs)
+    rval, rvalid = gba.reproj_blocks_plain(p, graph, huber, "outlier")
+    check(torch.equal(valid, rvalid), "K8 outlier validity differs")
+    err = max(err, _rel(val, rval))
+    val, _ = gba.reproj_blocks(p, graph, 0.0, "outlier", inputs)
     rval, _ = gba.reproj_blocks_plain(p, graph, 0.0, "outlier")
     check(torch.equal(val < 0.92, rval < 0.92), "K8 outlier decisions differ")
+
+    def outlier():
+        return gba.reproj_blocks(p, graph, 0.0, "outlier", inputs)
+
+    row["outlier_ms"] = cuda_ms(outlier, reps)
+    row["outlier_busy_ms"] = busy_ms(outlier, reps)
+    nb, no = gba_bytes_ops(p, graph, valid_obs, "outlier")
+    row["outlier_bound_ms"] = bound(nb, (no, FP64_OPS_S))[0]
     check(err <= 1e-13, f"K8 relative error {err} against its plain version")
-    valid_obs = int((p.obs_mask & p.lm_mask[p.obs_lm] & p.kf_mask[p.obs_kf]).sum().item())
-    nbytes, ops = gba_bytes_ops(p, graph, valid_obs)
+    nbytes, ops = gba_bytes_ops(p, graph, valid_obs, huber=huber)
     bnd, by = bound(nbytes, (ops, FP64_OPS_S))
     return {
-        "kernel_ms": cuda_ms(lambda: gba.reproj_blocks(p, graph, huber, "linearize"), reps),
-        "plain_ms": cuda_ms(lambda: gba.reproj_blocks_plain(p, graph, huber, "linearize"),
-                            max(1, reps // 10)),
-        "cost_mode_ms": cuda_ms(lambda: gba.reproj_blocks(p, graph, huber, "cost"), reps),
-        "library_ms": None, "bound_ms": bnd, "bound_by": by,
+        "kernel_ms": cuda_ms(lin, reps), "busy_ms": busy_ms(lin, reps), "launches_per_call": 1,
+        "plain_ms": cuda_ms(
+            lambda: gba.reproj_blocks_plain(p, graph, huber, "linearize", inputs),
+            max(1, reps // 10)),
+        **row, "library_ms": None, "bound_ms": bnd, "bound_by": by,
         "max_abs_err": float((out[0] - ref[0]).abs().max().item()) if out[0].numel() else 0.0,
         "max_rel_err": err, "valid_obs": valid_obs,
     }
@@ -777,23 +929,6 @@ def _k4_inputs(rng, m, n, nq, nc, t):
     return t(a), t(np.arange(m) < nq), t(b), t(np.arange(n) < nc)
 
 
-def _k5_inputs(rng, L, F, t):
-    uv = rng.uniform(0, 752, (L, 2))
-    kp_uv = rng.uniform(0, 752, (F, 2))
-    k = min(L, F)
-    kp_uv[:k] = uv[:k] + rng.normal(scale=3.0, size=(k, 2))
-    lm_desc = rng.integers(0, 256, (L, 32), dtype=np.uint8)
-    kp_desc = rng.integers(0, 256, (F, 32), dtype=np.uint8)
-    kp_desc[:k] = lm_desc[:k]
-    kp_desc[: k // 3, 5] ^= 0xF0
-    lm_desc[L // 2:] = lm_desc[: L - L // 2]  # duplicated landmarks: conflicts
-    kp_oct = rng.integers(0, 8, F).astype(np.float64)
-    arrays = (uv, rng.random(L) > 0.3, rng.integers(0, 8, L).astype(np.float64),
-              rng.random(L) > 0.5, lm_desc, kp_uv, kp_oct,
-              10.0 * 2.0 ** kp_oct, rng.random(F) > 0.2, kp_desc)
-    return [t(np.ascontiguousarray(x)) for x in arrays]
-
-
 def _k6_inputs(rng, H, N, t):
     import torch
 
@@ -873,12 +1008,18 @@ def phase1(dev):
         r = k4_case(*_k4_inputs(rng, m, n, nq, nc, t), 50.0, reps=20)
         print(json.dumps({"phase": 1, "kernel": "hamming_mutual_nn",
                           "shape": [m, n], **r}))
-    # K5 at stage 3's 1024 x 1024, stage 5's largest neighbourhood and
-    # ragged sizes
-    for L, F in ((1024, 1024), (10070, 1024), (1, 1), (37, 70), (3001, 257)):
-        r = k5_case(_k5_inputs(rng, L, F, t), 50.0, reps=10)
-        print(json.dumps({"phase": 1, "kernel": "project_match",
-                          "shape": [L, F], **r}))
+    # K5 at stage 3's 1024 x 1024 (no view-angle gate), stage 5's largest
+    # neighbourhood (with it), ragged sizes, every landmark failing, the
+    # unified camera (prologue given), more features than a block's shared
+    # memory holds
+    for L, F, kw in ((1024, 1024, {}), (10070, 1024, dict(view_angle=True)),
+                     (1, 1, {}), (37, 70, dict(view_angle=True)), (3001, 257, {}),
+                     (300, 100, dict(fail=True)), (1024, 1024, dict(camera="omni")),
+                     (64, 4000, {})):
+        args, kwargs = synthetic.project_match_scene(rng, L, F, dev, **kw)
+        r = k5_case(args, kwargs, reps=10)
+        print(json.dumps({"phase": 1, "kernel": "project_match", "shape": [L, F],
+                          **{k: str(v) for k, v in kw.items()}, **r}))
     # K6 at 300 hypotheses x 4 roots against 1024 correspondences, ragged
     for H, N in ((1200, 1024), (1, 3), (37, 100)):
         r = k6_case(*_k6_inputs(rng, H, N, t), 0.0545, reps=20)
@@ -1116,15 +1257,23 @@ class Recorder:
     pass gives it, and the timed passes run without the shims."""
 
     def __init__(self, targets):
-        self.targets = targets  # (module, wrapper name, size of the work)
+        # (module, wrapper name, size of the work[, the call's kind]): the
+        # largest input is kept per wrapper, or per wrapper and kind; a
+        # size is a number or a tuple (ties broken by its later entries)
+        self.targets = targets
         self.largest = {}
+        self.calls = {}  # per key: [calls, calls whose work (first entry) > 0]
 
-    def _shim(self, fn, name, size):
+    def _shim(self, fn, name, size, kind=None):
         def recording(*args, **kwargs):
-            s = size(*args)
-            if s > self.largest.get(name, (0,))[0]:
-                self.largest[name] = (s, [x.clone() if hasattr(x, "clone") else x
-                                          for x in args])
+            s = size(*args, **kwargs)
+            key = name if kind is None else f"{name} {kind(kwargs)}"
+            n = self.calls.setdefault(key, [0, 0])
+            n[0] += 1
+            n[1] += (s[0] if isinstance(s, tuple) else s) > 0
+            if key not in self.largest or s > self.largest[key][0]:
+                self.largest[key] = (s, [x.clone() if hasattr(x, "clone") else x
+                                         for x in args], dict(kwargs))
             return fn(*args, **kwargs)
         # a wrapper counts its launches on its module-level name, which is
         # this shim while recording (the counts are reset after the pass)
@@ -1133,10 +1282,10 @@ class Recorder:
 
     def __enter__(self):
         self._saved = []
-        for mod, name, size in self.targets:
+        for mod, name, *how in self.targets:
             fn = getattr(mod, name)
             self._saved.append((mod, name, fn))
-            setattr(mod, name, self._shim(fn, name, size))
+            setattr(mod, name, self._shim(fn, name, *how))
         return self
 
     def __exit__(self, *exc):
@@ -1154,6 +1303,9 @@ class Recorder:
                                                  for f in dataclasses.fields(x)})
             return x
         return [move(x) for x in self.largest[name][1]]
+
+    def kwargs(self, name):
+        return self.largest[name][2]
 
 
 class PgoTimer:
@@ -1355,7 +1507,7 @@ def kernel_wrappers():
             "representative_descriptors": landmark_ops.representative_descriptors,
             "bow_insert": bow.bow_insert,
             "hamming_mutual_nn": descriptors.hamming_mutual_nn,
-            "project_match": projmatch.gated_match,
+            "project_match": projmatch.project_match_core,
             "p3p_score": pnp.p3p_score,
             "pgo_matvec": pgo.matvec,
             "pgo_pcg": pgo.pcg,
@@ -1367,11 +1519,22 @@ def kernel_wrappers():
 
 # the kernels of the ingest and place-recognition drain (phase 2) and of GBA;
 # the pose-graph solves launch pgo_pcg once per Gauss-Newton step and the
-# standalone K7 matvec never, a GBA step gba_pcg once and K9 seven times
+# standalone K7 matvec never, a GBA step gba_pcg once, K9 seven times and K8
+# twice, and the pruning between the rounds K8 once more
 DRAIN_KERNELS = ("hamming_argmin", "representative_descriptors", "bow_insert",
                  "hamming_mutual_nn", "project_match", "p3p_score", "pgo_pcg")
 GBA_KERNELS = ("gba_reproj_blocks", "gba_reduced_matvec", "gba_pcg", "imu_preintegrate")
 K9_PER_STEP = 7  # b_red and the six ladder scales
+K8_PER_STEP = 2  # the linearisation, and the costs of the six ladder states and the current one
+
+
+def check_gba_launches(launches, n_steps, pruned, what):
+    """Each GBA kernel's launches for ``n_steps`` Gauss-Newton steps and,
+    when ``pruned``, one outlier pass."""
+    want = {"gba_pcg": n_steps, "gba_reduced_matvec": K9_PER_STEP * n_steps,
+            "gba_reproj_blocks": K8_PER_STEP * n_steps + int(pruned)}
+    got = {k: launches[k] for k in want}
+    check(got == want, f"{what}'s {n_steps} steps launched {got}, expected {want}")
 
 
 def reference_counts():
@@ -1388,7 +1551,7 @@ def reference_counts():
 def phase2(dev, card):
     import torch
 
-    from covins_tpu_torch.ops import bow, descriptors, landmark_ops, pgo, pnp, projmatch
+    from covins_tpu_torch.ops import bow, descriptors, landmark_ops, loopverify, pgo, pnp
 
     n_agents, n_kf = 2, 128
     t_phase = t0 = time.perf_counter()
@@ -1405,7 +1568,10 @@ def phase2(dev, card):
         (bow, "bow_insert", lambda w, d, db: w.numel()),
         (descriptors, "hamming_mutual_nn",
          lambda a, am, b, bm, md: a.shape[0] * b.shape[0]),
-        (projmatch, "gated_match", lambda *a: a[0].shape[0] * a[5].shape[0]),
+        # stage 3 matches without the view-angle gate, stage 5 with it; the
+        # work is the matching the call holds, then its size
+        (loopverify, "project_match_core", k5_work,
+         lambda kw: f"stage {5 if kw['check_view_angle'] else 3}"),
         (pnp, "p3p_score", lambda T, P, *a: T.shape[0] * P.shape[0]),
         (pgo, "matvec", lambda v, f, Ji, *a: Ji.shape[0]),
         (pgo, "pcg", lambda b, M, f, Ji, *a: Ji.shape[0]),
@@ -1484,9 +1650,18 @@ def phase2(dev, card):
     a, am, b, bm, md = rec.on("hamming_mutual_nn", dev)
     table["hamming_mutual_nn"] = {**k4_case(a, am, b, bm, md, reps=50),
                                   "shape": [a.shape[0], b.shape[0]]}
-    args = rec.on("gated_match", dev)
-    table["project_match"] = {**k5_case(args[:10], args[10], reps=20),
-                              "shape": [args[0].shape[0], args[5].shape[0]]}
+    # each stage's call with the most matching work (passing landmarks x
+    # free features, then L x F); the table takes the one with more pairs
+    for stage in (3, 5):
+        key = f"project_match_core stage {stage}"
+        args = rec.on(key, dev)
+        calls, with_pairs = rec.calls[key]
+        row = {**k5_case(args, rec.kwargs(key), reps=20), "pairs": rec.largest[key][0][0],
+               "shape": [args[2].shape[0], args[7].shape[0]], "stage": stage,
+               "stage_calls": calls, "stage_calls_with_pairs": with_pairs}
+        print(json.dumps({"phase": 2, "kernel": "project_match", **row}))
+        if row["pairs"] >= table.get("project_match", {"pairs": 0})["pairs"]:
+            table["project_match"] = row
     T, P, B, msk, valid, thr = rec.on("p3p_score", dev)
     table["p3p_score"] = {**k6_case(T, P, B, msk, valid, thr, reps=50),
                           "shape": [T.shape[0], P.shape[0]]}
@@ -1623,11 +1798,7 @@ def phase5(dev, card):
         check(n > 0, f"GBA never launched {name}")
     costs1 = info["round1_costs"].cpu().numpy()
     costs = info["costs"].cpu().numpy()
-    n_steps = len(costs1) + len(costs)
-    check(launches["gba_pcg"] == n_steps
-          and launches["gba_reduced_matvec"] == K9_PER_STEP * n_steps,
-          f"{n_steps} GBA steps launched gba_pcg {launches['gba_pcg']} times and K9 "
-          f"{launches['gba_reduced_matvec']} times")
+    check_gba_launches(launches, len(costs1) + len(costs), True, "GBA")
     check(np.isfinite(costs1).all() and np.isfinite(costs).all(), "GBA costs not finite")
     check((np.diff(costs1) <= 0).all() and (np.diff(costs) <= 0).all(),
           f"GBA costs increase: {costs1} {costs}")
@@ -1640,6 +1811,7 @@ def phase5(dev, card):
     # eager loop pcg_plain around K9, in turns; a whole solve with the eager
     # loop; and one traced solve
     graph = gba.obs_graph(p)
+    inputs = gba.reproj_inputs(p)  # built once, as a GBA round builds them
     state = (p.poses, p.vels, p.biases, p.lms)
     lam = torch.tensor(1e-4, dtype=torch.float64, device=dev)
     kernel_pcg = gba.pcg
@@ -1648,7 +1820,8 @@ def phase5(dev, card):
         for eager in (False, True, True, False):
             gba.pcg = gba.pcg_plain if eager else kernel_pcg
             step_ms["eager" if eager else "kernel"].append(
-                cuda_ms(lambda: gba._gn_schur_step(p, graph, state, lam, 60, False), 3))
+                cuda_ms(lambda: gba._gn_schur_step(p, graph, state, lam, 60, False,
+                                                   inputs=inputs), 3))
         gba.pcg = gba.pcg_plain
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1659,18 +1832,32 @@ def phase5(dev, card):
         gba.pcg = kernel_pcg
     eager_diff = _max_diff(_states(p_card), _states(p_eager))
 
-    # a cost evaluation (eight per step: the ladder's seven and the old
-    # state) with the residual-only IMU and loop factors, against one that
-    # takes their residuals from the linearising functions
+    # a cost evaluation with the residual-only IMU and loop factors, against
+    # one that takes their residuals from the linearising functions; and the
+    # step ladder's seven costs (six scales and the current state) stacked
+    # in one evaluation, against seven single ones
     def cost_from_r_J():
-        val, _ = gba.reproj_blocks(p, graph, 0.0, "cost")
+        reproj = gba.reproj_blocks(gba._with_state(p, tuple(x[None] for x in state)),
+                                   graph, 0.0, "cost", inputs)[0]
         r_l, r_f = gba._loop_r_J(p)[0], gba._imu_r_J(p)[0]
-        return torch.sum(val) + torch.sum(r_l * r_l) + torch.sum(r_f * r_f)
+        return reproj + torch.sum(r_l * r_l) + torch.sum(r_f * r_f)
 
-    cost = gba.total_cost(p, graph, state, False)
+    cost = gba.total_cost(p, graph, state, False, inputs=inputs)
     check(_rel(cost_from_r_J(), cost) <= 1e-12, "the two cost evaluations disagree")
-    cost_ms = cuda_ms(lambda: gba.total_cost(p, graph, state, False), 5)
+    cost_ms = cuda_ms(lambda: gba.total_cost(p, graph, state, False, inputs=inputs), 5)
     cost_r_J_ms = cuda_ms(cost_from_r_J, 5)
+    ladder = synthetic.stacked_states(p, 7)
+    singles = [tuple(x[k] for x in ladder) for k in range(7)]
+    ladder_costs = gba.total_cost(p, graph, ladder, False, inputs=inputs)
+    check(_rel(ladder_costs, torch.stack([gba.total_cost(p, graph, st, False, inputs=inputs)
+                                          for st in singles])) <= 1e-13,
+          "the stacked and the single cost evaluations disagree")
+    ladder_ms = {"stacked": [], "single": []}
+    for stacked in (True, False, False, True):
+        ladder_ms["stacked" if stacked else "single"].append(cuda_ms(
+            (lambda: gba.total_cost(p, graph, ladder, False, inputs=inputs)) if stacked else
+            (lambda: [gba.total_cost(p, graph, st, False, inputs=inputs) for st in singles]),
+            5))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1714,6 +1901,8 @@ def phase5(dev, card):
         "gn_step_ms": step_ms["kernel"], "gn_step_eager_pcg_ms": step_ms["eager"],
         "kernel_vs_eager_pcg_state_diff": eager_diff,
         "cost_eval_ms": cost_ms, "cost_eval_via_r_J_ms": cost_r_J_ms,
+        "ladder_costs_stacked_ms": ladder_ms["stacked"],
+        "ladder_costs_single_ms": ladder_ms["single"],
         "round1_costs": costs1.tolist(), "costs": costs.tolist(),
         "n_pruned": info["n_pruned"], "ate_before_m": ate0, "ate_after_m": ate1,
         "launches": launches, "wall_ms_traced": wall_traced, "device_busy_ms": busy,
@@ -1831,10 +2020,7 @@ def phase6(dev, card, gpu_run, vocab, world):
           f"run_gba costs: {info['costs']}")
     n_steps = len(info.get("round1_costs", ())) + (
         0 if info.get("time_budget_hit") else len(info["costs"]))
-    check(launches["gba_pcg"] == n_steps
-          and launches["gba_reduced_matvec"] == K9_PER_STEP * n_steps,
-          f"run_gba's {n_steps} steps launched gba_pcg {launches['gba_pcg']} times and "
-          f"K9 {launches['gba_reduced_matvec']} times")
+    check_gba_launches(launches, n_steps, "round1_costs" in info, "run_gba")
     ate1 = map_ate(mp)
 
     torch.set_num_threads(CPU_THREADS)
@@ -1956,7 +2142,11 @@ def main():
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": row["shape"],
             **{k: row[k] for k in ("busy_ms", "library_busy_ms", "eager_kernel_ms",
-                                   "profiler_ms", "profiler_intervals") if k in row},
+                                   "profiler_ms", "profiler_intervals", "ops_per_call",
+                                   "cost_s1_ms", "cost_s1_busy_ms", "cost_s1_bound_ms",
+                                   "cost_s7_ms", "cost_s7_busy_ms", "cost_s7_bound_ms",
+                                   "outlier_ms", "outlier_busy_ms", "outlier_bound_ms")
+               if k in row},
         })
     print(card_line())
     print(json.dumps({"kernels": kernels}))

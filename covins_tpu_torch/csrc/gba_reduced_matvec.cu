@@ -80,6 +80,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "coop_launch.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -487,41 +489,6 @@ Obs make_obs(const void* Jp, const void* Jl, const void* Hll_inv, const void* ob
              static_cast<double*>(part)};
 }
 
-// the blocks of kernel that fit on the current device at once (its
-// occupancy times the SM count), queried once per kernel and device
-template <typename Kernel>
-cudaError_t co_resident(Kernel kernel, int* blocks) {
-  static int cached[64] = {0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || dev >= 64) return err != cudaSuccess ? err : cudaErrorInvalidDevice;
-  if (cached[dev] == 0) {
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, 0);
-    if (err != cudaSuccess) return err;
-    cached[dev] = per_sm * sms;
-  }
-  *blocks = cached[dev];
-  return cudaSuccess;
-}
-
-// a cooperative launch of kernel over grid = min(co-resident blocks, the
-// blocks `items` work items need); 0 or the CUDA error
-template <typename Kernel>
-int launch(Kernel kernel, int items, int slot_cap, void** args, cudaStream_t stream) {
-  int max_blocks = 0;
-  cudaError_t err = co_resident(kernel, &max_blocks);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = std::min(max_blocks, (std::max(items, 1) + THREADS - 1) / THREADS);
-  if (grid < 1 || grid > slot_cap) return static_cast<int>(cudaErrorInvalidConfiguration);
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), grid, THREADS,
-                                    args, 0, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // v6 (N, 6) or null (zeros), c (M, 3) or null (zeros), Jp (O, 2, 6),
@@ -546,7 +513,8 @@ extern "C" int covins_gba_reduced_matvec(const void* v6, const void* c, const vo
   double* o_ = static_cast<double*>(out);
   void* args[] = {&o, &v, &cc, &t_only, &o_};
   const int items = std::max(std::max(O, span32(4 * M)), std::max(6 * C, 6 * N));
-  return launch(matvec_kernel, items, 1 << 30, args, static_cast<cudaStream_t>(stream));
+  return coop::launch(matvec_kernel, THREADS, 0, items, 1 << 30, coop::Slots::kRefuse, args,
+                      static_cast<cudaStream_t>(stream));
 }
 
 // b (N, 15), M_inv (N, 15, 15), free (N, 15), lam_diag (N, 15) float64;
@@ -599,5 +567,6 @@ extern "C" int covins_gba_pcg(const void* b, const void* M_inv, const void* free
   const int items = std::max(std::max(span32(O) + span32(8 * L) + span32(16 * F),
                                       span32(4 * M)),
                              std::max(6 * C, span32(16 * N)));
-  return launch(pcg_kernel, items, slot_cap, args, static_cast<cudaStream_t>(stream));
+  return coop::launch(pcg_kernel, THREADS, 0, items, slot_cap, coop::Slots::kRefuse, args,
+                      static_cast<cudaStream_t>(stream));
 }

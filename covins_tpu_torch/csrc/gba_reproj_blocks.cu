@@ -1,105 +1,108 @@
 // GBA reprojection factors: residuals, Jacobians and their per-keyframe and
-// per-landmark normal-equation blocks, or the residual alone.
+// per-landmark normal-equation blocks; the reprojection cost of S states;
+// or the outlier norm.
 //
 // Replaces: covins_tpu/ops/gba.py::_reproj_r_J (line 115, jax.jacfwd of
 // the reprojection residual per observation under jax.vmap) with the
 // observation scatter-adds of _gn_schur_step (:255-275 for b and the 6x6
 // blocks, :317-322 for the landmark side), the reprojection part of
-// total_cost (:406-415), and _reproj_outlier_mask (:470-482).
+// total_cost (:406-415) under the step ladder's jax.vmap (:434-438), and
+// _reproj_outlier_mask (:470-482).
 //
-// Bound on the H100: per observation it reads 7 + 3 + 2 + 3 float64 values
-// and writes 2 + 12 + 6 (linearise mode); at the main path's 52.6k
-// observations that is about 14 MB, 4 us at 3.35 TB/s, and about 600
-// float64 operations per observation (0.03 GFLOP, 1 us at 34 TFLOP/s):
-// bound by bytes.
+// Bound on the H100, at the main path's 52.6k observations: a
+// linearisation reads 7 + 3 + 2 + 3 float64 values per observation and
+// writes 2 + 12 + 6, about 14 MB with the blocks, 4 us at 3.35 TB/s, and
+// its function needs about 433 float64 operations per observation and 90
+// per keyframe (0.023 GFLOP, 0.7 us at 34 TFLOP/s): bound by bytes.  A
+// cost evaluation of S states reads the observations once and S states;
+// its function needs about 111 operations per observation and state (122
+// with the Huber weight) and 54 per keyframe and state for the inverse of
+// T_w_s, which the kernel recomputes per observation.  chip_smoke.py's
+// gba_bytes_ops counts both from each input.
 //
-// Design, in three launches of one call:
-// 1. one thread per observation computes the residual in the plain
-//    version's operation order (ops/residuals.py, the port's quaternion
-//    geometry) and, in linearise mode, the written-out Jacobians
-//    d uv / d p_c * R_c_s * [[p_s]x | -I] and ... * R_w_s^T; it applies
-//    the reference's weights (1/sigma, validity, landmark and keyframe
-//    masks, Huber sqrt(min(1, k / |r w|))) and stores r, J_pose, J_lm;
-// 2. one warp per keyframe (b and the 6x6 block) and
-// 3. one warp per landmark (b and the 3x3 block) sum their observations
-//    from a CSR built once per problem: the lanes compute 32
-//    observations' terms at once and add them in ascending order, the
-//    order of the plain version's sequential scatter-add.  No atomics, so
-//    two launches give the same bits.
-// The norms use IEEE sqrt, as the plain version's correctly rounded
-// square root, and the source is built without FMA contraction, so an
+// Design, one launch per call:
+// * linearise, one cooperative launch: phase 1 gives each chunk of a
+//   keyframe's observations (at most eight consecutive kf_obs entries,
+//   ObsGraph.chunk_ptr in covins_tpu_torch/ops/gba.py) eight lanes, one
+//   observation each: the residual in the plain version's operation order
+//   (ops/residuals.py, geometry.cuh), the written-out Jacobians d uv / d
+//   p_c * R_c_s * [[p_s]x | -I] and ... * R_w_s^T, the reference's weights
+//   (1/sigma, validity, landmark and keyframe masks, Huber sqrt(min(1, k /
+//   |r w|))), stored as r, J_pose, J_lm; then the chunk's 6 + 21 partial
+//   sums of b = -J^T r and the 6x6 block's upper triangle, added across
+//   the eight lanes by a fixed shuffle tree.  Grid barrier.  Phase 2: one
+//   thread per (keyframe, entry) adds its chunks' partials in
+//   kf_chunk_ptr order; one thread per (landmark, row) adds its
+//   observations' terms in lm_obs order.  No atomics: two launches give
+//   the same bits.  (The design it replaces summed each keyframe in one
+//   warp, 42 doubles of state per lane, by 32 serial shuffles per
+//   observation group.)
+// * cost, one cooperative launch over S stacked states: every thread sums
+//   its grid-stride observations' |r w|^2 per state, each block adds its
+//   threads by a fixed tree into its slot; grid barrier; one thread per
+//   state adds the slots in block order.
+// * outlier: one thread per observation, ||r|| / sigma.
+// The norms use IEEE sqrt, as the plain version's correctly rounded square
+// root, and the source is built without FMA contraction, so an
 // observation falls on the same side of th_gba_outlier_global.
 
+#include <algorithm>
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "coop_launch.cuh"
+#include "geometry.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-struct V3 {
-  double x, y, z;
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int CHUNK = 8;  // lanes per chunk: ObsGraph's KF_CHUNK
+constexpr int KF_TERMS = 6 + 21;  // b and the 6x6 block's upper triangle
+
+// the problem and its observation graph
+struct Problem {
+  const double* poses;  // (N, 7), or (S, N, 7) in the cost mode
+  const double* lms;    // (M, 3), or (S, M, 3)
+  const double* cam;    // [fx, fy, cx, cy, k1, k2, p1, p2, T_s_c(7)]
+  int dist_model;
+  const double* uv;    // (O, 2)
+  const double* w;     // (O,) obs_w * obs_mask (obs_w alone in the outlier mode)
+  const double* kf_m;  // (N,)
+  const double* lm_m;  // (M,)
+  const int32_t* obs_kf;
+  const int32_t* obs_lm;
+  int O, N, M;
+  const int32_t* kf_obs;        // (O,)
+  const int32_t* chunk_ptr;     // (C + 1,)
+  const int32_t* kf_chunk_ptr;  // (N + 1,)
+  int C;
+  const int32_t* lm_rowptr;  // (M + 1,)
+  const int32_t* lm_obs;     // (O,)
+  double huber_k;
 };
 
-__device__ inline V3 cross(const V3& a, const V3& b) {
-  return V3{a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
-}
+// one observation's whitened residual, validity and weight, and with JAC
+// its whitened Jacobians; OUTLIER gives the raw norm times w instead
+struct Term {
+  double r0, r1, ww;
+  bool valid;
+  double Jp[12], Jl[6];
+};
 
-// geometry.quat_rotate: v + 2 (w (u x v) + u x (u x v))
-__device__ inline V3 qrot(const double q[4], const V3& v) {
-  const V3 u{q[1], q[2], q[3]};
-  const V3 uv = cross(u, v);
-  const V3 uuv = cross(u, uv);
-  return V3{v.x + 2.0 * (q[0] * uv.x + uuv.x), v.y + 2.0 * (q[0] * uv.y + uuv.y),
-            v.z + 2.0 * (q[0] * uv.z + uuv.z)};
-}
-
-// geometry.pose_inverse: conj(q), -rotate(conj(q), t), then the quaternion
-// normalised with w >= 0 (pose_from_qt)
-__device__ inline void pose_inverse(const double* T, double qo[4], V3& to) {
-  const double qi[4] = {T[0], -T[1], -T[2], -T[3]};
-  const V3 r = qrot(qi, V3{T[4], T[5], T[6]});
-  to = V3{-r.x, -r.y, -r.z};
-  const double n = sqrt(((qi[0] * qi[0] + qi[1] * qi[1]) + qi[2] * qi[2]) + qi[3] * qi[3]);
-  const double nc = fmax(n, 1e-12);
-  const double s = (qi[0] / nc < 0.0) ? -1.0 : 1.0;
-  for (int i = 0; i < 4; ++i) qo[i] = s * (qi[i] / nc);
-}
-
-// geometry.quat_to_matrix
-__device__ inline void qmat(const double* q, double R[9]) {
-  const double w = q[0], x = q[1], y = q[2], z = q[3];
-  const double xx = x * x, yy = y * y, zz = z * z;
-  const double wx = w * x, wy = w * y, wz = w * z;
-  const double xy = x * y, xz = x * z, yz = y * z;
-  R[0] = 1 - 2 * (yy + zz);
-  R[1] = 2 * (xy - wz);
-  R[2] = 2 * (xz + wy);
-  R[3] = 2 * (xy + wz);
-  R[4] = 1 - 2 * (xx + zz);
-  R[5] = 2 * (yz - wx);
-  R[6] = 2 * (xz - wy);
-  R[7] = 2 * (yz + wx);
-  R[8] = 1 - 2 * (xx + yy);
-}
-
-__global__ void reproj_obs_kernel(int mode, const double* __restrict__ poses,
-                                  const double* __restrict__ lms,
-                                  const double* __restrict__ cam, int dist_model,
-                                  const double* __restrict__ uv_obs,
-                                  const double* __restrict__ w_obs,
-                                  const double* __restrict__ kf_m,
-                                  const double* __restrict__ lm_m,
-                                  const int32_t* __restrict__ obs_kf,
-                                  const int32_t* __restrict__ obs_lm, int O,
-                                  double huber_k, double* __restrict__ r_out,
-                                  double* __restrict__ Jp_out, double* __restrict__ Jl_out,
-                                  double* __restrict__ val, uint8_t* __restrict__ valid_out) {
-  const int o = blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= O) return;
-  const int kf = obs_kf[o];
-  const int lm = obs_lm[o];
+template <bool JAC, bool OUTLIER>
+__device__ inline Term observe(const Problem& a, const double* poses, const double* lms,
+                              int o) {
+  Term t;
+  const int kf = a.obs_kf[o];
+  const int lm = a.obs_lm[o];
   const double* T = poses + 7 * (int64_t)kf;
+  const double* cam = a.cam;
   const double fx = cam[0], fy = cam[1], cx = cam[2], cy = cam[3];
-  const double k1 = cam[4], k2 = cam[5], p1 = cam[6], p2 = cam[7];
   // p_s = T_w_s^-1 X, p_c = T_s_c^-1 p_s
   double qsw[4], qcs[4];
   V3 tsw, tcs;
@@ -111,58 +114,35 @@ __global__ void reproj_obs_kernel(int mode, const double* __restrict__ poses,
   const V3 rc = qrot(qcs, ps);
   const V3 pc{rc.x + tcs.x, rc.y + tcs.y, rc.z + tcs.z};
   // pinhole projection
-  const bool valid = pc.z > 1e-6;
-  const double zs = valid ? pc.z : 1.0;
+  t.valid = pc.z > 1e-6;
+  const double zs = t.valid ? pc.z : 1.0;
   const double xn = pc.x / zs, yn = pc.y / zs;
-  double xd, yd, dxx = 1.0, dxy = 0.0, dyx = 0.0, dyy = 1.0;
-  if (dist_model == 0) {
-    xd = xn;
-    yd = yn;
-  } else if (mode != 0) {
-    // cameras.distort_radtan
-    const double r2 = xn * xn + yn * yn;
-    const double radial = (1.0 + k1 * r2) + (k2 * r2) * r2;
-    xd = (xn * radial + ((2.0 * p1) * xn) * yn) + p2 * (r2 + (2.0 * xn) * xn);
-    yd = (yn * radial + ((2.0 * p2) * xn) * yn) + p1 * (r2 + (2.0 * yn) * yn);
-  } else {
-    // cameras._radtan_with_jacobian
-    const double xx = xn * xn, yy = yn * yn, xy = xn * yn;
-    const double r2 = xx + yy;
-    const double radial = (1.0 + k1 * r2) + (k2 * r2) * r2;
-    xd = (xn * radial + (2.0 * p1) * xy) + p2 * (r2 + 2.0 * xx);
-    yd = (yn * radial + (2.0 * p2) * xy) + p1 * (r2 + 2.0 * yy);
-    const double g = 2.0 * (k1 + (2.0 * k2) * r2);
-    const double gxy = g * xy;
-    dxx = ((radial + g * xx) + (2.0 * p1) * yn) + (6.0 * p2) * xn;
-    dxy = (gxy + (2.0 * p1) * xn) + (2.0 * p2) * yn;
-    dyx = (gxy + (2.0 * p2) * yn) + (2.0 * p1) * xn;
-    dyy = ((radial + g * yy) + (2.0 * p2) * xn) + (6.0 * p1) * yn;
+  double xd = xn, yd = yn, dxx = 1.0, dxy = 0.0, dyx = 0.0, dyy = 1.0;
+  if (a.dist_model != 0) {
+    if (JAC)
+      radtan_with_jacobian(cam + 4, xn, yn, xd, yd, dxx, dxy, dyx, dyy);
+    else
+      distort_radtan(cam + 4, xn, yn, xd, yd);
   }
-  const double r0 = (fx * xd + cx) - uv_obs[2 * (int64_t)o];
-  const double r1 = (fy * yd + cy) - uv_obs[2 * (int64_t)o + 1];
-  if (mode == 2) {  // outlier norm: ||r|| / sigma
-    val[o] = sqrt(r0 * r0 + r1 * r1) * w_obs[o];
-    valid_out[o] = valid;
-    return;
+  const double r0 = (fx * xd + cx) - a.uv[2 * (int64_t)o];
+  const double r1 = (fy * yd + cy) - a.uv[2 * (int64_t)o + 1];
+  if (OUTLIER) {  // ||r|| / sigma
+    t.r0 = sqrt(r0 * r0 + r1 * r1) * a.w[o];
+    return t;
   }
-  double ww = ((w_obs[o] * (valid ? 1.0 : 0.0)) * lm_m[lm]) * kf_m[kf];
-  if (huber_k > 0.0) {
-    const double a = r0 * ww, b = r1 * ww;
-    const double rn = sqrt(a * a + b * b);
-    ww = ww * sqrt(fmin(huber_k / fmax(rn, 1e-12), 1.0));
+  double ww = ((a.w[o] * (t.valid ? 1.0 : 0.0)) * a.lm_m[lm]) * a.kf_m[kf];
+  if (a.huber_k > 0.0) {
+    const double ra = r0 * ww, rb = r1 * ww;
+    const double rn = sqrt(ra * ra + rb * rb);
+    ww = ww * sqrt(fmin(a.huber_k / fmax(rn, 1e-12), 1.0));
   }
-  const double rw0 = r0 * ww, rw1 = r1 * ww;
-  if (mode == 1) {  // cost term
-    val[o] = rw0 * rw0 + rw1 * rw1;
-    valid_out[o] = valid;
-    return;
-  }
-  valid_out[o] = valid;
-  r_out[2 * (int64_t)o] = rw0;
-  r_out[2 * (int64_t)o + 1] = rw1;
+  t.ww = ww;
+  t.r0 = r0 * ww;
+  t.r1 = r1 * ww;
+  if (!JAC) return t;
   // d uv / d p_c (project3_jacobian), then through R_c_s
   const double iz = 1.0 / zs;
-  const double vz = valid ? iz : 0.0;
+  const double vz = t.valid ? iz : 0.0;
   const double P[6] = {fx * (dxx * iz), fx * (dxy * iz), fx * (-(dxx * xn + dxy * yn) * vz),
                        fy * (dyx * iz), fy * (dyy * iz), fy * (-(dyx * xn + dyy * yn) * vz)};
   double Rcs[9], Rws[9];
@@ -174,104 +154,207 @@ __global__ void reproj_obs_kernel(int mode, const double* __restrict__ poses,
       PR[3 * i + j] = (P[3 * i] * Rcs[j] + P[3 * i + 1] * Rcs[3 + j]) + P[3 * i + 2] * Rcs[6 + j];
   // [[p_s]x | -I] and R_w_s^T
   const double H[9] = {0.0, -ps.z, ps.y, ps.z, 0.0, -ps.x, -ps.y, ps.x, 0.0};
-  double* Jp = Jp_out + 12 * (int64_t)o;
-  double* Jl = Jl_out + 6 * (int64_t)o;
   for (int i = 0; i < 2; ++i) {
     for (int j = 0; j < 3; ++j) {
-      Jp[6 * i + j] =
+      t.Jp[6 * i + j] =
           ((PR[3 * i] * H[j] + PR[3 * i + 1] * H[3 + j]) + PR[3 * i + 2] * H[6 + j]) * ww;
-      Jp[6 * i + 3 + j] = -PR[3 * i + j] * ww;
-      Jl[3 * i + j] =
+      t.Jp[6 * i + 3 + j] = -PR[3 * i + j] * ww;
+      t.Jl[3 * i + j] =
           ((PR[3 * i] * Rws[3 * j] + PR[3 * i + 1] * Rws[3 * j + 1]) + PR[3 * i + 2] * Rws[3 * j + 2]) * ww;
+    }
+  }
+  return t;
+}
+
+struct Blocks {
+  double* r;     // (O, 2)
+  double* Jp;    // (O, 2, 6)
+  double* Jl;    // (O, 2, 3)
+  double* part;  // (C, 27) chunk partials
+  double* b6;    // (N, 6)
+  double* M6;    // (N, 6, 6)
+  double* bl;    // (M, 3)
+  double* Hll;   // (M, 3, 3)
+};
+
+__global__ void __launch_bounds__(THREADS) linearize_kernel(Problem a, Blocks out) {
+  cg::grid_group grid = cg::this_grid();
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int nthreads = gridDim.x * blockDim.x;
+  const int lane = threadIdx.x & 31;
+  const int sub = lane & (CHUNK - 1);
+  // phase 1: a warp takes 32 / CHUNK chunks at a time, the same count of
+  // iterations in every lane, so the shuffles see the whole warp
+  constexpr int PER_WARP = 32 / CHUNK;
+  const int nwarps = gridDim.x * WARPS;
+  for (int c0 = PER_WARP * (blockIdx.x * WARPS + (threadIdx.x >> 5)); c0 < a.C;
+       c0 += PER_WARP * nwarps) {
+    const int ch = c0 + lane / CHUNK;
+    double s[KF_TERMS];
+#pragma unroll
+    for (int e = 0; e < KF_TERMS; ++e) s[e] = 0.0;
+    if (ch < a.C) {
+      const int pos = a.chunk_ptr[ch] + sub;
+      if (pos < a.chunk_ptr[ch + 1]) {
+        const int o = a.kf_obs[pos];
+        const Term t = observe<true, false>(a, a.poses, a.lms, o);
+        out.r[2 * (int64_t)o] = t.r0;
+        out.r[2 * (int64_t)o + 1] = t.r1;
+        for (int e = 0; e < 12; ++e) out.Jp[12 * (int64_t)o + e] = t.Jp[e];
+        for (int e = 0; e < 6; ++e) out.Jl[6 * (int64_t)o + e] = t.Jl[e];
+        int e = 6;
+#pragma unroll
+        for (int i = 0; i < 6; ++i) {
+          s[i] = -(t.Jp[i] * t.r0 + t.Jp[6 + i] * t.r1);
+#pragma unroll
+          for (int j = i; j < 6; ++j) s[e++] = t.Jp[i] * t.Jp[j] + t.Jp[6 + i] * t.Jp[6 + j];
+        }
+      }
+    }
+#pragma unroll
+    for (int off = CHUNK / 2; off > 0; off >>= 1)
+#pragma unroll
+      for (int e = 0; e < KF_TERMS; ++e) s[e] += __shfl_down_sync(FULL, s[e], off, CHUNK);
+    if (ch < a.C && sub == 0)
+#pragma unroll
+      for (int e = 0; e < KF_TERMS; ++e) out.part[KF_TERMS * (int64_t)ch + e] = s[e];
+  }
+  grid.sync();
+
+  // phase 2: keyframes (27 entries each), then landmarks (3 rows each)
+  for (int q = tid; q < KF_TERMS * a.N + 3 * a.M; q += nthreads) {
+    if (q < KF_TERMS * a.N) {
+      const int kf = q / KF_TERMS;
+      const int e = q - KF_TERMS * kf;
+      double v = 0.0;
+      for (int ch = a.kf_chunk_ptr[kf]; ch < a.kf_chunk_ptr[kf + 1]; ++ch)
+        v += out.part[KF_TERMS * (int64_t)ch + e];
+      if (e < 6) {
+        out.b6[6 * (int64_t)kf + e] = v;
+      } else {  // entry (i, j), i <= j, of the upper triangle, row by row
+        int i = 0, k = e - 6;
+        while (k >= 6 - i) {
+          k -= 6 - i;
+          ++i;
+        }
+        const int j = i + k;
+        out.M6[36 * (int64_t)kf + 6 * i + j] = v;
+        out.M6[36 * (int64_t)kf + 6 * j + i] = v;
+      }
+    } else {
+      const int ql = q - KF_TERMS * a.N;
+      const int l = ql / 3;
+      const int i = ql - 3 * l;
+      double b = 0.0, h0 = 0.0, h1 = 0.0, h2 = 0.0;
+      for (int k = a.lm_rowptr[l]; k < a.lm_rowptr[l + 1]; ++k) {
+        const int64_t o = a.lm_obs[k];
+        const double* J = out.Jl + 6 * o;
+        const double r0 = out.r[2 * o], r1 = out.r[2 * o + 1];
+        b += J[i] * r0 + J[3 + i] * r1;
+        h0 += J[i] * J[0] + J[3 + i] * J[3];
+        h1 += J[i] * J[1] + J[3 + i] * J[4];
+        h2 += J[i] * J[2] + J[3 + i] * J[5];
+      }
+      out.bl[3 * (int64_t)l + i] = -b;
+      double* H = out.Hll + 9 * (int64_t)l + 3 * i;
+      H[0] = h0;
+      H[1] = h1;
+      H[2] = h2;
     }
   }
 }
 
-// One warp per row of a CSR over the observations (a keyframe or a
-// landmark): b = -sum J^T r (DOF entries) and the block sum J^T J
-// (DOF x DOF).  Each lane computes the terms of one of 32 consecutive
-// observations, then every lane adds the 32 terms in ascending order
-// (broadcast by shuffles): the sums run over the observations in
-// sequence, as the plain version's scatter-add does.
-template <int DOF>
-__global__ void reduce_kernel(const double* __restrict__ r, const double* __restrict__ J,
-                              const int32_t* __restrict__ rowptr,
-                              const int32_t* __restrict__ obs, int n_rows,
-                              double* __restrict__ b_out, double* __restrict__ H_out) {
-  constexpr int E = DOF + DOF * DOF;
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+// the cost of S stacked states: slots (S, gridDim.x), out (S,)
+__global__ void __launch_bounds__(THREADS) cost_kernel(Problem a, int S, double* slots,
+                                                       double* out) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ double warp_sum[WARPS];
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int nthreads = gridDim.x * blockDim.x;
   const int lane = threadIdx.x & 31;
-  if (row >= n_rows) return;  // uniform across the warp
-  double acc[E];
-  for (int e = 0; e < E; ++e) acc[e] = 0.0;
-  const int end = rowptr[row + 1];
-  for (int base = rowptr[row]; base < end; base += 32) {
-    double t[E];
-    for (int e = 0; e < E; ++e) t[e] = 0.0;
-    if (base + lane < end) {
-      const int64_t o = obs[base + lane];
-      const double* Jo = J + 2 * DOF * o;
-      const double r0 = r[2 * o], r1 = r[2 * o + 1];
-      for (int i = 0; i < DOF; ++i) {
-        t[i] = -(Jo[i] * r0 + Jo[DOF + i] * r1);
-        for (int j = 0; j < DOF; ++j)
-          t[DOF + DOF * i + j] = Jo[i] * Jo[j] + Jo[DOF + i] * Jo[DOF + j];
-      }
+  for (int st = 0; st < S; ++st) {
+    const double* poses = a.poses + 7 * (int64_t)a.N * st;
+    const double* lms = a.lms + 3 * (int64_t)a.M * st;
+    double acc = 0.0;
+    for (int o = tid; o < a.O; o += nthreads) {
+      const Term t = observe<false, false>(a, poses, lms, o);
+      acc += t.r0 * t.r0 + t.r1 * t.r1;
     }
-    const int n = min(32, end - base);
-    for (int k = 0; k < n; ++k)
-      for (int e = 0; e < E; ++e) acc[e] += __shfl_sync(0xffffffffu, t[e], k);
+    for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(FULL, acc, off);
+    if (lane == 0) warp_sum[threadIdx.x >> 5] = acc;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      double b = 0.0;
+      for (int w = 0; w < WARPS; ++w) b += warp_sum[w];
+      slots[(int64_t)gridDim.x * st + blockIdx.x] = b;
+    }
+    __syncthreads();
   }
-  for (int e = lane; e < E; e += 32) {
-    double v = acc[0];
-    for (int f = 1; f < E; ++f)
-      if (f == e) v = acc[f];
-    if (e < DOF)
-      b_out[(int64_t)row * DOF + e] = v;
-    else
-      H_out[(int64_t)row * DOF * DOF + (e - DOF)] = v;
+  grid.sync();
+  if (blockIdx.x == 0) {
+    for (int st = threadIdx.x; st < S; st += blockDim.x) {
+      double c = 0.0;
+      for (int b = 0; b < gridDim.x; ++b) c += slots[(int64_t)gridDim.x * st + b];
+      out[st] = c;
+    }
   }
+}
+
+__global__ void outlier_kernel(Problem a, double* __restrict__ val, uint8_t* __restrict__ valid) {
+  const int o = blockIdx.x * blockDim.x + threadIdx.x;
+  if (o >= a.O) return;
+  const Term t = observe<false, true>(a, a.poses, a.lms, o);
+  val[o] = t.r0;
+  valid[o] = t.valid;
 }
 
 }  // namespace
 
+// poses (N, 7) f64, or (S, N, 7) in mode 1; lms (M, 3), or (S, M, 3);
+// cam = [fx, fy, cx, cy, k1, k2, p1, p2, T_s_c(7)], dist_model 0 (none) or
+// 1 (radtan); uv (O, 2); w (O,) = obs_w * obs_mask (obs_w alone in mode
+// 2); kf_m (N,), lm_m (M,) the masks as float64; obs_kf, obs_lm (O,) int32;
+// the graph (ObsGraph): kf_obs (O,), chunk_ptr (C + 1,), kf_chunk_ptr
+// (N + 1,), lm_rowptr (M + 1,), lm_obs (O,) int32.
 // mode 0 (linearise): r (O, 2), Jp (O, 2, 6), Jl (O, 2, 3), b6 (N, 6),
-// M6 (N, 6, 6), bl (M, 3), Hll (M, 3, 3); mode 1 (cost) and 2 (outlier):
-// val (O,).  valid (O,) uint8 in every mode.  cam = [fx, fy, cx, cy, k1,
-// k2, p1, p2, T_s_c(7)]; w = obs_w * obs_mask (obs_w alone in mode 2);
-// kf_m (N,), lm_m (M,) the masks as float64; the CSRs list each keyframe's
-// and each landmark's observations in ascending order.
+// M6 (N, 6, 6), bl (M, 3), Hll (M, 3, 3); scratch (C, 27).
+// mode 1 (cost of S states): out (S,); scratch (S, slot_cap).
+// mode 2 (outlier): out (O,) ||r|| * obs_w, valid (O,) uint8.
+// Returns 0 or the CUDA error.
 extern "C" int covins_gba_reproj_blocks(
-    int mode, const void* poses, const void* lms, const void* cam, int dist_model,
+    int mode, int S, const void* poses, const void* lms, const void* cam, int dist_model,
     const void* uv, const void* w, const void* kf_m, const void* lm_m, const void* obs_kf,
-    const void* obs_lm, int O, const void* kf_rowptr, const void* kf_obs, int N,
-    const void* lm_rowptr, const void* lm_obs, int M, double huber_k, void* r, void* Jp,
-    void* Jl, void* b6, void* M6, void* bl, void* Hll, void* val, void* valid,
-    void* stream) {
+    const void* obs_lm, int O, int N, int M, const void* kf_obs, const void* chunk_ptr,
+    const void* kf_chunk_ptr, int C, const void* lm_rowptr, const void* lm_obs, double huber_k,
+    void* r, void* Jp, void* Jl, void* b6, void* M6, void* bl, void* Hll, void* out,
+    void* valid, void* scratch, int slot_cap, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int threads = 128;
-  if (O > 0) {
-    reproj_obs_kernel<<<(O + threads - 1) / threads, threads, 0, st>>>(
-        mode, static_cast<const double*>(poses), static_cast<const double*>(lms),
-        static_cast<const double*>(cam), dist_model, static_cast<const double*>(uv),
-        static_cast<const double*>(w), static_cast<const double*>(kf_m),
-        static_cast<const double*>(lm_m), static_cast<const int32_t*>(obs_kf),
-        static_cast<const int32_t*>(obs_lm), O, huber_k, static_cast<double*>(r),
-        static_cast<double*>(Jp), static_cast<double*>(Jl), static_cast<double*>(val),
-        static_cast<uint8_t*>(valid));
+  Problem a{static_cast<const double*>(poses),     static_cast<const double*>(lms),
+            static_cast<const double*>(cam),       dist_model,
+            static_cast<const double*>(uv),        static_cast<const double*>(w),
+            static_cast<const double*>(kf_m),      static_cast<const double*>(lm_m),
+            static_cast<const int32_t*>(obs_kf),   static_cast<const int32_t*>(obs_lm),
+            O,                                     N,
+            M,                                     static_cast<const int32_t*>(kf_obs),
+            static_cast<const int32_t*>(chunk_ptr), static_cast<const int32_t*>(kf_chunk_ptr),
+            C,                                     static_cast<const int32_t*>(lm_rowptr),
+            static_cast<const int32_t*>(lm_obs),   huber_k};
+  if (mode == 0) {
+    Blocks b{static_cast<double*>(r),  static_cast<double*>(Jp),      static_cast<double*>(Jl),
+             static_cast<double*>(scratch), static_cast<double*>(b6), static_cast<double*>(M6),
+             static_cast<double*>(bl), static_cast<double*>(Hll)};
+    void* args[] = {&a, &b};
+    const int items = std::max(CHUNK * C, KF_TERMS * N + 3 * M);
+    return coop::launch(linearize_kernel, THREADS, 0, items, 1 << 30, coop::Slots::kRefuse, args,
+                        st);
   }
-  if (mode != 0) return static_cast<int>(cudaGetLastError());
-  if (N > 0) {
-    reduce_kernel<6><<<(32 * N + threads - 1) / threads, threads, 0, st>>>(
-        static_cast<const double*>(r), static_cast<const double*>(Jp),
-        static_cast<const int32_t*>(kf_rowptr), static_cast<const int32_t*>(kf_obs), N,
-        static_cast<double*>(b6), static_cast<double*>(M6));
+  if (mode == 1) {
+    double* slots = static_cast<double*>(scratch);
+    double* o = static_cast<double*>(out);
+    void* args[] = {&a, &S, &slots, &o};
+    return coop::launch(cost_kernel, THREADS, 0, O, slot_cap, coop::Slots::kCap, args, st);
   }
-  if (M > 0) {
-    reduce_kernel<3><<<(32 * M + threads - 1) / threads, threads, 0, st>>>(
-        static_cast<const double*>(r), static_cast<const double*>(Jl),
-        static_cast<const int32_t*>(lm_rowptr), static_cast<const int32_t*>(lm_obs), M,
-        static_cast<double*>(bl), static_cast<double*>(Hll));
-  }
+  outlier_kernel<<<std::max(1, (O + THREADS - 1) / THREADS), THREADS, 0, st>>>(
+      a, static_cast<double*>(out), static_cast<uint8_t*>(valid));
   return static_cast<int>(cudaGetLastError());
 }

@@ -62,6 +62,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "coop_launch.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -323,22 +325,6 @@ extern "C" int covins_pgo_pcg(const void* b, const void* Minv, const void* free_
                               double damping, int n_iters, void* work, void* contrib, void* slots,
                               int slot_cap, void* stream) {
   if (N <= 0) return 0;
-  // the blocks that fit on the device at once, queried once per device
-  static int co_resident[64] = {0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess && dev >= 64) err = cudaErrorInvalidDevice;
-  if (err == cudaSuccess && co_resident[dev] == 0) {
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pcg_kernel, THREADS, 0);
-    if (err == cudaSuccess) co_resident[dev] = per_sm * sms;
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int work_items = std::max((8 * E + 31) & ~31, (8 * N + 31) & ~31);
-  const int grid = std::min(co_resident[dev], (work_items + THREADS - 1) / THREADS);
-  if (grid < 1 || grid > slot_cap) return static_cast<int>(cudaErrorInvalidConfiguration);
   double* wk = static_cast<double*>(work);
   const int64_t vec = 6 * (int64_t)N;
   Pcg a{make_graph(free_, Ji, Jj, ei, ej, E, rowptr, entries, N, damping),
@@ -354,8 +340,7 @@ extern "C" int covins_pgo_pcg(const void* b, const void* Minv, const void* free_
         static_cast<double*>(contrib),
         static_cast<double*>(slots)};
   void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(pcg_kernel), grid, THREADS,
-                                    args, 0, static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  const int work_items = std::max((8 * E + 31) & ~31, (8 * N + 31) & ~31);
+  return coop::launch(pcg_kernel, THREADS, 0, work_items, slot_cap, coop::Slots::kRefuse, args,
+                      static_cast<cudaStream_t>(stream));
 }

@@ -5,8 +5,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 of the checkout, then loaded with ``ctypes``.  Nothing is built at import
 time: :func:`library` builds on first use, and :func:`build_all` starts one
 ``nvcc`` per source at once so a cold start pays for the slowest source
-only.  The library file name carries a hash of the source and flags, so an
-edited source is rebuilt and an unchanged one is reused.
+only.  The library file name carries a hash of the source, of every
+``csrc`` header it includes and of the flags, so an edited source or
+header is rebuilt and an unchanged one is reused.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -45,8 +47,9 @@ SIGNATURES = {
                                      _P, _P, _P, _P, _P, _P],
     },
     "project_match": {
-        "covins_project_match": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
-                                 _I, _F, _P, _P, _P, _P, _P, _P],
+        "covins_project_match": [_I, _P, _P, _I] + [_P] * 5 + [_I, _D, _D, _D]
+                                + [_P] * 5 + [_I] + [_P] * 4 + [_I, _D, _D, _F]
+                                + [_P] * 4,
     },
     "p3p_score": {
         "covins_p3p_score": [_P, _P, _P, _P, _P, _I, _I, _D, _P, _P, _P, _P,
@@ -58,8 +61,9 @@ SIGNATURES = {
         "covins_pgo_pcg": [_P] * 7 + [_I, _P, _P, _I, _D, _I, _P, _P, _P, _I, _P],
     },
     "gba_reproj_blocks": {
-        "covins_gba_reproj_blocks": [_I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I,
-                                     _P, _P, _I, _P, _P, _I, _D] + [_P] * 10,
+        "covins_gba_reproj_blocks": [_I, _I, _P, _P, _P, _I] + [_P] * 6 + [_I] * 3
+                                    + [_P] * 3 + [_I, _P, _P, _D] + [_P] * 10
+                                    + [_I, _P],
     },
     "gba_reduced_matvec": {
         "covins_gba_reduced_matvec": [_P] * 9 + [_I] + [_P] * 3 + [_I] * 4 + [_P] * 6,
@@ -104,10 +108,28 @@ def _flags(name: str) -> list:
     return NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name: str) -> list:
+    """The source ``csrc/<name>.cu`` and every header of ``csrc`` it
+    includes, directly or through another header, in the order first
+    met."""
+    seen = [CSRC / f"{name}.cu"]
+    for path in seen:
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = CSRC / inc.decode()
+            if dep.exists() and dep not in seen:
+                seen.append(dep)
+    return seen
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{h}.so"
+    h = hashlib.sha256()
+    for path in _sources(name):
+        h.update(path.read_bytes())
+    h.update(" ".join(_flags(name)).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

@@ -19,8 +19,9 @@ behind a wrapper with a plain PyTorch version in this module:
 * K8 :func:`reproj_blocks` (`csrc/gba_reproj_blocks.cu`): per observation
   the whitened residual and its written-out Jacobians, reduced in the
   same launch into each keyframe's gradient and 6x6 block and each
-  landmark's gradient and 3x3 block; or the per-observation cost or
-  outlier norm alone;
+  landmark's gradient and 3x3 block; or the reprojection cost of several
+  states at once (the step ladder's six and the current one); or the
+  outlier norm;
 * K9 :func:`reduced_matvec` (`csrc/gba_reduced_matvec.cu`): the
   observation part of the reduced camera matrix times a vector,
   Hpp(reproj) v - Hpl Hll^-1 Hlp v (for b_red and the step ladder);
@@ -114,7 +115,7 @@ def _retract_kf(pose, vel, bias, xi):
 
 
 # ------------------------------------------------------- observation graph
-KF_CHUNK = 8  # observations per chunk of a keyframe's sums in K9
+KF_CHUNK = 8  # observations per chunk of a keyframe's sums in K8 and K9
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,7 +124,9 @@ class ObsGraph:
     pointers and observation indices in ascending order, the order a
     sequential scatter-add sums in; and each keyframe's row of ``kf_obs``
     cut into chunks of at most KF_CHUNK consecutive entries, the fixed
-    first level of K9's keyframe sums."""
+    first level of K8's and K9's keyframe sums.  It depends only on which
+    keyframe and landmark each observation belongs to, not on the masks,
+    so one graph serves both rounds of a solve."""
 
     obs_kf32: torch.Tensor  # (O,) int32
     obs_lm32: torch.Tensor  # (O,) int32
@@ -180,32 +183,66 @@ def obs_graph(p: GBAProblem) -> ObsGraph:
 MODES = {"linearize": 0, "cost": 1, "outlier": 2}
 
 
-def _obs_weights(p: GBAProblem, r, valid, huber_k: float):
+@dataclasses.dataclass(frozen=True)
+class ReprojInputs:
+    """K8's inputs that hold for a whole problem: its weights and masks as
+    float64 and the camera as the kernel reads it."""
+
+    w: torch.Tensor  # (O,) obs_w * obs_mask
+    w_raw: torch.Tensor  # (O,) obs_w
+    kf_m: torch.Tensor  # (N,) kf_mask
+    lm_m: torch.Tensor  # (M,) lm_mask
+    cam: torch.Tensor  # (15,) [fx, fy, cx, cy, k1, k2, p1, p2, T_s_c(7)]
+
+
+def _cam_params(cam: cam_mod.Camera):
+    """[fx, fy, cx, cy, k1, k2, p1, p2, T_s_c(7)] float64, as K8 reads it."""
+    return torch.cat([cam.intrinsics[:4], cam.dist[:4], cam.T_s_c[:7]]).to(
+        torch.float64).contiguous()
+
+
+def reproj_inputs(p: GBAProblem) -> ReprojInputs:
+    """:class:`ReprojInputs` of ``p``.  They hold while its weights, masks
+    and camera do, whatever its state: :func:`_gba_rounds` builds them once
+    per round of :func:`global_bundle_adjustment` (the pruning between the
+    rounds changes ``obs_mask``) and hands them to every K8 call of the
+    round, beside the :class:`ObsGraph`.  A call given none builds them
+    from ``p``."""
+    dt = torch.float64
+    return ReprojInputs((p.obs_w * p.obs_mask).to(dt).contiguous(),
+                        p.obs_w.to(dt).contiguous(), p.kf_mask.to(dt).contiguous(),
+                        p.lm_mask.to(dt).contiguous(), _cam_params(p.cam))
+
+
+def _obs_weights(p: GBAProblem, r, valid, huber_k: float, c: ReprojInputs):
     """The reference's per-observation weight: 1/sigma, zero for masked or
     invalid observations, landmarks and keyframes, times the Huber IRLS
-    weight sqrt(min(1, k / ||r w||)) when ``huber_k > 0``."""
-    w = (p.obs_w * p.obs_mask).to(p.poses.dtype)
-    ww = w * valid * p.lm_mask[p.obs_lm] * p.kf_mask[p.obs_kf]
+    weight sqrt(min(1, k / ||r w||)) when ``huber_k > 0``.  ``r`` (..., O,
+    2) and ``valid`` (..., O) may carry leading state dimensions."""
+    ww = c.w * valid * c.lm_m[p.obs_lm] * c.kf_m[p.obs_kf]
     if huber_k > 0.0:
-        rw = r * ww[:, None]
-        rn = linalg.sqrt_rn(rw[:, 0] * rw[:, 0] + rw[:, 1] * rw[:, 1])
+        rw = r * ww[..., None]
+        rn = linalg.sqrt_rn(rw[..., 0] * rw[..., 0] + rw[..., 1] * rw[..., 1])
         ww = ww * linalg.sqrt_rn(torch.clamp(huber_k / torch.clamp(rn, min=1e-12),
                                              max=1.0))
     return ww
 
 
-def reproj_blocks_plain(p: GBAProblem, graph: ObsGraph, huber_k: float, mode: str):
+def reproj_blocks_plain(p: GBAProblem, graph: ObsGraph, huber_k: float, mode: str,
+                        inputs: Optional[ReprojInputs] = None):
     """Plain version of :func:`reproj_blocks` (any device)."""
+    c = reproj_inputs(p) if inputs is None else inputs
+    if mode == "cost":
+        r, valid = res.reprojection_residual(p.cam, p.poses[:, p.obs_kf],
+                                             p.lms[:, p.obs_lm], p.obs_uv)
+        rw = r * _obs_weights(p, r, valid, huber_k, c)[..., None]
+        return torch.sum(rw[..., 0] * rw[..., 0] + rw[..., 1] * rw[..., 1], dim=-1)
     pose, X = p.poses[p.obs_kf], p.lms[p.obs_lm]
     if mode == "outlier":
         r, valid = res.reprojection_residual(p.cam, pose, X, p.obs_uv)
         return linalg.sqrt_rn(r[:, 0] * r[:, 0] + r[:, 1] * r[:, 1]) * p.obs_w, valid
-    if mode == "cost":
-        r, valid = res.reprojection_residual(p.cam, pose, X, p.obs_uv)
-        rw = r * _obs_weights(p, r, valid, huber_k)[:, None]
-        return rw[:, 0] * rw[:, 0] + rw[:, 1] * rw[:, 1], valid
     r, valid, Jp, Jl = res.reprojection_jacobian(p.cam, pose, X, p.obs_uv)
-    ww = _obs_weights(p, r, valid, huber_k)
+    ww = _obs_weights(p, r, valid, huber_k, c)
     r, Jp, Jl = r * ww[:, None], Jp * ww[:, None, None], Jl * ww[:, None, None]
     n, m, dt = p.poses.shape[0], p.lms.shape[0], p.poses.dtype
     z = dict(dtype=dt, device=r.device)
@@ -220,79 +257,71 @@ def reproj_blocks_plain(p: GBAProblem, graph: ObsGraph, huber_k: float, mode: st
     return r, Jp, Jl, b6, M6, b_l, Hll
 
 
-def _cam_params(cam: cam_mod.Camera):
-    """[fx, fy, cx, cy, k1, k2, p1, p2, T_s_c(7)] float64, as K8 reads it."""
-    return torch.cat([cam.intrinsics[:4], cam.dist[:4], cam.T_s_c[:7]]).to(
-        torch.float64).contiguous()
-
-
 def reproj_blocks(p: GBAProblem, graph: ObsGraph, huber_k: float = 0.0,
-                  mode: str = "linearize"):
-    """The reprojection factors of a GBA problem (K8).
+                  mode: str = "linearize", inputs: Optional[ReprojInputs] = None):
+    """The reprojection factors of a GBA problem (K8), one launch per call.
 
     ``mode="linearize"``: the whitened residual r (O, 2) with the
     reference's weights (and the Huber weight when ``huber_k > 0``), the
     whitened Jacobians J_pose (O, 2, 6) and J_lm (O, 2, 3), each
     keyframe's b (N, 6) = -sum J_pose^T r and block (N, 6, 6) = sum
     J_pose^T J_pose, each landmark's b (M, 3) and block (M, 3, 3).
-    ``mode="cost"``: (per-observation |r|^2 (O,), valid (O,)).
+    ``mode="cost"``: ``p.poses`` (S, N, 7) and ``p.lms`` (S, M, 3) hold S
+    states; returns each state's sum of |r|^2 over the observations (S,).
     ``mode="outlier"``: (||raw residual|| * obs_w (O,), valid (O,)), the
-    norm `th_gba_outlier_global` thresholds.  The norms take a correctly
-    rounded square root on both routes.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel, or raise."""
+    norm `th_gba_outlier_global` thresholds.  ``inputs``: ``p``'s
+    :class:`ReprojInputs`, built from ``p`` when None.  The norms take a
+    correctly rounded square root on both routes.  CPU tensors take the
+    plain version; CUDA tensors launch the kernel, or raise."""
     code = MODES[mode]
     ts = (p.poses, p.lms, p.obs_uv, p.obs_w, graph.kf_rowptr)
     if all(is_cpu(t) for t in ts):
-        return reproj_blocks_plain(p, graph, huber_k, mode)
+        return reproj_blocks_plain(p, graph, huber_k, mode, inputs)
     dev = check_cuda("gba reproj blocks", *ts)
     cam = p.cam
     if cam.cam_model != cam_mod.PINHOLE or cam.dist_model not in (
             cam_mod.DIST_NONE, cam_mod.RADTAN):
         raise NotImplementedError("gba reproj blocks: pinhole camera with no "
                                   "or radtan distortion only")
-    n, m, o = p.poses.shape[0], p.lms.shape[0], p.obs_kf.shape[0]
+    n, m, o = graph.kf_rowptr.shape[0] - 1, graph.lm_rowptr.shape[0] - 1, graph.kf_obs.shape[0]
+    s = p.poses.shape[0] if code == 1 else 1
+    lead = (s,) if code == 1 else ()
+    poses, lms, uv = p.poses.contiguous(), p.lms.contiguous(), p.obs_uv.contiguous()
+    check_f64("gba reproj blocks", ("poses", poses, lead + (n, 7)),
+              ("lms", lms, lead + (m, 3)), ("obs_uv", uv, (o, 2)))
+    _check_graph("gba reproj blocks", graph, n, m, o)
+    c = reproj_inputs(p) if inputs is None else inputs
     f64 = dict(dtype=torch.float64, device=dev)
-    poses, lms = p.poses.contiguous(), p.lms.contiguous()
-    uv = p.obs_uv.contiguous()
-    w = (p.obs_w * p.obs_mask).to(torch.float64).contiguous()
-    w_raw = p.obs_w.to(torch.float64).contiguous()
-    kf_m = p.kf_mask.to(torch.float64).contiguous()
-    lm_m = p.lm_mask.to(torch.float64).contiguous()
-    for name, t, shape in (("poses", poses, (n, 7)), ("lms", lms, (m, 3)),
-                           ("obs_uv", uv, (o, 2))):
-        if t.shape != shape or t.dtype != torch.float64:
-            raise ValueError(f"gba reproj blocks: {name} must be {shape} float64, "
-                             f"got {tuple(t.shape)} {t.dtype}")
-    if graph.kf_rowptr.shape != (n + 1,) or graph.lm_rowptr.shape != (m + 1,) \
-            or graph.kf_obs.shape != (o,):
-        raise ValueError("gba reproj blocks: graph does not match the problem")
-    camp = _cam_params(cam)
-    valid = torch.empty((o,), dtype=torch.uint8, device=dev)
+    out, val, valid = (None,) * 7, None, None
     if code == 0:
         out = (torch.empty((o, 2), **f64), torch.empty((o, 2, 6), **f64),
                torch.empty((o, 2, 3), **f64), torch.empty((n, 6), **f64),
                torch.empty((n, 6, 6), **f64), torch.empty((m, 3), **f64),
                torch.empty((m, 3, 3), **f64))
-        val = None
+        scratch = torch.empty((graph.n_chunks, 27), **f64)
+    elif code == 1:
+        val = torch.empty((s,), **f64)
+        scratch = torch.empty((s, cuda_build.SLOT_CAP), **f64)
     else:
-        out = (None,) * 7
         val = torch.empty((o,), **f64)
-    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+        valid = torch.empty((o,), dtype=torch.uint8, device=dev)
+        scratch = None
     lib = cuda_build.library("gba_reproj_blocks")
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.covins_gba_reproj_blocks(
-            code, poses.data_ptr(), lms.data_ptr(), camp.data_ptr(),
-            int(cam.dist_model), uv.data_ptr(),
-            (w_raw if code == 2 else w).data_ptr(), kf_m.data_ptr(), lm_m.data_ptr(),
-            graph.obs_kf32.data_ptr(), graph.obs_lm32.data_ptr(), o,
-            graph.kf_rowptr.data_ptr(), graph.kf_obs.data_ptr(), n,
-            graph.lm_rowptr.data_ptr(), graph.lm_obs.data_ptr(), m,
-            float(huber_k), *(ptr(t) for t in out), ptr(val), valid.data_ptr(),
-            stream)
+            code, s, poses.data_ptr(), lms.data_ptr(), c.cam.data_ptr(),
+            int(cam.dist_model), uv.data_ptr(), (c.w_raw if code == 2 else c.w).data_ptr(),
+            c.kf_m.data_ptr(), c.lm_m.data_ptr(), graph.obs_kf32.data_ptr(),
+            graph.obs_lm32.data_ptr(), o, n, m, graph.kf_obs.data_ptr(),
+            graph.chunk_ptr.data_ptr(), graph.kf_chunk_ptr.data_ptr(), graph.n_chunks,
+            graph.lm_rowptr.data_ptr(), graph.lm_obs.data_ptr(), float(huber_k),
+            *(_ptr(t) for t in out), _ptr(val), _ptr(valid), _ptr(scratch),
+            cuda_build.SLOT_CAP, torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, "gba reproj blocks")
     reproj_blocks.launches += 1
-    return out if code == 0 else (val, valid.bool())
+    if code == 0:
+        return out
+    return val if code == 1 else (val, valid.bool())
 
 
 reproj_blocks.launches = 0
@@ -402,15 +431,17 @@ _PRE_FIELDS = tuple(f.name for f in dataclasses.fields(imu_mod.Preintegrated))
 
 
 def _imu_r(p: GBAProblem):
-    """Whitened IMU residuals (F, 15) alone: [S9 r9, S6 (b_j - b_i)].  The
-    cost evaluations (eight per step) take this and :func:`_loop_r`, not
-    the `_r_J` functions, whose forward mode issues many times the
-    operations on a step the host bounds."""
+    """Whitened IMU residuals (..., F, 15) alone: [S9 r9, S6 (b_j - b_i)],
+    with the leading state dimensions of ``p``'s states.  The cost
+    evaluations take this and :func:`_loop_r`, not the `_r_J` functions,
+    whose forward mode issues many times the operations on a step the host
+    bounds."""
     i, j = p.imu_i, p.imu_j
-    r9 = imu_mod.imu_residual(p.imu_pre, p.poses[i], p.vels[i], p.biases[i, :3],
-                              p.biases[i, 3:], p.poses[j], p.vels[j],
-                              gravity=p.gravity)
-    rb = p.biases[j] - p.biases[i]
+    bi = p.biases[..., i, :]
+    r9 = imu_mod.imu_residual(p.imu_pre, p.poses[..., i, :], p.vels[..., i, :],
+                              bi[..., :3], bi[..., 3:], p.poses[..., j, :],
+                              p.vels[..., j, :], gravity=p.gravity)
+    rb = p.biases[..., j, :] - bi
     r = torch.cat([(p.imu_sqrt_info @ r9[..., None])[..., 0],
                    (p.bias_sqrt_info @ rb[..., None])[..., 0]], -1)
     mm = p.imu_mask.to(r.dtype) * p.kf_mask[i] * p.kf_mask[j]
@@ -447,7 +478,10 @@ def _imu_r_J(p: GBAProblem):
 
 
 def _loop_r(p: GBAProblem):
-    r = res.six_dof_between_residual(p.poses[p.loop_i], p.poses[p.loop_j], p.loop_T)
+    """Whitened loop-edge residuals (..., L, 6), with the leading state
+    dimensions of ``p``'s states."""
+    r = res.six_dof_between_residual(p.poses[..., p.loop_i, :], p.poses[..., p.loop_j, :],
+                                     p.loop_T)
     mm = p.loop_mask.to(r.dtype) * p.kf_mask[p.loop_i] * p.kf_mask[p.loop_j]
     return (p.loop_sqrt_info @ r[..., None])[..., 0] * mm[:, None]
 
@@ -485,21 +519,27 @@ def _pad15(x6):
 
 
 def _with_state(p: GBAProblem, st) -> GBAProblem:
+    """``p`` at the state ``st`` = (poses, vels, biases, lms)."""
     return dataclasses.replace(p, poses=st[0], vels=st[1], biases=st[2], lms=st[3])
 
 
 def total_cost(p: GBAProblem, graph: ObsGraph, st, visual_only: bool,
-               huber_k: float = 0.0):
-    """Sum of the squared whitened residuals at state ``st`` (a device
-    scalar)."""
-    pt = _with_state(p, st)
-    val, _ = reproj_blocks(pt, graph, huber_k, "cost")
+               huber_k: float = 0.0, inputs: Optional[ReprojInputs] = None):
+    """Sum of the squared whitened residuals at state ``st`` = (poses,
+    vels, biases, lms): a device scalar; or, with each of the four stacked
+    over S states (a leading dimension, in place of the reference's
+    ``jax.vmap``), the (S,) costs, whose reprojection sums are one K8
+    launch.  A single state is evaluated as a stack of one.  ``inputs``
+    as in :func:`reproj_blocks`."""
+    single = st[0].dim() == 2
+    pt = _with_state(p, tuple(x[None] for x in st) if single else st)
+    c = reproj_blocks(pt, graph, huber_k, "cost", inputs)
     r_l = _loop_r(pt)
-    c = torch.sum(val) + torch.sum(r_l * r_l)
+    c = c + torch.sum(r_l * r_l, dim=(-2, -1))
     if not visual_only:
         r_f = _imu_r(pt)
-        c = c + torch.sum(r_f * r_f)
-    return c
+        c = c + torch.sum(r_f * r_f, dim=(-2, -1))
+    return c[0] if single else c
 
 
 # ------------------------------------------------- one damped GN step
@@ -564,10 +604,11 @@ class ReducedSystem:
 
 
 def reduced_system(p: GBAProblem, graph: ObsGraph, state, lam, visual_only: bool,
-                   huber_k: float = 0.0) -> ReducedSystem:
+                   huber_k: float = 0.0,
+                   inputs: Optional[ReprojInputs] = None) -> ReducedSystem:
     """Linearise at ``state`` and eliminate the landmarks (`gba.py:214-343`
     of the reference); ``lam`` is the Marquardt parameter, a device
-    scalar."""
+    scalar; ``inputs`` as in :func:`reproj_blocks`."""
     poses = state[0]
     pp = _with_state(p, state)
     n = poses.shape[0]
@@ -579,7 +620,8 @@ def reduced_system(p: GBAProblem, graph: ObsGraph, state, lam, visual_only: bool
     free = torch.cat([free_pose.expand(n, 6), free_vb.expand(n, 9)], dim=-1)
     lm_free = p.lm_mask.to(dtype)[:, None]
 
-    r_o, Jp_o, Jl_o, b6, M6, b_l, Hll = reproj_blocks(pp, graph, huber_k, "linearize")
+    r_o, Jp_o, Jl_o, b6, M6, b_l, Hll = reproj_blocks(pp, graph, huber_k, "linearize",
+                                                         inputs)
     r_l, Ji_l, Jj_l = _loop_r_J(pp)
     Ji_f = Jj_f = None
     if not visual_only:
@@ -759,13 +801,16 @@ pcg.launches = 0
 
 def _gn_schur_step(p: GBAProblem, graph: ObsGraph, state, lam, n_cg: int,
                    visual_only: bool, huber_k: float = 0.0,
-                   cg_variant: str = "fused"):
+                   cg_variant: str = "fused", inputs: Optional[ReprojInputs] = None):
     """One Levenberg-Marquardt step with Schur landmark elimination
     (`gba.py:214-450` of the reference).  ``lam`` is the adaptive
-    Marquardt parameter, a device scalar; returns (state, lam, cost)."""
+    Marquardt parameter, a device scalar; ``inputs`` as in
+    :func:`reproj_blocks`; returns (state, lam, cost)."""
     poses, vels, biases, lms = state
     n = poses.shape[0]
-    s = reduced_system(p, graph, state, lam, visual_only, huber_k)
+    if inputs is None:
+        inputs = reproj_inputs(p)
+    s = reduced_system(p, graph, state, lam, visual_only, huber_k, inputs)
     if cg_variant == "classic":
         dx_p = _pcg_classic(s, graph, n_cg)
     elif cg_variant == "fused":
@@ -784,15 +829,17 @@ def _gn_schur_step(p: GBAProblem, graph: ObsGraph, state, lam, n_cg: int,
         return (geo.pose_boxplus(poses, dxp[:, :6]), vels + dxp[:, 6:9],
                 biases + dxp[:, 9:15], lms + dxl)
 
-    cands = [state_at(a) for a in LADDER]
-    costs = torch.stack([total_cost(p, graph, st, visual_only, huber_k) for st in cands])
-    best = torch.argmin(costs)
+    # the six scales and the current state, stacked, in one cost evaluation
+    cands = tuple(torch.stack([*cs, old]) for cs, old in
+                  zip(zip(*(state_at(a) for a in LADDER)), state))
+    costs = total_cost(p, graph, cands, visual_only, huber_k, inputs)
+    best = torch.argmin(costs[:-1])
     c_best = costs[best]
-    c_old = total_cost(p, graph, state, visual_only, huber_k)
+    c_old = costs[-1]
     accept = c_best < c_old
     pick = best.reshape(1)
-    out = tuple(torch.where(accept, torch.index_select(torch.stack(cs), 0, pick)[0], old)
-                for cs, old in zip(zip(*cands), state))
+    out = tuple(torch.where(accept, torch.index_select(cs, 0, pick)[0], old)
+                for cs, old in zip(cands, state))
     # LM damping: shrink after a clean full step, grow when the step had
     # to be shortened or was rejected
     lam_new = torch.where(accept, torch.where(best == 0, lam / 3.0, lam * 2.0),
@@ -803,12 +850,15 @@ def _gn_schur_step(p: GBAProblem, graph: ObsGraph, state, lam, n_cg: int,
 
 def _gba_rounds(p: GBAProblem, graph: ObsGraph, n_gn: int, n_cg: int, lam0: float,
                 visual_only: bool, huber_k: float = 0.0):
+    """``n_gn`` steps from ``p``'s state, with its :class:`ReprojInputs`
+    built once for them all."""
     state = (p.poses, p.vels, p.biases, p.lms)
     lam = torch.tensor(lam0, dtype=p.poses.dtype, device=p.poses.device)
+    inputs = reproj_inputs(p)
     costs = []
     for _ in range(n_gn):
         state, lam, cost = _gn_schur_step(p, graph, state, lam, n_cg, visual_only,
-                                          huber_k)
+                                          huber_k, inputs=inputs)
         costs.append(cost)
     return state, torch.stack(costs)
 

@@ -1,13 +1,22 @@
 """Batched project-and-match (the reference's `SearchByProjection` /
 `SearchBySE3` matching, `feature_matcher_be.cpp:168-501`).
 
-Counterpart of `covins_tpu/ops/projmatch.py`.  The per-landmark prologue
-(projection, depth / image / view-angle / distance-invariance gates, the
-predicted pyramid level) is O(L) batched float64 torch, as in the
-reference.  The O(L*F) part — pixel-radius and octave gates, Hamming
-distances, the gated row argmin and the scatter-min feature-conflict pass
-— is :func:`gated_match`: a CUDA kernel on the card (K5,
-`csrc/project_match.cu`), its plain version on the CPU.
+Counterpart of `covins_tpu/ops/projmatch.py`.  :func:`project_match_core`
+is the whole of `_project_match_impl` for ORB descriptors: the per-
+landmark prologue (projection, depth / image / view-angle / distance-
+invariance gates, the predicted pyramid level), the per-feature radius,
+the gated Hamming row argmin and the scatter-min feature-conflict pass.
+On the card it is one kernel launch (K5, `csrc/project_match.cu`); CPU
+tensors take its plain version, :func:`project_match_plain`.  For a
+camera model the kernel's prologue does not cover (anything but a pinhole
+camera with no or radtan distortion) the prologue runs as PyTorch on the
+card and the kernel takes its results.
+
+The plain prologue writes every float64 product and sum of the geometry
+as its own tensor operation, in the kernel's order: a library kernel
+(``torch.linalg.cross``, ``vector_norm``, ``sum``) may contract a product
+into a fused multiply-add or sum in another order on the card, and the
+kernel is held to the plain version bit for bit.
 
 Reference quirks kept: the predicted level uses log 1.2 while the radius
 scales with 2^octave; two landmarks whose float32 conflict scores round
@@ -25,10 +34,24 @@ from covins_tpu_torch.device import check_cuda, is_cpu
 from covins_tpu_torch.ops import descriptors as d_ops
 from covins_tpu_torch.ops import linalg
 from covins_tpu_torch.utils import cameras as cam_mod
-from covins_tpu_torch.utils import geometry as geo
 
 BIG = 1e9  # gated distances (float32), as the reference
+LOG_LEVEL = math.log(1.2)  # the predicted level's log base, as the reference
 _ROW_CHUNK = 2048  # rows of the plain (L, F) matrices held at once
+
+
+def _rotate(q, x, y, z):
+    """`geometry.quat_rotate` of the points (x, y, z) by one quaternion q
+    (4,), each product and sum its own operation (torch.linalg.cross's
+    formula)."""
+    w, a, b, c = q[0], q[1], q[2], q[3]
+    ux, uy, uz = b * z - c * y, c * x - a * z, a * y - b * x
+    vx, vy, vz = b * uz - c * uy, c * ux - a * uz, a * uy - b * ux
+    return x + 2.0 * (w * ux + vx), y + 2.0 * (w * uy + vy), z + 2.0 * (w * uz + vz)
+
+
+def _norm3(x, y, z):
+    return linalg.sqrt_rn((x * x + y * y) + z * z)
 
 
 def _prologue(cam, T_cw, p_w, lm_normal, lm_mask, lm_dist_rng, img_w, img_h,
@@ -36,37 +59,45 @@ def _prologue(cam, T_cw, p_w, lm_normal, lm_mask, lm_dist_rng, img_w, img_h,
     """Per-landmark part of `_project_match_impl` (`projmatch.py:66-103`):
     returns (uv (L, 2), lm_ok (L,), pred (L,) predicted octave,
     has_rng (L,))."""
-    p_c = geo.pose_apply(T_cw[None], p_w)
+    X, Y, Z = p_w.unbind(-1)
+    x, y, z = _rotate(T_cw[:4], X, Y, Z)
+    p_c = torch.stack([x + T_cw[4], y + T_cw[5], z + T_cw[6]], dim=-1)
     uv, proj_ok = cam_mod.project3(cam, p_c)
     depth_ok = p_c[:, 2] > 0.0
     in_img = ((uv[:, 0] >= 0.0) & (uv[:, 0] < img_w)
               & (uv[:, 1] >= 0.0) & (uv[:, 1] < img_h))
     lm_ok = lm_mask & depth_ok & proj_ok & in_img
 
-    O_w = geo.pose_t(geo.pose_inverse(T_cw))
-    PO = p_w - O_w[None, :]
-    dist3 = torch.linalg.vector_norm(PO, dim=-1)
+    # the camera centre, -rotate(conj(q), t) (geometry.pose_inverse)
+    q_inv = torch.cat([T_cw[:1], -T_cw[1:4]])
+    ox, oy, oz = (-v for v in _rotate(q_inv, T_cw[4], T_cw[5], T_cw[6]))
+    px, py, pz = X - ox, Y - oy, Z - oz
+    dist3 = _norm3(px, py, pz)
     if check_view_angle:
-        cosv = torch.sum(PO * lm_normal, dim=-1)
-        has_normal = torch.linalg.vector_norm(lm_normal, dim=-1) > 1e-6
+        nx, ny, nz = lm_normal.unbind(-1)
+        cosv = (px * nx + py * ny) + pz * nz
+        has_normal = _norm3(nx, ny, nz) > 1e-6
         lm_ok = lm_ok & (~has_normal | (cosv >= 0.5 * dist3))
     has_rng = lm_dist_rng[:, 1] > 0.0
     in_rng = ((dist3 >= 0.8 * lm_dist_rng[:, 0])
               & (dist3 <= 1.2 * lm_dist_rng[:, 1]))
     lm_ok = lm_ok & (~has_rng | in_rng)
+    # a divisor held in a device tensor: PyTorch's CUDA division by a
+    # Python number multiplies by its reciprocal, which rounds otherwise
+    log_level = torch.full((), LOG_LEVEL, dtype=dist3.dtype, device=dist3.device)
     pred = torch.ceil(torch.log(torch.clamp(lm_dist_rng[:, 1], min=1e-9)
-                                / torch.clamp(dist3, min=1e-9)) / math.log(1.2))
+                                / torch.clamp(dist3, min=1e-9)) / log_level)
     pred = torch.clamp(pred, 0.0, 16.0)
     return uv, lm_ok, pred, has_rng
 
 
 def gated_match_plain(uv, lm_ok, pred, has_rng, lm_desc, kp_uv, kp_oct,
                       radius, kp_free, kp_desc, max_dist: float):
-    """Plain version of :func:`gated_match` (any device).  Entries of a
-    landmark that failed its own gates, or of a feature that is not free,
-    are 1e9 whatever else holds, so the (L, F) matrices are built only
-    over the passing rows and free columns, in row chunks; a row whose
-    entries are all 1e9 takes feature 0, as `argmin` does."""
+    """The O(L*F) part of project-and-match after the prologue.  Entries
+    of a landmark that failed its own gates, or of a feature that is not
+    free, are 1e9 whatever else holds, so the (L, F) matrices are built
+    only over the passing rows and free columns, in row chunks; a row
+    whose entries are all 1e9 takes feature 0, as `argmin` does."""
     L, F = uv.shape[0], kp_uv.shape[0]
     dev = uv.device
     big = torch.tensor(BIG, dtype=torch.float32, device=dev)
@@ -100,59 +131,25 @@ def gated_match_plain(uv, lm_ok, pred, has_rng, lm_desc, kp_uv, kp_oct,
             torch.where(winner, best_d, big))
 
 
-def gated_match(uv, lm_ok, pred, has_rng, lm_desc, kp_uv, kp_oct, radius,
-                kp_free, kp_desc, max_dist: float):
-    """The O(L*F) part of project-and-match.
-
-    Landmark side: uv (L, 2) float64 projections, lm_ok (L,) bool, pred
-    (L,) float64 predicted octave, has_rng (L,) bool, lm_desc (L, 32)
-    uint8.  Feature side: kp_uv (F, 2) float64, kp_oct (F,) float64, radius
-    (F,) float64 pixel radius per feature, kp_free (F,) bool, kp_desc
-    (F, 32) uint8.  Returns ``(match_feat (L,) int32, -1 = none; dist (L,)
-    float32, 1e9 = none)``.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel (K5) or raise."""
-    ts = (uv, lm_ok, pred, has_rng, lm_desc, kp_uv, kp_oct, radius, kp_free,
-          kp_desc)
-    if all(is_cpu(t) for t in ts):
-        return gated_match_plain(*ts, max_dist)
-    dev = check_cuda("gated_match", *ts)
-    L, F = uv.shape[0], kp_uv.shape[0]
-    for name, t, shape, dtype in (
-            ("uv", uv, (L, 2), torch.float64), ("lm_ok", lm_ok, (L,), torch.bool),
-            ("pred", pred, (L,), torch.float64),
-            ("has_rng", has_rng, (L,), torch.bool),
-            ("kp_uv", kp_uv, (F, 2), torch.float64),
-            ("kp_oct", kp_oct, (F,), torch.float64),
-            ("radius", radius, (F,), torch.float64),
-            ("kp_free", kp_free, (F,), torch.bool)):
-        if t.shape != shape or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"gated_match: {name} must be a contiguous {shape} "
-                             f"{dtype} tensor, got {tuple(t.shape)} {t.dtype}")
-    d_ops._check_desc("gated_match lm_desc", lm_desc, 2)
-    d_ops._check_desc("gated_match kp_desc", kp_desc, 2)
-    if lm_desc.shape[0] != L or kp_desc.shape[0] != F or F == 0:
-        raise ValueError("gated_match: descriptor rows do not match")
-    best_f = torch.empty(L, dtype=torch.int32, device=dev)
-    best_d = torch.empty(L, dtype=torch.float32, device=dev)
-    col_min = torch.full((F,), BIG, dtype=torch.float32, device=dev)
-    match_feat = torch.empty(L, dtype=torch.int32, device=dev)
-    match_dist = torch.empty(L, dtype=torch.float32, device=dev)
-    lib = cuda_build.library("project_match")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.covins_project_match(
-            uv.data_ptr(), lm_ok.data_ptr(), pred.data_ptr(), has_rng.data_ptr(),
-            lm_desc.data_ptr(), L, kp_uv.data_ptr(), kp_oct.data_ptr(),
-            radius.data_ptr(), kp_free.data_ptr(), kp_desc.data_ptr(), F,
-            float(max_dist), best_f.data_ptr(), best_d.data_ptr(),
-            col_min.data_ptr(), match_feat.data_ptr(), match_dist.data_ptr(),
-            stream)
-    cuda_build.check(rc, "gated_match")
-    gated_match.launches += 1
-    return match_feat, match_dist
+def project_match_plain(cam, T_cw, p_w, lm_desc, lm_normal, lm_mask,
+                        lm_dist_rng, kp_uv, kp_desc, kp_octave, kp_free,
+                        radius_px: float, max_dist: float, img_w: float,
+                        img_h: float, check_view_angle: bool = True,
+                        scale_factor: float = 2.0):
+    """Plain version of :func:`project_match_core` (any device)."""
+    uv, lm_ok, pred, has_rng = _prologue(cam, T_cw, p_w, lm_normal, lm_mask,
+                                         lm_dist_rng, img_w, img_h,
+                                         check_view_angle)
+    radius = radius_px * torch.pow(scale_factor, kp_octave)
+    return gated_match_plain(uv, lm_ok, pred, has_rng, lm_desc, kp_uv,
+                             kp_octave, radius, kp_free, kp_desc, max_dist)
 
 
-gated_match.launches = 0
+def _checked(name, t, shape, dtype):
+    if t.shape != shape or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"project_match_core: {name} must be a contiguous {shape} "
+                         f"{dtype} tensor, got {tuple(t.shape)} {t.dtype}")
+    return t.data_ptr()
 
 
 def project_match_core(cam, T_cw, p_w, lm_desc, lm_normal, lm_mask,
@@ -160,16 +157,67 @@ def project_match_core(cam, T_cw, p_w, lm_desc, lm_normal, lm_mask,
                        radius_px: float, max_dist: float, img_w: float,
                        img_h: float, check_view_angle: bool = True,
                        scale_factor: float = 2.0):
-    """`_project_match_impl` for uint8 (ORB) descriptors: the float64
-    prologue, then :func:`gated_match`."""
-    uv, lm_ok, pred, has_rng = _prologue(cam, T_cw, p_w, lm_normal, lm_mask,
-                                         lm_dist_rng, img_w, img_h,
-                                         check_view_angle)
-    radius = radius_px * torch.pow(scale_factor, kp_octave)
-    return gated_match(uv.contiguous(), lm_ok, pred, has_rng,
-                       lm_desc.contiguous(), kp_uv.contiguous(),
-                       kp_octave.contiguous(), radius.contiguous(),
-                       kp_free.contiguous(), kp_desc.contiguous(), max_dist)
+    """`_project_match_impl` for uint8 (ORB) descriptors (K5).
+
+    Landmark side: T_cw (7,) world -> camera, p_w (L, 3), lm_normal (L, 3),
+    lm_dist_rng (L, 2) float64, lm_mask (L,) bool, lm_desc (L, 32) uint8.
+    Feature side: kp_uv (F, 2), kp_octave (F,) float64, kp_free (F,) bool,
+    kp_desc (F, 32) uint8.  Returns ``(match_feat (L,) int32, -1 = none;
+    dist (L,) float32, 1e9 = none)``.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel, one launch per call, or raise."""
+    ts = (T_cw, p_w, lm_desc, lm_normal, lm_mask, lm_dist_rng, kp_uv, kp_desc,
+          kp_octave, kp_free, cam.intrinsics, cam.dist)
+    if all(is_cpu(t) for t in ts):
+        return project_match_plain(cam, T_cw, p_w, lm_desc, lm_normal, lm_mask,
+                                   lm_dist_rng, kp_uv, kp_desc, kp_octave, kp_free,
+                                   radius_px, max_dist, img_w, img_h,
+                                   check_view_angle, scale_factor)
+    dev = check_cuda("project_match_core", *ts)
+    L, F = p_w.shape[0], kp_uv.shape[0]
+    f64, b8 = torch.float64, torch.bool
+    d_ops._check_desc("project_match_core lm_desc", lm_desc, 2)
+    d_ops._check_desc("project_match_core kp_desc", kp_desc, 2)
+    if lm_desc.shape[0] != L or kp_desc.shape[0] != F or F == 0:
+        raise ValueError("project_match_core: descriptor rows do not match")
+    ptrs = [_checked(*a) for a in (
+        ("kp_uv", kp_uv, (F, 2), f64), ("kp_octave", kp_octave, (F,), f64),
+        ("kp_free", kp_free, (F,), b8))]
+    fused = cam.cam_model == cam_mod.PINHOLE and cam.dist_model in (
+        cam_mod.DIST_NONE, cam_mod.RADTAN)
+    if fused:
+        given = [0] * 4
+        inputs = [_checked(*a) for a in (
+            ("intrinsics", cam.intrinsics, (5,), f64), ("dist", cam.dist, (4,), f64),
+            ("T_cw", T_cw, (7,), f64), ("p_w", p_w, (L, 3), f64),
+            ("lm_normal", lm_normal, (L, 3), f64), ("lm_mask", lm_mask, (L,), b8),
+            ("lm_dist_rng", lm_dist_rng, (L, 2), f64))]
+    else:
+        pro = _prologue(cam, T_cw, p_w, lm_normal, lm_mask, lm_dist_rng, img_w, img_h,
+                        check_view_angle)
+        given = [_checked(*a) for a in zip(("uv", "lm_ok", "pred", "has_rng"), pro,
+                                           ((L, 2), (L,), (L,), (L,)), (f64, b8, f64, b8))]
+        inputs = [0] * 7
+    match_feat = torch.empty(L, dtype=torch.int32, device=dev)
+    match_dist = torch.empty(L, dtype=torch.float32, device=dev)
+    if L == 0:
+        return match_feat, match_dist
+    # scratch: radius (F,) f64, col_min (F,) int32, best_f, best_d (L,)
+    scratch = torch.empty(12 * F + 8 * L, dtype=torch.uint8, device=dev)
+    lib = cuda_build.library("project_match")
+    with torch.cuda.device(dev):
+        rc = lib.covins_project_match(
+            int(fused), *inputs[:2], int(cam.dist_model) if fused else 0, *inputs[2:],
+            int(bool(check_view_angle)), float(img_w), float(img_h), LOG_LEVEL, *given,
+            lm_desc.data_ptr(), L, ptrs[0], ptrs[1], ptrs[2], kp_desc.data_ptr(), F,
+            float(radius_px), float(scale_factor), float(max_dist), scratch.data_ptr(),
+            match_feat.data_ptr(), match_dist.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(rc, "project_match_core")
+    project_match_core.launches += 1
+    return match_feat, match_dist
+
+
+project_match_core.launches = 0
 
 
 def project_match(cam, T_cw, p_w, lm_desc, lm_normal, lm_mask, kp_uv,

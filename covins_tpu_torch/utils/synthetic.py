@@ -259,3 +259,71 @@ def build_pose_graph(n_kf=256, n_neighbors=5, n_loops=5, seed=0, drift=0.01,
         edge_is_loop=torch.arange(e) >= len(pairs))
     return pgo.PoseGraph(**{f.name: getattr(g, f.name).to(dev)
                             for f in dataclasses.fields(g)}), gt.numpy()
+
+
+def stacked_states(p, S, seed=0):
+    """S states of the GBA problem ``p``, the first unchanged and the
+    others moved a little, each of (poses, vels, biases, lms) stacked on a
+    leading dimension: the shape of the step ladder's cost evaluation."""
+    from covins_tpu_torch.utils import geometry as geo
+
+    rng = np.random.default_rng(seed)
+    f64 = dict(dtype=torch.float64, device=p.poses.device)
+    n, m = p.poses.shape[0], p.lms.shape[0]
+    xi = torch.tensor(1e-3 * rng.normal(size=(S, n, 6)), **f64)
+    dl = torch.tensor(1e-2 * rng.normal(size=(S, m, 3)), **f64)
+    xi[0], dl[0] = 0.0, 0.0
+    return (geo.pose_boxplus(p.poses.expand(S, n, 7), xi), p.vels.expand(S, n, 3).clone(),
+            p.biases.expand(S, n, 6).clone(), p.lms + dl)
+
+
+def project_match_scene(rng: np.random.Generator, L, F, device, camera="radtan",
+                        view_angle=False, fail=False):
+    """(args, kwargs) of `ops.projmatch.project_match_core` for a random
+    scene of L landmarks and F features seen by a EuRoC-like camera (752 x
+    480): landmarks in front of and behind it, features near some
+    projections with their descriptors (a few bits flipped), duplicated
+    features (ties in f) and landmarks (conflicts), normals and distance
+    ranges, some zero (their gates skipped).  ``camera``: "pinhole" (no
+    distortion) and "radtan", whose prologue K5 computes, or "omni" (the
+    unified model) and "equidistant", whose prologue the wrapper computes
+    in PyTorch and hands to the kernel; ``fail`` masks every landmark."""
+    from covins_tpu_torch.utils import cameras as cam
+    from covins_tpu_torch.utils import geometry as geo
+
+    model, dist_model, dist = {
+        "pinhole": (cam.PINHOLE, cam.DIST_NONE, (0.0,) * 4),
+        "radtan": (cam.PINHOLE, cam.RADTAN, (-0.28, 0.07, 2e-4, 2e-5)),
+        "omni": (cam.OMNI, cam.RADTAN, (-0.1, 0.01, 1e-4, 1e-5)),
+        "equidistant": (cam.PINHOLE, cam.EQUIDISTANT, (0.01, -0.002, 0.0, 0.0)),
+    }[camera]
+    f64 = dict(dtype=torch.float64)
+    c = cam.Camera(torch.tensor([458.0, 457.0, 376.0, 240.0, 0.6], **f64),
+                   torch.tensor(dist, **f64), torch.tensor([1.0, 0, 0, 0, 0, 0, 0], **f64),
+                   model, dist_model)
+    q = np.array([0.995, 0.05, -0.06, 0.03])
+    T_cw = np.concatenate([q / np.linalg.norm(q), [0.2, -0.1, 0.3]])
+    p_w = np.stack([rng.uniform(-3, 3, L), rng.uniform(-2, 2, L), rng.uniform(-1, 9, L)], 1)
+    p_c = geo.pose_apply(torch.tensor(T_cw)[None], torch.tensor(p_w))
+    uv_l = cam.project3(c, torch.where(p_c[:, 2:] > 0.1, p_c, 1.0))[0].numpy()
+    src = rng.choice(L, F)
+    kp_uv = uv_l[src] + rng.normal(scale=3.0, size=(F, 2))
+    lm_desc = rng.integers(0, 256, (L, 32), dtype=np.uint8)
+    kp_desc = lm_desc[src].copy()
+    kp_desc[np.arange(F), rng.integers(0, 32, F)] ^= rng.integers(0, 256, F).astype(np.uint8)
+    kp_desc[1::7] = kp_desc[0::7][: len(kp_desc[1::7])]
+    kp_uv[1::7] = kp_uv[0::7][: len(kp_uv[1::7])]
+    lm_desc[1::11] = lm_desc[0::11][: len(lm_desc[1::11])]
+    normals = rng.normal(size=(L, 3))
+    normals[::5] = 0.0
+    d = np.linalg.norm(p_w - geo.pose_inverse(torch.tensor(T_cw))[4:].numpy(), axis=1)
+    lm_rng = np.stack([d / 1.2 ** rng.integers(0, 8, L), d * rng.uniform(0.5, 2, L)], 1)
+    lm_rng[::3] = 0.0
+    lm_mask = rng.random(L) > (1.0 if fail else 0.1)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)  # noqa: E731
+    c = cam.Camera(c.intrinsics.to(device), c.dist.to(device), c.T_s_c.to(device), model,
+                   dist_model)
+    args = [c, t(T_cw), t(p_w), t(lm_desc), t(normals), t(lm_mask), t(lm_rng), t(kp_uv),
+            t(kp_desc), t(rng.integers(0, 4, F).astype(np.float64)), t(rng.random(F) > 0.1),
+            6.0, 50.0, 752.0, 480.0]
+    return args, {"check_view_angle": view_angle}

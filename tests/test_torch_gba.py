@@ -44,6 +44,7 @@ from covins_tpu_torch.ops import gba, residuals
 from covins_tpu_torch.state import gba_problem_from_reference, messages_from_reference
 from covins_tpu_torch.utils import geometry as geo
 from covins_tpu_torch.utils.config import Config
+from covins_tpu_torch.utils.synthetic import stacked_states
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from test_gba import _build_problem  # noqa: E402
@@ -174,6 +175,54 @@ def test_gn_schur_step_matches_reference(problems, variant):
     assert float(lam) == float(rlam)
     assert float(c) < float(gba.total_cost(p, gba.obs_graph(p),
                                            (p.poses, p.vels, p.biases, p.lms), False))
+
+
+@pytest.mark.parametrize("visual_only,huber", [(False, 0.0), (False, 2.447), (True, 0.0)])
+def test_batched_total_cost_equals_single_evaluations(problems, visual_only, huber):
+    """The step ladder's seven costs in one evaluation (the states stacked
+    on a leading dimension, in place of the reference's jax.vmap: one K8
+    cost launch on the card, the loop and IMU residuals batched) against
+    seven single evaluations."""
+    _, p = problems
+    g = gba.obs_graph(p)
+    stacked = stacked_states(p, 7)
+    states = [tuple(x[k] for x in stacked) for k in range(7)]
+    got = gba.total_cost(p, g, stacked, visual_only, huber)
+    want = torch.stack([gba.total_cost(p, g, st, visual_only, huber) for st in states])
+    assert got.shape == (7,)
+    assert _rel(got.numpy(), want.numpy()) <= 1e-14
+    assert len(set(want.tolist())) == 7
+
+
+def test_reprojection_sees_a_new_obs_mask_on_the_same_graph(problems):
+    """K8's per-problem inputs (the weights and masks as float64, the
+    camera) are built from the problem they are asked for, once per round
+    of a solve; after the pruning's new obs_mask the next linearisation and
+    cost on the same graph use the new mask, whether given the inputs built
+    for it or none, and a round runs the same with its inputs built once as
+    with them built at every call."""
+    _, p = problems
+    g = gba.obs_graph(p)
+    st = (p.poses, p.vels, p.biases, p.lms)
+    lin0 = gba.reproj_blocks(p, g, 0.0, "linearize")
+    c0 = gba.total_cost(p, g, st, True)
+    mask = p.obs_mask.clone()
+    mask[::3] = False
+    q = dataclasses.replace(p, obs_mask=mask)
+    inputs = gba.reproj_inputs(q)
+    assert torch.equal(inputs.w, (q.obs_w * mask).double())
+    lin1 = gba.reproj_blocks(q, g, 0.0, "linearize")
+    c1 = gba.total_cost(q, g, st, True)
+    assert not bool(lin1[0][~mask].any()) and bool(lin0[0][~mask].any())
+    for a, b in zip(lin1, gba.reproj_blocks(q, g, 0.0, "linearize", inputs)):
+        assert torch.equal(a, b)
+    assert torch.equal(c1, gba.total_cost(q, g, st, True, inputs=inputs))
+    assert float(c1) < float(c0)
+    lam = torch.tensor(1e-4, dtype=torch.float64)
+    once = gba._gn_schur_step(q, g, st, lam, 5, True, 2.447, inputs=inputs)
+    each = gba._gn_schur_step(q, g, st, lam, 5, True, 2.447)
+    for a, b in zip(once[0] + once[1:], each[0] + each[1:]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("scenario", ["outliers", "no_outliers", "visual_only"])

@@ -14,9 +14,12 @@ not fill a block or a shared-memory tile, a single row, P = 1 and P = 32,
 and a vocabulary large enough for the dynamic shared-memory path of K3.
 Tolerances: K1 and K2 exactly (integer results); K3's word counts exactly
 and its vectors bit for bit (integer counts, IEEE sqrt and division); K4
-exactly; K5's matches and distances exactly (its float64 gates are built
-without FMA contraction, as the plain version's separate operations
-round); K6's counts, best pose and inlier mask exactly, except for a
+exactly; K5, the whole of project-and-match in one launch, its matches
+and distances exactly (its float64 prologue and gates are built without
+FMA contraction and in the plain version's operation order, whose
+separate operations round alike), with the camera models whose prologue
+PyTorch computes, every landmark failing, and more features than shared
+memory holds; K6's counts, best pose and inlier mask exactly, except for a
 correspondence within 1e-12 rad of the threshold; K7 to 1e-12 relative
 and bit for bit between two launches; K8 and K10 to 1e-13 relative, K9
 to 1e-13 of the sums of magnitudes behind each output (a landmark seen
@@ -25,7 +28,8 @@ float64, built without FMA contraction, summing each landmark's
 observations in the plain version's order (K9's keyframe sums in fixed
 chunks of consecutive observations, then the chunks in order) and rounded
 apart only where PyTorch's library products sum another way; bit for bit
-between two launches; K8's validity and outlier decisions exactly.  The
+between two launches; K8's validity and outlier decisions exactly, and
+its cost of 1 and of 7 stacked states per state to 1e-13 relative.  The
 two PCG kernels (a Gauss-Newton step's whole loop per launch) within 10x
 the largest of their plain loop's own changes under three rounding
 differences (one ulp added to b, one ulp taken off, its dot products
@@ -40,6 +44,7 @@ import pytest
 import torch
 
 from covins_tpu_torch.ops import bow, descriptors, landmark_ops, pgo, pnp, projmatch
+from covins_tpu_torch.utils.synthetic import project_match_scene, stacked_states
 
 
 @pytest.fixture
@@ -169,32 +174,46 @@ def test_hamming_mutual_nn_matches_plain(dev, m, n):
     assert torch.equal(got.cpu(), cpu)
 
 
-def _gated_inputs(rng, L, F, dev):
-    uv = rng.uniform(0, 100, (L, 2))
-    kp_uv = rng.uniform(0, 100, (F, 2))
-    kp_uv[: min(L, F)] = uv[: min(L, F)] + rng.normal(scale=2.0, size=(min(L, F), 2))
-    kp_uv[F // 2:] = kp_uv[: F - F // 2]  # duplicated features: ties in f
-    lm_desc, kp_desc = _desc(rng, L), _desc(rng, F)
-    kp_desc[: min(L, F)] = lm_desc[: min(L, F)]
-    lm_desc[L // 3:] = lm_desc[: L - L // 3]  # duplicated landmarks: conflicts
-    kp_oct = rng.integers(0, 4, F).astype(np.float64)
-    arrays = (uv, rng.random(L) > 0.1, rng.integers(0, 5, L).astype(np.float64),
-              rng.random(L) > 0.5, lm_desc, kp_uv, kp_oct, 4.0 * 2.0 ** kp_oct,
-              rng.random(F) > 0.1, kp_desc)
-    return [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in arrays]
+# the scenes of chip_smoke's K5 checks: the camera whose prologue the kernel
+# computes (pinhole without and with radtan distortion), with the view-angle
+# gate, every landmark failing, and the camera models whose prologue the
+# wrapper computes in PyTorch (the unified model, equidistant distortion)
+K5_CASES = {"pinhole": dict(camera="pinhole"), "radtan_view_angle": dict(view_angle=True),
+            "all_fail": dict(fail=True), "omni_given": dict(camera="omni"),
+            "equidistant_given": dict(camera="equidistant")}
 
 
-@pytest.mark.parametrize("L,F", [(1, 1), (37, 70), (1024, 1024), (3001, 257)])
-def test_project_match_kernel_matches_plain(dev, L, F):
-    rng = np.random.default_rng(L + F)
-    args = _gated_inputs(rng, L, F, dev)
-    before = projmatch.gated_match.launches
-    feat, dist = projmatch.gated_match(*args, 50.0)
-    assert projmatch.gated_match.launches == before + 1
-    rfeat, rdist = projmatch.gated_match_plain(*args, 50.0)
+@pytest.mark.parametrize("case", list(K5_CASES))
+@pytest.mark.parametrize("L,F", [(1, 1), (50, 1), (37, 70), (1024, 1024), (3001, 257),
+                                 (64, 4000)])
+def test_project_match_kernel_matches_plain(dev, L, F, case):
+    """The whole of project-and-match in one launch against its plain
+    version; (64, 4000) holds more features than a block's shared memory."""
+    args, kw = project_match_scene(np.random.default_rng(L + F), L, F, dev, **K5_CASES[case])
+    before = projmatch.project_match_core.launches
+    feat, dist = projmatch.project_match_core(*args, **kw)
+    assert projmatch.project_match_core.launches == before + 1
+    rfeat, rdist = projmatch.project_match_plain(*args, **kw)
     assert torch.equal(feat, rfeat)
     assert torch.equal(dist, rdist)
-    assert int((feat >= 0).sum()) > 0 or L < 4
+    again = projmatch.project_match_core(*args, **kw)
+    assert torch.equal(again[0], feat) and torch.equal(again[1], dist)
+    if case == "all_fail":
+        assert not bool((feat >= 0).any())
+    elif L >= 37 and F >= 70:
+        assert int((feat >= 0).sum()) > 0
+
+
+def test_project_match_refuses_bad_inputs(dev):
+    args, kw = project_match_scene(np.random.default_rng(0), 20, 30, dev)
+    bad = list(args)
+    bad[2] = args[2].float()  # p_w float32
+    with pytest.raises(ValueError):
+        projmatch.project_match_core(*bad, **kw)
+    bad = list(args)
+    bad[7] = args[7].cpu()  # kp_uv on the CPU
+    with pytest.raises(RuntimeError):
+        projmatch.project_match_core(*bad, **kw)
 
 
 @pytest.mark.parametrize("H,N", [(1, 3), (37, 100), (1200, 1024)])
@@ -314,11 +333,23 @@ def test_gba_reproj_blocks_kernel_matches_plain(dev, huber, n_kf, n_lm, max_obs)
     for g, a, r, c in zip(got, again, ref, cpu):
         assert torch.equal(g, a)
         assert _rel(g, r) <= 1e-13 and _rel(g.cpu(), c) <= 1e-13
-    for mode in ("cost", "outlier"):
-        val, valid = gba.reproj_blocks(pd, gd, huber, mode)
-        rval, rvalid = gba.reproj_blocks_plain(pd, gd, huber, mode)
-        assert torch.equal(valid, rvalid) and not bool(valid.all())
-        assert _rel(val, rval) <= 1e-13
+    val, valid = gba.reproj_blocks(pd, gd, huber, "outlier")
+    rval, rvalid = gba.reproj_blocks_plain(pd, gd, huber, "outlier")
+    assert torch.equal(valid, rvalid) and not bool(valid.all())
+    assert _rel(val, rval) <= 1e-13
+    # the cost of S stacked states in one launch, each state's sum against
+    # its own plain evaluation, and bit for bit across two launches
+    for S in (1, 7):
+        st = stacked_states(pd, S)
+        ps = gba._with_state(pd, st)
+        before = gba.reproj_blocks.launches
+        cost = gba.reproj_blocks(ps, gd, huber, "cost")
+        assert gba.reproj_blocks.launches == before + 1 and cost.shape == (S,)
+        assert torch.equal(cost, gba.reproj_blocks(ps, gd, huber, "cost"))
+        for k in range(S):
+            one = gba._with_state(pd, tuple(x[k:k + 1] for x in st))
+            ref = gba.reproj_blocks_plain(one, gd, huber, "cost")
+            assert _rel(cost[k:k + 1], ref) <= 1e-13, (S, k)
     # the outlier decision at the threshold is the plain version's
     val, valid = gba.reproj_blocks(pd, gd, 0.0, "outlier")
     cval, cvalid = gba.reproj_blocks(pc, gc, 0.0, "outlier")
@@ -519,15 +550,18 @@ def test_gba_pcg_kernel_matches_plain_loop(dev, case, n_cg):
 
 
 def test_gba_step_launches(dev):
-    """One Gauss-Newton step launches the PCG kernel once and K9 seven times
-    (b_red and the six ladder scales), never inside the PCG."""
+    """One Gauss-Newton step launches the PCG kernel once, K9 seven times
+    (b_red and the six ladder scales), never inside the PCG, and K8 twice
+    (the linearisation, and the costs of the six ladder states and the
+    current one)."""
     from covins_tpu_torch.ops import gba
 
     _, g, pd = _gba_system(dev)
-    before = (gba.pcg.launches, gba.reduced_matvec.launches)
+    before = (gba.pcg.launches, gba.reduced_matvec.launches, gba.reproj_blocks.launches)
     gba._gn_schur_step(pd, g, (pd.poses, pd.vels, pd.biases, pd.lms),
                        torch.tensor(1e-4, dtype=torch.float64, device=dev), 60, False)
-    assert (gba.pcg.launches - before[0], gba.reduced_matvec.launches - before[1]) == (1, 7)
+    after = (gba.pcg.launches, gba.reduced_matvec.launches, gba.reproj_blocks.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 7, 2)
 
 
 @pytest.mark.parametrize("case", ["thin_landmarks", "five_keyframes"])
