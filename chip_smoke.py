@@ -10,14 +10,20 @@ package beside it.  Phases:
    parallel);
 1. each kernel against its plain PyTorch version on the card, on inputs
    made from a numpy seed at the main path's shapes and at ragged ones:
-   K1, K2, K4 and K5 exactly (K5, the whole of project-and-match in one
+   K1, K2, K4 and K5 exactly (K4, stage 1 in one launch that forms each
+   distance once; K5, the whole of project-and-match in one
    launch, also with every landmark failing, the unified camera whose
    prologue PyTorch computes, and more features than shared memory holds;
-   with the PyTorch operations one call issues), K3 to rtol 1e-6, K6
-   exactly up to correspondences within 1e-12 rad of the threshold, K7 to
-   1e-12 relative, K8 and K10 to 1e-13 relative (K8's linearisation, and
+   with the PyTorch operations one call issues), K3 to rtol 1e-6, K6 (all
+   of stage 2's P3P RANSAC in one launch, from Gumbel noise and from given
+   index sets, with two matches only, every root invalid, and more
+   correspondences than shared memory holds) its counts, best pose and
+   inlier mask exactly and every root's pose bit for bit (else within
+   1e-12 relative, printed), with at most 10 PyTorch operations a call, K7
+   to 1e-12 relative, K8 and K10 to 1e-13 relative (K8's linearisation, and
    its cost of 1 and of 7 stacked states per state, each one launch and
-   timed), K9 to 1e-13 of the sums of
+   timed; also for the unified camera and equidistant distortion, whose
+   projection PyTorch hands the kernel), K9 to 1e-13 of the sums of
    magnitudes behind each output, the two PCG kernels (pgo_pcg, 100
    iterations, at a 256-pose graph of 1270 edges with the default edge
    weights and with all weights 100, and at ragged ones; gba_pcg, 60
@@ -305,18 +311,26 @@ def k4_case(a, am, b, bm, max_dist, reps):
 
     from covins_tpu_torch.ops import descriptors as d
 
-    got = d.hamming_mutual_nn(a, am, b, bm, max_dist)
+    def kernel():
+        return d.hamming_mutual_nn(a, am, b, bm, max_dist)
+
+    before = d.hamming_mutual_nn.launches
+    got = kernel()
+    check(d.hamming_mutual_nn.launches == before + 1, "K4 did not launch once per call")
+    again = kernel()
     ref = d.hamming_mutual_nn_plain(a, am, b, bm, max_dist)
     torch.cuda.synchronize()
     check(torch.equal(got, ref),
           f"K4 disagrees with its plain version at {tuple(a.shape)}x{tuple(b.shape)}")
+    check(torch.equal(got, again), "K4 differs between two launches")
     m, n = a.shape[0], b.shape[0]
     n_rows, n_cols = int(am.sum().item()), int(bm.sum().item())
-    # every valid (row, column) pair is compared twice: row and column argmin
-    bnd, by = bound((m + n) * 33 + m * 4,
-                    (2 * 2.0 * n_rows * n_cols * 256, INT8_OPS_S))
+    # each valid (row, column) pair's distance once: a +-1 int8 dot
+    # product of 256, 512 operations
+    bnd, by = bound((m + n) * 33 + m * 4, (2.0 * n_rows * n_cols * 256, INT8_OPS_S))
     return {
-        "kernel_ms": cuda_ms(lambda: d.hamming_mutual_nn(a, am, b, bm, max_dist), reps),
+        "kernel_ms": cuda_ms(kernel, reps), "busy_ms": busy_ms(kernel, reps),
+        "ops_per_call": count_ops(kernel),
         "plain_ms": cuda_ms(lambda: d.hamming_mutual_nn_plain(a, am, b, bm, max_dist),
                             reps),
         "library_ms": None,
@@ -410,36 +424,109 @@ def k5_case(args, kwargs, reps):
     }
 
 
-def k6_case(T, P, B, mask, valid, thr, reps):
+# K6's float64 operations, counted as its function needs them (the plain
+# version's formulas; a transcendental function counted as one): per
+# hypothesis the quartic's coefficients, Ferrari's and the resolvent
+# cubic's roots and three Newton steps of four roots (P3P_QUARTIC_OPS); per
+# root the camera-frame triangle, the centroids, the 3x3 correlation, the
+# 4x4 N-matrix and eight Jacobi sweeps of six rotations, the quaternion's
+# norm and the translation (P3P_ALIGN_OPS); per valid pose and valid
+# correspondence the rotation, translation, norm, division, dot product and
+# acos (P3P_SCORE_OPS); with noise, one comparison per hypothesis and
+# valid correspondence for the minimal sets
+P3P_QUARTIC_OPS = 70 + 120 + 60
+P3P_ALIGN_OPS = 30 + 30 + 72 + 16 + 8 * 6 * (12 + 72) + 30
+P3P_SCORE_OPS = 46
+
+
+def k6_bytes_ops(args, kw, counts):
+    """(bytes, float64 operations) of one K6 call on this input: the mask
+    and the rows read whole, the points, bearings and noise only where a
+    correspondence is valid (a masked one's noise is -inf, whatever it
+    holds), each output written once, and the operations above for the
+    poses this input's solves call valid."""
+    bear, mask = args[1:3]
+    idx, rows = kw.get("idx"), kw.get("rows")
+    n = bear.shape[0]
+    h = counts.shape[0] // 4
+    valid_c = mask if rows is None else mask & (rows >= 0)
+    n_valid = int(valid_c.sum().item())
+    read = n + (0 if rows is None else n * 4) + n_valid * (24 + 24) \
+        + (h * n_valid * 8 if idx is None else h * 24)
+    write = 7 * 8 + n + 4 + 4 + 4 * h * 4
+    ops = h * P3P_QUARTIC_OPS + 4 * h * P3P_ALIGN_OPS \
+        + int((counts >= 0).sum().item()) * n_valid * P3P_SCORE_OPS \
+        + (h * n_valid if idx is None else 0)
+    return read + write, float(ops), n_valid
+
+
+def _nan_equal(a, b):
+    return bool(((a == b) | (a.isnan() & b.isnan())).all().item())
+
+
+def k6_work(points_w, bearings, mask, **kw):
+    """A K6 call's size for the recorder: its valid correspondences, then
+    its correspondences."""
+    rows = kw.get("rows")
+    valid = mask if rows is None else mask & (rows >= 0)
+    return int(valid.sum().item()), bearings.shape[0]
+
+
+def k6_case(args, kw, reps):
+    """K6 (absolute_pose_ransac, the whole RANSAC in one launch) against
+    its plain version on the same inputs: counts, best pose and inlier
+    mask exactly, every root's pose bit for bit (NaN where both are), or
+    within 1e-12 relative, recorded; one launch and at most 10 PyTorch
+    operations a call; call and busy times and the bound for this input."""
     import torch
 
     from covins_tpu_torch.ops import pnp
 
-    counts, best, inl, n_inl = pnp.p3p_score(T, P, B, mask, valid, thr)
-    rcounts, rbest, rinl, rn = pnp.p3p_score_plain(T, P, B, mask, valid, thr)
+    def kernel():
+        return pnp.absolute_pose_ransac(*args, **kw)
+
+    before = pnp.absolute_pose_ransac.launches
+    got = kernel()
+    check(pnp.absolute_pose_ransac.launches == before + 1, "K6 did not launch once per call")
+    again = kernel()
+    ref = pnp.absolute_pose_ransac_plain(*args, **kw)
     torch.cuda.synchronize()
-    err = pnp.reprojection_angular_error(T, P, B)
-    near = ((err - thr).abs() <= 1e-12) & mask[None, :] & valid[:, None]
-    n_near = int(near.sum().item())
-    same = (torch.equal(counts, rcounts) and int(best) == int(rbest)
-            and torch.equal(inl, rinl) and int(n_inl) == int(rn))
-    # the one allowed difference: a correspondence within 1e-12 rad of the
-    # threshold may fall on either side, by at most one count per pose
-    check(same or (n_near > 0 and bool(((counts - rcounts).abs()
-                                        <= near.sum(1)).all())),
-          f"K6 disagrees with its plain version at {tuple(T.shape)}x{P.shape[0]}")
-    H, N = T.shape[0], P.shape[0]
-    n_mask = int(mask.sum().item())
-    bnd, by = bound(H * 56 + N * 48 + N + H + H * 4 + N + 12,
-                    (45.0 * H * n_mask, FP64_OPS_S))
+    shape = f"{got['counts'].shape[0]} poses x {args[1].shape[0]}"
+    check(torch.equal(got["counts"], ref["counts"]), f"K6 counts disagree at {shape}")
+    check(int(got["best"]) == int(ref["best"])
+          and int(got["n_inliers"]) == int(ref["n_inliers"]), f"K6 best disagrees at {shape}")
+    check(torch.equal(got["inliers"], ref["inliers"]), f"K6 inliers disagree at {shape}")
+    for k in ("counts", "best", "n_inliers", "inliers", "T_c_w", "poses"):
+        check(_nan_equal(got[k], again[k]), f"K6 {k} differs between two launches")
+    # every root's pose: bit for bit, or else within 1e-12 relative where
+    # the root is valid, and where not
+    pose_bits = _nan_equal(got["poses"], ref["poses"]) and _nan_equal(got["T_c_w"],
+                                                                       ref["T_c_w"])
+    ok = ref["counts"] >= 0
+    diff = (got["poses"][ok] - ref["poses"][ok]).abs()
+    rel = float((diff.max() / ref["poses"][ok].abs().max().clamp(min=1e-300)).item()) \
+        if bool(ok.any()) else 0.0
+    if not pose_bits:
+        rows = torch.nonzero(~((got["poses"] == ref["poses"])
+                               | (got["poses"].isnan() & ref["poses"].isnan())).all(1))
+        print(json.dumps({"k6_pose_bits_differ": shape, "roots": rows[:8, 0].tolist(),
+                          "valid_max_rel_diff": rel}))
+    check(pose_bits or rel <= 1e-12, f"K6 poses differ by {rel} relative at {shape}")
+    ops = count_ops(kernel)
+    check(ops <= 10, f"a K6 call issues {ops} PyTorch operations")
+    nbytes, nops, n_valid = k6_bytes_ops(args, kw, ref["counts"])
+    bnd, by = bound(nbytes, (nops, FP64_OPS_S))
     return {
-        "kernel_ms": cuda_ms(lambda: pnp.p3p_score(T, P, B, mask, valid, thr), reps),
-        "plain_ms": cuda_ms(lambda: pnp.p3p_score_plain(T, P, B, mask, valid, thr),
-                            reps),
-        "library_ms": None,
-        "bound_ms": bnd, "bound_by": by,
-        "max_abs_err": int((counts - rcounts).abs().max().item()),
-        "near_threshold": n_near, "best": int(best), "n_inliers": int(n_inl),
+        "kernel_ms": cuda_ms(kernel, reps), "busy_ms": busy_ms(kernel, reps),
+        "plain_ms": cuda_ms(lambda: pnp.absolute_pose_ransac_plain(*args, **kw),
+                            max(1, reps // 5)),
+        "library_ms": None, "bound_ms": bnd, "bound_by": by, "ops_per_call": ops,
+        "max_abs_err": float(diff.max().item()) if diff.numel() else 0.0,
+        "pose_bit_equal": pose_bits,
+        "pose_max_rel_diff": rel, "valid_correspondences": n_valid,
+        "valid_poses": int((ref["counts"] >= 0).sum().item()),
+        "hypotheses": ref["counts"].shape[0] // 4,
+        "best": int(got["best"]), "n_inliers": int(got["n_inliers"]),
     }
 
 
@@ -876,11 +963,12 @@ def k10_case(args, reps, time_plain=True):
     }
 
 
-def gba_kernel_inputs(n_kf, n_lm, max_obs, dev, seed=SEED):
+def gba_kernel_inputs(n_kf, n_lm, max_obs, dev, seed=SEED, camera=None):
     """A synthetic GBA problem on the card (bench.py's at 256 / 8192 /
     61440) with the ragged cases of a real map added: a dead keyframe, dead
     landmarks, masked, invalid and gross-outlier observations, octave
-    weights.  Returns (problem, graph, K9's inputs, K10's inputs)."""
+    weights; ``camera``: one of `synthetic.SCENE_CAMERAS` in place of
+    bench.py's.  Returns (problem, graph, K9's inputs, K10's inputs)."""
     import dataclasses as dc
 
     import torch
@@ -889,7 +977,7 @@ def gba_kernel_inputs(n_kf, n_lm, max_obs, dev, seed=SEED):
     from covins_tpu_torch.utils import synthetic
 
     p, _, _ = synthetic.build_gba_problem(n_kf=n_kf, n_lm=n_lm, seed=seed,
-                                          max_obs=max_obs, device=dev)
+                                          max_obs=max_obs, device=dev, camera=camera)
     rng = np.random.default_rng(seed + n_kf)
     o = p.obs_kf.shape[0]
     t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
@@ -927,22 +1015,6 @@ def _k4_inputs(rng, m, n, nq, nc, t):
     a[k:2 * k] = b[:k]  # a second row per column: ties to the lowest row
     a[: k // 2, 0] ^= 1  # ... at distance 1 for some
     return t(a), t(np.arange(m) < nq), t(b), t(np.arange(n) < nc)
-
-
-def _k6_inputs(rng, H, N, t):
-    import torch
-
-    q = rng.normal(size=(H, 4))
-    q /= np.linalg.norm(q, axis=1, keepdims=True)
-    T = np.concatenate([q, 0.1 * rng.normal(size=(H, 3))], 1)
-    T[: H // 4] = T[H // 4: 2 * (H // 4)]  # tied counts: the first wins
-    P = rng.normal(size=(N, 3)) + [0, 0, 5]
-    # bearings of the points under pose 7, with noise: some poses score
-    from covins_tpu_torch.utils import geometry as geo
-    p_c = geo.pose_apply(torch.tensor(T[7 % H]), torch.tensor(P)).numpy()
-    B = p_c + 0.01 * rng.normal(size=p_c.shape)
-    B /= np.linalg.norm(B, axis=1, keepdims=True)
-    return [t(x) for x in (T, P, B, rng.random(N) > 0.7, rng.random(H) > 0.2)]
 
 
 def _k7_inputs(rng, N, E, dev):
@@ -1020,10 +1092,21 @@ def phase1(dev):
         r = k5_case(args, kwargs, reps=10)
         print(json.dumps({"phase": 1, "kernel": "project_match", "shape": [L, F],
                           **{k: str(v) for k, v in kw.items()}, **r}))
-    # K6 at 300 hypotheses x 4 roots against 1024 correspondences, ragged
-    for H, N in ((1200, 1024), (1, 3), (37, 100)):
-        r = k6_case(*_k6_inputs(rng, H, N, t), 0.0545, reps=20)
-        print(json.dumps({"phase": 1, "kernel": "p3p_score", "shape": [H, N], **r}))
+    # K6, the whole RANSAC: 300 hypotheses (1200 roots) against the
+    # verification's 1024 padded correspondences from Gumbel noise and from
+    # given index sets, ragged sizes, two matches only, every root invalid,
+    # and more correspondences than a block's shared memory holds
+    for N, n_valid, H, sets, case in ((1024, 195, 300, "noise", None),
+                                      (1024, 195, 300, "idx", None),
+                                      (3, 3, 1, "noise", None), (100, 37, 37, "noise", None),
+                                      (1024, 195, 300, "noise", "few"),
+                                      (1024, 195, 300, "idx", "few"),
+                                      (1024, 195, 300, "noise", "degenerate"),
+                                      (6000, 700, 64, "noise", None)):
+        args, kw = synthetic.p3p_scene(rng, N, n_valid, H, dev, sets=sets, case=case)
+        r = k6_case(args, kw, reps=10)
+        print(json.dumps({"phase": 1, "kernel": "p3p_ransac", "shape": [4 * H, N],
+                          "sets": sets, "case": case, **r}))
     # K7 at the merged bench map's graph size, ragged
     for N, E in ((256, 1300), (1, 1), (9, 20)):
         r = k7_case(*_k7_inputs(rng, N, E, dev), 1e-6, reps=50, library=N == 256)
@@ -1072,6 +1155,15 @@ def phase1(dev):
         print(json.dumps({"phase": 1, "kernel": "imu_preintegrate",
                           "shape": list(k10[0].shape[:2]), **r}))
         table.setdefault("imu_preintegrate", {**r, "shape": list(k10[0].shape[:2])})
+    # K8 for the cameras whose projection PyTorch hands it (the unified
+    # model; equidistant distortion), at bench.py's problem and ragged
+    for camera in ("omni", "equidistant"):
+        for n_kf, n_lm, max_obs in ((256, 8192, 61440), (7, 60, None)):
+            p, graph, _, _ = gba_kernel_inputs(n_kf, n_lm, max_obs, dev, camera=camera)
+            r = k8_case(p, graph, 2.447, reps=5 if n_kf == 256 else 2)
+            print(json.dumps({"phase": 1, "kernel": "gba_reproj_blocks", "camera": camera,
+                              "huber": 2.447,
+                              "shape": [n_kf, p.lms.shape[0], p.obs_kf.shape[0]], **r}))
     return table
 
 
@@ -1508,7 +1600,7 @@ def kernel_wrappers():
             "bow_insert": bow.bow_insert,
             "hamming_mutual_nn": descriptors.hamming_mutual_nn,
             "project_match": projmatch.project_match_core,
-            "p3p_score": pnp.p3p_score,
+            "p3p_ransac": pnp.absolute_pose_ransac,
             "pgo_matvec": pgo.matvec,
             "pgo_pcg": pgo.pcg,
             "gba_reproj_blocks": gba.reproj_blocks,
@@ -1522,7 +1614,7 @@ def kernel_wrappers():
 # standalone K7 matvec never, a GBA step gba_pcg once, K9 seven times and K8
 # twice, and the pruning between the rounds K8 once more
 DRAIN_KERNELS = ("hamming_argmin", "representative_descriptors", "bow_insert",
-                 "hamming_mutual_nn", "project_match", "p3p_score", "pgo_pcg")
+                 "hamming_mutual_nn", "project_match", "p3p_ransac", "pgo_pcg")
 GBA_KERNELS = ("gba_reproj_blocks", "gba_reduced_matvec", "gba_pcg", "imu_preintegrate")
 K9_PER_STEP = 7  # b_red and the six ladder scales
 K8_PER_STEP = 2  # the linearisation, and the costs of the six ladder states and the current one
@@ -1572,7 +1664,8 @@ def phase2(dev, card):
         # work is the matching the call holds, then its size
         (loopverify, "project_match_core", k5_work,
          lambda kw: f"stage {5 if kw['check_view_angle'] else 3}"),
-        (pnp, "p3p_score", lambda T, P, *a: T.shape[0] * P.shape[0]),
+        # stage 2: the call with the most valid correspondences
+        (pnp, "absolute_pose_ransac", k6_work),
         (pgo, "matvec", lambda v, f, Ji, *a: Ji.shape[0]),
         (pgo, "pcg", lambda b, M, f, Ji, *a: Ji.shape[0]),
     ])
@@ -1662,9 +1755,14 @@ def phase2(dev, card):
         print(json.dumps({"phase": 2, "kernel": "project_match", **row}))
         if row["pairs"] >= table.get("project_match", {"pairs": 0})["pairs"]:
             table["project_match"] = row
-    T, P, B, msk, valid, thr = rec.on("p3p_score", dev)
-    table["p3p_score"] = {**k6_case(T, P, B, msk, valid, thr, reps=50),
-                          "shape": [T.shape[0], P.shape[0]]}
+    args = rec.on("absolute_pose_ransac", dev)
+    kw = {k: v.to(dev) if hasattr(v, "to") else v
+          for k, v in rec.kwargs("absolute_pose_ransac").items()}
+    calls, _ = rec.calls["absolute_pose_ransac"]
+    r = k6_case(args, kw, reps=50)
+    table["p3p_ransac"] = {**r, "stage_calls": calls,
+                           "shape": [4 * r["hypotheses"], args[1].shape[0]]}
+    print(json.dumps({"phase": 2, "kernel": "p3p_ransac", **table["p3p_ransac"]}))
     v, free, Ji, Jj, graph, damping = rec.on("matvec", dev)
     table["pgo_matvec"] = {**k7_case(v, free, Ji, Jj, graph, damping, reps=200,
                                      library=True),
@@ -2073,8 +2171,8 @@ SOURCES = {
                           "covins_tpu/ops/descriptors.py:138"),
     "project_match": ("covins_tpu_torch/csrc/project_match.cu",
                       "covins_tpu/ops/projmatch.py:43"),
-    "p3p_score": ("covins_tpu_torch/csrc/p3p_score.cu",
-                  "covins_tpu/ops/pnp.py:338"),
+    "p3p_ransac": ("covins_tpu_torch/csrc/p3p_ransac.cu",
+                   "covins_tpu/ops/pnp.py:338"),
     "pgo_matvec": ("covins_tpu_torch/csrc/pgo_matvec.cu",
                    "covins_tpu/ops/pgo.py:187"),
     "pgo_pcg": ("covins_tpu_torch/csrc/pgo_matvec.cu",

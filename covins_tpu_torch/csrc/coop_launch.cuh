@@ -1,8 +1,8 @@
-// Cooperative launches of the persistent kernels (project_match.cu,
-// pgo_matvec.cu, gba_reproj_blocks.cu, gba_reduced_matvec.cu): the grid is
-// at most the blocks the card holds at once, so the kernels' grid barriers
-// are safe, and a launch the card refuses returns its error, which the
-// Python wrapper raises.
+// Cooperative launches of the persistent kernels (hamming_mutual_nn.cu,
+// project_match.cu, p3p_ransac.cu, pgo_matvec.cu, gba_reproj_blocks.cu,
+// gba_reduced_matvec.cu): the grid is at most the blocks the card holds at
+// once, so the kernels' grid barriers are safe, and a launch the card
+// refuses returns its error, which the Python wrapper raises.
 #pragma once
 
 #include <algorithm>
@@ -43,6 +43,34 @@ inline cudaError_t co_resident(const void* kernel, int threads, size_t smem, int
   if (err != cudaSuccess) return err;
   std::lock_guard<std::mutex> hold(lock);
   *blocks = cached[key] = per_sm * sms;
+  return cudaSuccess;
+}
+
+// the dynamic shared memory a block of `kernel` may take on the current
+// device: the opt-in limit less the kernel's static shared memory, which
+// the kernel is allowed to take, set once per kernel and device
+inline cudaError_t smem_room(const void* kernel, int* room) {
+  static std::mutex lock;
+  static std::map<std::tuple<const void*, int>, int> cached;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const auto key = std::make_tuple(kernel, dev);
+  std::lock_guard<std::mutex> hold(lock);
+  const auto it = cached.find(key);
+  if (it != cached.end()) {
+    *room = it->second;
+    return cudaSuccess;
+  }
+  int optin = 0;
+  cudaFuncAttributes attr;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  const int r = optin - static_cast<int>(attr.sharedSizeBytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, r);
+  if (err != cudaSuccess) return err;
+  *room = cached[key] = r;
   return cudaSuccess;
 }
 

@@ -45,6 +45,12 @@
 // The norms use IEEE sqrt, as the plain version's correctly rounded square
 // root, and the source is built without FMA contraction, so an
 // observation falls on the same side of th_gba_outlier_global.
+// The projection above is the pinhole camera's with no or radtan
+// distortion.  For the other cameras (the unified model; equidistant or FOV
+// distortion) the caller computes each observation's pixel, validity and,
+// to linearise, d uv / d p_c in PyTorch (cameras.project3_jacobian) and
+// the kernel reads them in place of its projection: every mode, the same
+// sums.
 
 #include <algorithm>
 #include <cooperative_groups.h>
@@ -84,6 +90,11 @@ struct Problem {
   const int32_t* lm_rowptr;  // (M + 1,)
   const int32_t* lm_obs;     // (O,)
   double huber_k;
+  // the projection given by the caller, or null: uv (O, 2), valid (O,)
+  // (both with a leading S in the cost mode) and d uv / d p_c (O, 2, 3)
+  const double* guv;
+  const uint8_t* gvalid;
+  const double* gP;
 };
 
 // one observation's whitened residual, validity and weight, and with JAC
@@ -94,38 +105,62 @@ struct Term {
   double Jp[12], Jl[6];
 };
 
+// guv, gvalid: the given projection of this state (null: project here)
 template <bool JAC, bool OUTLIER>
 __device__ inline Term observe(const Problem& a, const double* poses, const double* lms,
-                              int o) {
+                              const double* guv, const uint8_t* gvalid, int o) {
   Term t;
   const int kf = a.obs_kf[o];
   const int lm = a.obs_lm[o];
   const double* T = poses + 7 * (int64_t)kf;
   const double* cam = a.cam;
   const double fx = cam[0], fy = cam[1], cx = cam[2], cy = cam[3];
+  const bool given = guv != nullptr;
   // p_s = T_w_s^-1 X, p_c = T_s_c^-1 p_s
   double qsw[4], qcs[4];
-  V3 tsw, tcs;
-  pose_inverse(T, qsw, tsw);
-  pose_inverse(cam + 8, qcs, tcs);
-  const V3 X{lms[3 * (int64_t)lm], lms[3 * (int64_t)lm + 1], lms[3 * (int64_t)lm + 2]};
-  const V3 rs = qrot(qsw, X);
-  const V3 ps{rs.x + tsw.x, rs.y + tsw.y, rs.z + tsw.z};
-  const V3 rc = qrot(qcs, ps);
-  const V3 pc{rc.x + tcs.x, rc.y + tcs.y, rc.z + tcs.z};
-  // pinhole projection
-  t.valid = pc.z > 1e-6;
-  const double zs = t.valid ? pc.z : 1.0;
-  const double xn = pc.x / zs, yn = pc.y / zs;
-  double xd = xn, yd = yn, dxx = 1.0, dxy = 0.0, dyx = 0.0, dyy = 1.0;
-  if (a.dist_model != 0) {
-    if (JAC)
-      radtan_with_jacobian(cam + 4, xn, yn, xd, yd, dxx, dxy, dyx, dyy);
-    else
-      distort_radtan(cam + 4, xn, yn, xd, yd);
+  V3 tsw, tcs, ps{0.0, 0.0, 0.0};
+  if (JAC || !given) {
+    pose_inverse(T, qsw, tsw);
+    pose_inverse(cam + 8, qcs, tcs);
+    const V3 X{lms[3 * (int64_t)lm], lms[3 * (int64_t)lm + 1], lms[3 * (int64_t)lm + 2]};
+    const V3 rs = qrot(qsw, X);
+    ps = V3{rs.x + tsw.x, rs.y + tsw.y, rs.z + tsw.z};
   }
-  const double r0 = (fx * xd + cx) - a.uv[2 * (int64_t)o];
-  const double r1 = (fy * yd + cy) - a.uv[2 * (int64_t)o + 1];
+  double P[6];  // d uv / d p_c
+  double r0, r1;
+  if (given) {
+    t.valid = gvalid[o] != 0;
+    r0 = guv[2 * (int64_t)o] - a.uv[2 * (int64_t)o];
+    r1 = guv[2 * (int64_t)o + 1] - a.uv[2 * (int64_t)o + 1];
+    if (JAC)
+      for (int e = 0; e < 6; ++e) P[e] = a.gP[6 * (int64_t)o + e];
+  } else {
+    const V3 rc = qrot(qcs, ps);
+    const V3 pc{rc.x + tcs.x, rc.y + tcs.y, rc.z + tcs.z};
+    // pinhole projection
+    t.valid = pc.z > 1e-6;
+    const double zs = t.valid ? pc.z : 1.0;
+    const double xn = pc.x / zs, yn = pc.y / zs;
+    double xd = xn, yd = yn, dxx = 1.0, dxy = 0.0, dyx = 0.0, dyy = 1.0;
+    if (a.dist_model != 0) {
+      if (JAC)
+        radtan_with_jacobian(cam + 4, xn, yn, xd, yd, dxx, dxy, dyx, dyy);
+      else
+        distort_radtan(cam + 4, xn, yn, xd, yd);
+    }
+    r0 = (fx * xd + cx) - a.uv[2 * (int64_t)o];
+    r1 = (fy * yd + cy) - a.uv[2 * (int64_t)o + 1];
+    if (JAC) {  // project3_jacobian's pinhole form
+      const double iz = 1.0 / zs;
+      const double vz = t.valid ? iz : 0.0;
+      P[0] = fx * (dxx * iz);
+      P[1] = fx * (dxy * iz);
+      P[2] = fx * (-(dxx * xn + dxy * yn) * vz);
+      P[3] = fy * (dyx * iz);
+      P[4] = fy * (dyy * iz);
+      P[5] = fy * (-(dyx * xn + dyy * yn) * vz);
+    }
+  }
   if (OUTLIER) {  // ||r|| / sigma
     t.r0 = sqrt(r0 * r0 + r1 * r1) * a.w[o];
     return t;
@@ -140,11 +175,7 @@ __device__ inline Term observe(const Problem& a, const double* poses, const doub
   t.r0 = r0 * ww;
   t.r1 = r1 * ww;
   if (!JAC) return t;
-  // d uv / d p_c (project3_jacobian), then through R_c_s
-  const double iz = 1.0 / zs;
-  const double vz = t.valid ? iz : 0.0;
-  const double P[6] = {fx * (dxx * iz), fx * (dxy * iz), fx * (-(dxx * xn + dxy * yn) * vz),
-                       fy * (dyx * iz), fy * (dyy * iz), fy * (-(dyx * xn + dyy * yn) * vz)};
+  // d uv / d p_c through R_c_s
   double Rcs[9], Rws[9];
   qmat(qcs, Rcs);
   qmat(T, Rws);
@@ -197,7 +228,7 @@ __global__ void __launch_bounds__(THREADS) linearize_kernel(Problem a, Blocks ou
       const int pos = a.chunk_ptr[ch] + sub;
       if (pos < a.chunk_ptr[ch + 1]) {
         const int o = a.kf_obs[pos];
-        const Term t = observe<true, false>(a, a.poses, a.lms, o);
+        const Term t = observe<true, false>(a, a.poses, a.lms, a.guv, a.gvalid, o);
         out.r[2 * (int64_t)o] = t.r0;
         out.r[2 * (int64_t)o + 1] = t.r1;
         for (int e = 0; e < 12; ++e) out.Jp[12 * (int64_t)o + e] = t.Jp[e];
@@ -275,9 +306,11 @@ __global__ void __launch_bounds__(THREADS) cost_kernel(Problem a, int S, double*
   for (int st = 0; st < S; ++st) {
     const double* poses = a.poses + 7 * (int64_t)a.N * st;
     const double* lms = a.lms + 3 * (int64_t)a.M * st;
+    const double* guv = a.guv ? a.guv + 2 * (int64_t)a.O * st : nullptr;
+    const uint8_t* gvalid = a.gvalid ? a.gvalid + (int64_t)a.O * st : nullptr;
     double acc = 0.0;
     for (int o = tid; o < a.O; o += nthreads) {
-      const Term t = observe<false, false>(a, poses, lms, o);
+      const Term t = observe<false, false>(a, poses, lms, guv, gvalid, o);
       acc += t.r0 * t.r0 + t.r1 * t.r1;
     }
     for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(FULL, acc, off);
@@ -303,7 +336,7 @@ __global__ void __launch_bounds__(THREADS) cost_kernel(Problem a, int S, double*
 __global__ void outlier_kernel(Problem a, double* __restrict__ val, uint8_t* __restrict__ valid) {
   const int o = blockIdx.x * blockDim.x + threadIdx.x;
   if (o >= a.O) return;
-  const Term t = observe<false, true>(a, a.poses, a.lms, o);
+  const Term t = observe<false, true>(a, a.poses, a.lms, a.guv, a.gvalid, o);
   val[o] = t.r0;
   valid[o] = t.valid;
 }
@@ -314,6 +347,9 @@ __global__ void outlier_kernel(Problem a, double* __restrict__ val, uint8_t* __r
 // cam = [fx, fy, cx, cy, k1, k2, p1, p2, T_s_c(7)], dist_model 0 (none) or
 // 1 (radtan); uv (O, 2); w (O,) = obs_w * obs_mask (obs_w alone in mode
 // 2); kf_m (N,), lm_m (M,) the masks as float64; obs_kf, obs_lm (O,) int32;
+// guv, gvalid, gP: the given projection (uv, valid uint8 and, in mode 0,
+// d uv / d p_c (O, 2, 3); in mode 1 uv (S, O, 2) and valid (S, O)), or
+// null to project here (then dist_model says the distortion);
 // the graph (ObsGraph): kf_obs (O,), chunk_ptr (C + 1,), kf_chunk_ptr
 // (N + 1,), lm_rowptr (M + 1,), lm_obs (O,) int32.
 // mode 0 (linearise): r (O, 2), Jp (O, 2, 6), Jl (O, 2, 3), b6 (N, 6),
@@ -326,8 +362,9 @@ extern "C" int covins_gba_reproj_blocks(
     const void* uv, const void* w, const void* kf_m, const void* lm_m, const void* obs_kf,
     const void* obs_lm, int O, int N, int M, const void* kf_obs, const void* chunk_ptr,
     const void* kf_chunk_ptr, int C, const void* lm_rowptr, const void* lm_obs, double huber_k,
-    void* r, void* Jp, void* Jl, void* b6, void* M6, void* bl, void* Hll, void* out,
-    void* valid, void* scratch, int slot_cap, void* stream) {
+    const void* guv, const void* gvalid, const void* gP, void* r, void* Jp, void* Jl, void* b6,
+    void* M6, void* bl, void* Hll, void* out, void* valid, void* scratch, int slot_cap,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Problem a{static_cast<const double*>(poses),     static_cast<const double*>(lms),
             static_cast<const double*>(cam),       dist_model,
@@ -338,7 +375,9 @@ extern "C" int covins_gba_reproj_blocks(
             M,                                     static_cast<const int32_t*>(kf_obs),
             static_cast<const int32_t*>(chunk_ptr), static_cast<const int32_t*>(kf_chunk_ptr),
             C,                                     static_cast<const int32_t*>(lm_rowptr),
-            static_cast<const int32_t*>(lm_obs),   huber_k};
+            static_cast<const int32_t*>(lm_obs),   huber_k,
+            static_cast<const double*>(guv),       static_cast<const uint8_t*>(gvalid),
+            static_cast<const double*>(gP)};
   if (mode == 0) {
     Blocks b{static_cast<double*>(r),  static_cast<double*>(Jp),      static_cast<double*>(Jl),
              static_cast<double*>(scratch), static_cast<double*>(b6), static_cast<double*>(M6),

@@ -272,22 +272,12 @@ extern "C" int covins_project_match(
     double radius_px, double scale_factor, float max_dist, void* scratch, void* match_feat,
     void* match_dist, void* stream) {
   if (L <= 0) return 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  int room = 0;
+  const cudaError_t err =
+      coop::smem_room(reinterpret_cast<const void*>(project_match_kernel), &room);
   if (err != cudaSuccess) return static_cast<int>(err);
-  static bool raised[64] = {false};
-  static int optin[64] = {0};
-  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-  if (!raised[dev]) {
-    err = cudaDeviceGetAttribute(&optin[dev], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(project_match_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, optin[dev]);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    raised[dev] = true;
-  }
   const int64_t stage_bytes = (int64_t)F * kFeatureBytes;
-  const int stage = stage_bytes <= optin[dev];
+  const int stage = stage_bytes <= room;
   const size_t smem = stage ? static_cast<size_t>(stage_bytes) : 0;
   char* s = static_cast<char*>(scratch);
   Args a{prologue,

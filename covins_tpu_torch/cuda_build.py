@@ -43,17 +43,15 @@ SIGNATURES = {
         "covins_bow_insert": [_P, _P, _P, _P, _I, _I, _I, _L, _P],
     },
     "hamming_mutual_nn": {
-        "covins_hamming_mutual_nn": [_P, _P, _I, _P, _P, _I, _F,
-                                     _P, _P, _P, _P, _P, _P],
+        "covins_hamming_mutual_nn": [_P, _P, _I, _P, _P, _I, _F, _P, _P, _P],
     },
     "project_match": {
         "covins_project_match": [_I, _P, _P, _I] + [_P] * 5 + [_I, _D, _D, _D]
                                 + [_P] * 5 + [_I] + [_P] * 4 + [_I, _D, _D, _F]
                                 + [_P] * 4,
     },
-    "p3p_score": {
-        "covins_p3p_score": [_P, _P, _P, _P, _P, _I, _I, _D, _P, _P, _P, _P,
-                             _P],
+    "p3p_ransac": {
+        "covins_p3p_ransac": [_P, _I, _P, _P, _P, _I, _P, _P, _I, _D] + [_P] * 9,
     },
     "pgo_matvec": {
         "covins_pgo_matvec": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _D, _P,
@@ -62,7 +60,7 @@ SIGNATURES = {
     },
     "gba_reproj_blocks": {
         "covins_gba_reproj_blocks": [_I, _I, _P, _P, _P, _I] + [_P] * 6 + [_I] * 3
-                                    + [_P] * 3 + [_I, _P, _P, _D] + [_P] * 10
+                                    + [_P] * 3 + [_I, _P, _P, _D] + [_P] * 13
                                     + [_I, _P],
     },
     "gba_reduced_matvec": {
@@ -82,7 +80,7 @@ SLOT_CAP = 2048
 # separate tensor operations do: no fused multiply-add contraction
 EXTRA_FLAGS = {
     "project_match": ["--fmad=false"],
-    "p3p_score": ["--fmad=false"],
+    "p3p_ransac": ["--fmad=false"],
     "pgo_matvec": ["--fmad=false"],
     "gba_reproj_blocks": ["--fmad=false"],
     "gba_reduced_matvec": ["--fmad=false"],

@@ -56,11 +56,18 @@ def check_cuda(name: str, *tensors: Optional[torch.Tensor]) -> torch.device:
     return dev
 
 
+def check_tensor(name: str, what: str, t: torch.Tensor, shape, dtype) -> int:
+    """Common wrapper check: ``t`` is a contiguous tensor of that shape and
+    dtype; returns its address for the kernel."""
+    if t.shape != shape or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"{name}: {what} must be a contiguous {shape} {dtype} "
+                         f"tensor, got {tuple(t.shape)} {t.dtype}")
+    return t.data_ptr()
+
+
 def check_f64(name: str, *named) -> None:
     """Common wrapper check: every (what, tensor, shape) is a contiguous
     float64 tensor of that shape; a None tensor passes."""
     for what, t, shape in named:
-        if t is not None and (t.shape != shape or t.dtype != torch.float64
-                              or not t.is_contiguous()):
-            raise ValueError(f"{name}: {what} must be a contiguous {shape} float64 "
-                             f"tensor, got {tuple(t.shape)} {t.dtype}")
+        if t is not None:
+            check_tensor(name, what, t, shape, torch.float64)

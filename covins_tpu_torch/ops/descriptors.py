@@ -171,7 +171,8 @@ def hamming_mutual_nn(a_u8: torch.Tensor, a_mask: torch.Tensor,
     nearest neighbour and whose nearest valid row is it, with Hamming
     distance < ``max_dist``.  Ties go to the lowest index on both sides.
     Returns ``idx (M,) int32``, -1 = no match.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel (K4) or raise."""
+    version; CUDA tensors launch the kernel (K4, one cooperative launch
+    that forms each distance once) or raise."""
     if all(is_cpu(t) for t in (a_u8, a_mask, b_u8, b_mask)):
         return hamming_mutual_nn_plain(a_u8, a_mask, b_u8, b_mask, max_dist)
     dev = check_cuda("hamming_mutual_nn", a_u8, a_mask, b_u8, b_mask)
@@ -182,16 +183,15 @@ def hamming_mutual_nn(a_u8: torch.Tensor, a_mask: torch.Tensor,
     _check_mask("hamming_mutual_nn b", b_mask, n)
     if max(m, n) >= 2**30:
         raise ValueError("hamming_mutual_nn: shape too large")
-    i32 = dict(dtype=torch.int32, device=dev)
-    fwd, dfwd, idx = (torch.empty(m, **i32) for _ in range(3))
-    bwd, dbwd = torch.empty(n, **i32), torch.empty(n, **i32)
+    # the row and column keys (distance << 32 | index) the kernel folds
+    keys = torch.empty(m + n, dtype=torch.int64, device=dev)
+    idx = torch.empty(m, dtype=torch.int32, device=dev)
     lib = cuda_build.library("hamming_mutual_nn")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.covins_hamming_mutual_nn(
             a_u8.data_ptr(), a_mask.data_ptr(), m, b_u8.data_ptr(),
-            b_mask.data_ptr(), n, float(max_dist), fwd.data_ptr(),
-            dfwd.data_ptr(), bwd.data_ptr(), dbwd.data_ptr(), idx.data_ptr(),
+            b_mask.data_ptr(), n, float(max_dist), keys.data_ptr(), idx.data_ptr(),
             stream)
     cuda_build.check(rc, "hamming_mutual_nn")
     hamming_mutual_nn.launches += 1

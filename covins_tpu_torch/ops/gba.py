@@ -257,6 +257,28 @@ def reproj_blocks_plain(p: GBAProblem, graph: ObsGraph, huber_k: float, mode: st
     return r, Jp, Jl, b6, M6, b_l, Hll
 
 
+def _given_projection(p: GBAProblem, code: int):
+    """What K8 reads in place of its own projection for a camera it does
+    not project (anything but a pinhole camera with no or radtan
+    distortion): each observation's pixel (O, 2) and validity (O,) uint8,
+    and for the linearisation d uv / d p_c (O, 2, 3), computed as the plain
+    version computes them; the cost mode's with the S states leading.
+    None for the cameras K8 projects itself."""
+    cam = p.cam
+    if cam.cam_model == cam_mod.PINHOLE and cam.dist_model in (cam_mod.DIST_NONE,
+                                                               cam_mod.RADTAN):
+        return None
+    pose, X = ((p.poses[:, p.obs_kf], p.lms[:, p.obs_lm]) if code == 1
+               else (p.poses[p.obs_kf], p.lms[p.obs_lm]))
+    p_c = res.camera_point(cam, pose, X)
+    if code == 0:
+        uv, valid, P = cam_mod.project3_jacobian(cam, p_c)
+        P = P.contiguous()
+    else:
+        (uv, valid), P = cam_mod.project3(cam, p_c), None
+    return uv.contiguous(), valid.to(torch.uint8), P
+
+
 def reproj_blocks(p: GBAProblem, graph: ObsGraph, huber_k: float = 0.0,
                   mode: str = "linearize", inputs: Optional[ReprojInputs] = None):
     """The reprojection factors of a GBA problem (K8), one launch per call.
@@ -271,18 +293,17 @@ def reproj_blocks(p: GBAProblem, graph: ObsGraph, huber_k: float = 0.0,
     ``mode="outlier"``: (||raw residual|| * obs_w (O,), valid (O,)), the
     norm `th_gba_outlier_global` thresholds.  ``inputs``: ``p``'s
     :class:`ReprojInputs`, built from ``p`` when None.  The norms take a
-    correctly rounded square root on both routes.  CPU tensors take the
-    plain version; CUDA tensors launch the kernel, or raise."""
+    correctly rounded square root on both routes.  The kernel projects a
+    pinhole camera with no or radtan distortion itself; for every other
+    camera the projection is computed in PyTorch and handed to it
+    (:func:`_given_projection`).  CPU tensors take the plain version; CUDA
+    tensors launch the kernel, or raise."""
     code = MODES[mode]
     ts = (p.poses, p.lms, p.obs_uv, p.obs_w, graph.kf_rowptr)
     if all(is_cpu(t) for t in ts):
         return reproj_blocks_plain(p, graph, huber_k, mode, inputs)
     dev = check_cuda("gba reproj blocks", *ts)
     cam = p.cam
-    if cam.cam_model != cam_mod.PINHOLE or cam.dist_model not in (
-            cam_mod.DIST_NONE, cam_mod.RADTAN):
-        raise NotImplementedError("gba reproj blocks: pinhole camera with no "
-                                  "or radtan distortion only")
     n, m, o = graph.kf_rowptr.shape[0] - 1, graph.lm_rowptr.shape[0] - 1, graph.kf_obs.shape[0]
     s = p.poses.shape[0] if code == 1 else 1
     lead = (s,) if code == 1 else ()
@@ -291,6 +312,7 @@ def reproj_blocks(p: GBAProblem, graph: ObsGraph, huber_k: float = 0.0,
               ("lms", lms, lead + (m, 3)), ("obs_uv", uv, (o, 2)))
     _check_graph("gba reproj blocks", graph, n, m, o)
     c = reproj_inputs(p) if inputs is None else inputs
+    given = _given_projection(p, code)
     f64 = dict(dtype=torch.float64, device=dev)
     out, val, valid = (None,) * 7, None, None
     if code == 0:
@@ -310,12 +332,13 @@ def reproj_blocks(p: GBAProblem, graph: ObsGraph, huber_k: float = 0.0,
     with torch.cuda.device(dev):
         rc = lib.covins_gba_reproj_blocks(
             code, s, poses.data_ptr(), lms.data_ptr(), c.cam.data_ptr(),
-            int(cam.dist_model), uv.data_ptr(), (c.w_raw if code == 2 else c.w).data_ptr(),
+            0 if given else int(cam.dist_model), uv.data_ptr(),
+            (c.w_raw if code == 2 else c.w).data_ptr(),
             c.kf_m.data_ptr(), c.lm_m.data_ptr(), graph.obs_kf32.data_ptr(),
             graph.obs_lm32.data_ptr(), o, n, m, graph.kf_obs.data_ptr(),
             graph.chunk_ptr.data_ptr(), graph.kf_chunk_ptr.data_ptr(), graph.n_chunks,
             graph.lm_rowptr.data_ptr(), graph.lm_obs.data_ptr(), float(huber_k),
-            *(_ptr(t) for t in out), _ptr(val), _ptr(valid), _ptr(scratch),
+            *(_ptr(t) for t in (given or (None,) * 3)), *(_ptr(t) for t in out), _ptr(val), _ptr(valid), _ptr(scratch),
             cuda_build.SLOT_CAP, torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, "gba reproj blocks")
     reproj_blocks.launches += 1

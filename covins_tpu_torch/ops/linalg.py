@@ -32,7 +32,7 @@ def sqrt_rn(x):
     on the CPU)."""
     if x.device.type != "cpu":
         return torch.sqrt(x)
-    return torch.from_numpy(np.sqrt(x.detach().numpy()))
+    return torch.from_numpy(np.asarray(np.sqrt(x.detach().numpy())))
 
 
 def inv33(A):

@@ -6,7 +6,7 @@ Counterpart of the COVINS path of `covins_tpu/ops/loopverify.py`:
 1. stage 1, mutual-NN descriptor matching of the two keyframes'
    landmark-tied observations (K4);
 2. stage 2, P3P RANSAC of the query bearings against the candidate's
-   world points (batched solves + K6 scoring);
+   world points (K6, the whole RANSAC in one launch);
 3. stage 3, `SearchBySE3` match extension through the estimate (K5);
 4. stage 4, relative-pose GN refinement with the `inliers_thres` gate;
 5. stage 5, projection of the candidate's loop neighbourhood into the
@@ -64,11 +64,12 @@ def covins_stage14(
     n_matched = torch.sum(matched)
     midx_c = torch.clamp(midx, 0, C - 1).long()
 
-    # stage 2: P3P RANSAC, query bearings vs candidate-world points
+    # stage 2: P3P RANSAC, query bearings vs candidate-world points (the
+    # correspondences are stage 1's matches, c_lm_w[midx_c] where matched)
     bear_q = cam_mod.back_project3(cam_q, q_obs_uv)
-    out2 = pnp.absolute_pose_ransac(c_lm_w[midx_c], bear_q, matched,
+    out2 = pnp.absolute_pose_ransac(c_lm_w, bear_q, q_obs_valid,
                                     n_hypotheses=n_hyp, threshold_rad=thr2_rad,
-                                    noise=noise, idx=idx)
+                                    noise=noise, idx=idx, rows=midx)
     n_inl2 = out2["n_inliers"]
     T_wc_cq = geo.pose_inverse(out2["T_c_w"])
     T_wc_sq = geo.pose_compose(T_wc_cq, geo.pose_inverse(cam_q.T_s_c))

@@ -6,6 +6,13 @@ reference's: both branches of each case split are evaluated and one is
 selected, so the results round as the reference's do.  The solvers return
 ``(roots, is_real)``: real roots with a trailing root axis, and for a
 complex-conjugate pair the pair's real part with ``is_real = False``.
+
+The P3P kernel (`csrc/p3p_ransac.cu`) repeats this arithmetic and is held
+to it bit for bit on the card, so every operation here is one that rounds
+alike in both: powers are written as products (``x ** 3`` as ``(x * x) *
+x``, the JAX package's integer power, where PyTorch would call ``pow``),
+and a division by 3 or 27 divides by a device tensor (PyTorch's CUDA
+division by a Python number multiplies by its rounded reciprocal).
 """
 
 from __future__ import annotations
@@ -22,6 +29,15 @@ def _safe(x, eps=1e-30):
 
 def _cbrt(x):
     return torch.sign(x) * torch.abs(x) ** (1.0 / 3.0)
+
+
+def _const(v, like):
+    """``v`` as a 0-d tensor beside ``like``: a true divisor on the card."""
+    return torch.full((), v, dtype=like.dtype, device=like.device)
+
+
+def _cube(x):
+    return (x * x) * x
 
 
 def solve_quadratic(a, b, c):
@@ -50,16 +66,17 @@ def solve_cubic(a, b, c, d):
     trigonometric branch for three real roots, Cardano for one."""
     a_s = _safe(a)
     b, c, d = b / a_s, c / a_s, d / a_s
-    p = c - b * b / 3.0
-    q = 2.0 * b ** 3 / 27.0 - b * c / 3.0 + d
+    three, c27 = _const(3.0, b), _const(27.0, b)
+    p = c - b * b / three
+    q = 2.0 * _cube(b) / c27 - b * c / three + d
     half_q = 0.5 * q
-    third_p = p / 3.0
-    disc = half_q * half_q + third_p ** 3
+    third_p = p / three
+    disc = half_q * half_q + _cube(third_p)
 
     r = torch.sqrt(torch.clamp(-third_p, min=0.0))
-    r3 = torch.clamp(r ** 3, min=1e-30)
+    r3 = torch.clamp(_cube(r), min=1e-30)
     cos3phi = torch.clamp(-half_q / r3, -1.0, 1.0)
-    phi = torch.arccos(cos3phi) / 3.0
+    phi = torch.arccos(cos3phi) / three
     two_pi_3 = 2.0943951023931953
     t_trig = torch.stack(
         [2.0 * r * torch.cos(phi - two_pi_3 * k) for k in range(3)], dim=-1)
@@ -72,7 +89,7 @@ def solve_cubic(a, b, c, d):
     t_card = torch.stack([t0, pair_re, pair_re], dim=-1)
 
     three_real = (disc <= 0.0)[..., None]
-    roots = torch.where(three_real, t_trig, t_card) - (b / 3.0)[..., None]
+    roots = torch.where(three_real, t_trig, t_card) - (b / three)[..., None]
     first = torch.arange(3, device=roots.device) == 0
     is_real = three_real | first
     return roots, is_real.expand(roots.shape)
@@ -85,8 +102,8 @@ def solve_quartic(a, b, c, d, e):
     a_s = _safe(a)
     b, c, d, e = b / a_s, c / a_s, d / a_s, e / a_s
     p = c - 3.0 * b * b / 8.0
-    q = d - b * c / 2.0 + b ** 3 / 8.0
-    r = e - b * d / 4.0 + b * b * c / 16.0 - 3.0 * b ** 4 / 256.0
+    q = d - b * c / 2.0 + _cube(b) / 8.0
+    r = e - b * d / 4.0 + b * b * c / 16.0 - 3.0 * ((b * b) * (b * b)) / 256.0
 
     m_roots, m_real = solve_cubic(torch.full_like(p, 8.0), 8.0 * p,
                                   2.0 * p * p - 8.0 * r, -q * q)

@@ -30,7 +30,7 @@ import math
 import torch
 
 from covins_tpu_torch import cuda_build
-from covins_tpu_torch.device import check_cuda, is_cpu
+from covins_tpu_torch.device import check_cuda, check_tensor, is_cpu
 from covins_tpu_torch.ops import descriptors as d_ops
 from covins_tpu_torch.ops import linalg
 from covins_tpu_torch.utils import cameras as cam_mod
@@ -145,11 +145,8 @@ def project_match_plain(cam, T_cw, p_w, lm_desc, lm_normal, lm_mask,
                              kp_octave, radius, kp_free, kp_desc, max_dist)
 
 
-def _checked(name, t, shape, dtype):
-    if t.shape != shape or t.dtype != dtype or not t.is_contiguous():
-        raise ValueError(f"project_match_core: {name} must be a contiguous {shape} "
-                         f"{dtype} tensor, got {tuple(t.shape)} {t.dtype}")
-    return t.data_ptr()
+def _checked(*a):
+    return check_tensor("project_match_core", *a)
 
 
 def project_match_core(cam, T_cw, p_w, lm_desc, lm_normal, lm_mask,

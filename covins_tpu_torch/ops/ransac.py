@@ -30,10 +30,11 @@ def gumbel_noise(generator: torch.Generator, n_sets: int, n: int,
 def sample_minimal_sets(noise: torch.Tensor, mask: torch.Tensor,
                         set_size: int) -> torch.Tensor:
     """(n_sets, set_size) int64 index sets of distinct valid indices: the
-    top ``set_size`` of each noise row after masking (largest first, as
-    `jax.lax.top_k`)."""
+    top ``set_size`` of each noise row after masking (largest first, ties
+    to the lowest index, as `jax.lax.top_k`; a stable sort, where
+    ``torch.topk`` leaves the order of ties open)."""
     g = torch.where(mask[None, :], noise, -torch.inf)
-    return torch.topk(g, set_size, dim=-1).indices
+    return torch.sort(g, dim=-1, descending=True, stable=True).indices[:, :set_size]
 
 
 def best_hypothesis(counts: torch.Tensor, valid=None) -> torch.Tensor:

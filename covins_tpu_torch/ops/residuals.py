@@ -28,10 +28,15 @@ def reprojection_residual(cam: cam_mod.Camera, T_w_s, p_w, uv_obs):
 
     T_w_s: (..., 7) body-to-world pose; p_w: (..., 3); uv_obs: (..., 2).
     Returns ((..., 2) residual, (...,) valid)."""
-    p_s = geo.pose_apply(geo.pose_inverse(T_w_s), p_w)
-    p_c = geo.pose_apply(geo.pose_inverse(cam.T_s_c), p_s)
-    uv, valid = cam_mod.project3(cam, p_c)
+    uv, valid = cam_mod.project3(cam, camera_point(cam, T_w_s, p_w))
     return uv - uv_obs, valid
+
+
+def camera_point(cam: cam_mod.Camera, T_w_s, p_w):
+    """p_c = T_s_c^-1 T_w_s^-1 p_w, the camera-frame point that the
+    reprojection residual projects."""
+    p_s = geo.pose_apply(geo.pose_inverse(T_w_s), p_w)
+    return geo.pose_apply(geo.pose_inverse(cam.T_s_c), p_s)
 
 
 def reprojection_jacobian(cam: cam_mod.Camera, T_w_s, p_w, uv_obs):

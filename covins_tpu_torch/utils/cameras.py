@@ -167,25 +167,46 @@ def project3(cam: Camera, p_c):
 
 
 def project3_jacobian(cam: Camera, p_c):
-    """(uv, valid, d uv / d p_c (..., 2, 3)) of a pinhole camera, the
-    derivative :func:`project3` has under forward-mode AD (zero along z
-    where the point is invalid, since the reference divides by 1 there)."""
-    if cam.cam_model != PINHOLE:
-        raise NotImplementedError("analytic projection Jacobian: pinhole only")
-    fx, fy, cx, cy = (cam.intrinsics[i] for i in range(4))
+    """(uv, valid, d uv / d p_c (..., 2, 3)): :func:`project3` with the
+    derivative it has under forward-mode AD, as the reference takes it with
+    ``jax.jacfwd``.  Where the point is invalid the reference divides by a
+    constant 1, so there d (xn, yn) / d p_c is [[1, 0, 0], [0, 1, 0]]
+    before distortion."""
+    fx, fy, cx, cy, xi = (cam.intrinsics[i] for i in range(5))
     x, y, z = p_c.unbind(-1)
-    valid = z > 1e-6
-    zs = torch.where(valid, z, 1.0)
-    xn, yn = x / zs, y / zs
+    if cam.cam_model == PINHOLE:
+        valid = z > 1e-6
+        den = torch.where(valid, z, 1.0)
+    elif cam.cam_model == OMNI:
+        d = torch.sqrt(x * x + y * y + z * z)
+        den = z + xi * d
+        valid = den > 1e-6
+        den = torch.where(valid, den, 1.0)
+    else:
+        raise ValueError(f"unknown camera model {cam.cam_model}")
+    xn, yn = x / den, y / den
     xd, yd, dxx, dxy, dyx, dyy = distort_with_jacobian(cam.dist_model, cam.dist,
                                                        xn, yn)
     uv = torch.stack([fx * xd + cx, fy * yd + cy], dim=-1)
-    # d (xn, yn) / d p_c = [[1/z, 0, -xn/z], [0, 1/z, -yn/z]] (z column 0
-    # where invalid), premultiplied by the distortion Jacobian and K
-    iz = 1.0 / zs
+    iz = 1.0 / den
     vz = torch.where(valid, iz, 0.0)
-    row_u = torch.stack([dxx * iz, dxy * iz, -(dxx * xn + dxy * yn) * vz], dim=-1)
-    row_v = torch.stack([dyx * iz, dyy * iz, -(dyx * xn + dyy * yn) * vz], dim=-1)
+    if cam.cam_model == PINHOLE:
+        # d (xn, yn) / d p_c = [[1/z, 0, -xn/z], [0, 1/z, -yn/z]] (z column
+        # 0 where invalid), premultiplied by the distortion Jacobian and K
+        row_u = torch.stack([dxx * iz, dxy * iz, -(dxx * xn + dxy * yn) * vz], dim=-1)
+        row_v = torch.stack([dyx * iz, dyy * iz, -(dyx * xn + dyy * yn) * vz], dim=-1)
+        return uv, valid, torch.stack([fx * row_u, fy * row_v], dim=-2)
+    # unified: with den = z + xi |p|, d den / d p = [xi x, xi y, |p| + xi z]
+    # / |p| (0 where invalid), and d xn / d p = [1, 0, 0] / den - xn / den *
+    # d den / d p, likewise yn
+    ds = torch.where(valid, d, 1.0)
+    g = torch.stack([xi * x / ds, xi * y / ds, 1.0 + xi * z / ds], dim=-1) * vz[..., None]
+    e0 = torch.tensor([1.0, 0.0, 0.0], dtype=p_c.dtype, device=p_c.device)
+    e1 = torch.tensor([0.0, 1.0, 0.0], dtype=p_c.dtype, device=p_c.device)
+    dxn = e0 * iz[..., None] - xn[..., None] * g
+    dyn = e1 * iz[..., None] - yn[..., None] * g
+    row_u = dxx[..., None] * dxn + dxy[..., None] * dyn
+    row_v = dyx[..., None] * dxn + dyy[..., None] * dyn
     return uv, valid, torch.stack([fx * row_u, fy * row_v], dim=-2)
 
 

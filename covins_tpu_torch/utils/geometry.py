@@ -198,16 +198,25 @@ def umeyama_alignment(src, dst, weights=None, with_scale=True):
     solver as the reference (`ops/linalg.jacobi_eigh`), so eigenvector
     signs and rounding follow it.  Batched over leading dims.  Returns the
     Sim(3) element (..., 8) with ``dst ~ sim3_apply(g, src)``.
+
+    The sums over the points, the 3x3 correlation, the quaternion's norm
+    and the rotation of the source centroid are written out in one fixed
+    order (the P3P kernel, `csrc/p3p_ransac.cu`, repeats them and is held
+    to them bit for bit; a reduction or a batched product on the card sums
+    in its own order).
     """
     if weights is None:
         weights = torch.ones(src.shape[:-1], dtype=src.dtype, device=src.device)
     wsum = torch.clamp(torch.sum(weights, dim=-1, keepdim=True), min=1e-12)
     w = (weights / wsum)[..., None]
-    mu_s = torch.sum(w * src, dim=-2)
-    mu_d = torch.sum(w * dst, dim=-2)
+    mu_s = _sum_points(w * src)
+    mu_d = _sum_points(w * dst)
     xs = src - mu_s[..., None, :]
     xd = dst - mu_d[..., None, :]
-    S = (w * xs).transpose(-1, -2) @ xd  # (..., 3, 3)
+    a = w * xs
+    S = a[..., 0, :, None] * xd[..., 0, None, :]  # (..., 3, 3)
+    for k in range(1, src.shape[-2]):
+        S = S + a[..., k, :, None] * xd[..., k, None, :]
     Sxx, Sxy, Sxz = S[..., 0, 0], S[..., 0, 1], S[..., 0, 2]
     Syx, Syy, Syz = S[..., 1, 0], S[..., 1, 1], S[..., 1, 2]
     Szx, Szy, Szz = S[..., 2, 0], S[..., 2, 1], S[..., 2, 2]
@@ -220,13 +229,24 @@ def umeyama_alignment(src, dst, weights=None, with_scale=True):
     evals, evecs = linalg.jacobi_eigh(N)  # ascending
     q = evecs[..., :, -1]
     q = torch.where(q[..., :1] >= 0, q, -q)
-    q = q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True),
-                        min=1e-30)
+    q0, q1, q2, q3 = q.unbind(-1)
+    nrm = linalg.sqrt_rn(((q0 * q0 + q1 * q1) + q2 * q2) + q3 * q3)
+    q = q / torch.clamp(nrm, min=1e-30)[..., None]
     R = quat_to_matrix(q)
     if with_scale:
         var_s = torch.sum(w * xs * xs, dim=(-2, -1))
         scale = evals[..., -1] / torch.clamp(var_s, min=1e-12)
     else:
         scale = torch.ones(src.shape[:-2], dtype=src.dtype, device=src.device)
-    t = mu_d - scale[..., None] * _matvec(R, mu_s)
+    Rmu = (R[..., :, 0] * mu_s[..., 0:1] + R[..., :, 1] * mu_s[..., 1:2]) \
+        + R[..., :, 2] * mu_s[..., 2:3]
+    t = mu_d - scale[..., None] * Rmu
     return torch.cat([q, t, scale[..., None]], dim=-1)
+
+
+def _sum_points(x):
+    """Sum of (..., N, 3) over the points, in their order."""
+    acc = x[..., 0, :]
+    for k in range(1, x.shape[-2]):
+        acc = acc + x[..., k, :]
+    return acc

@@ -15,6 +15,8 @@ import math
 import numpy as np
 import torch
 
+from covins_tpu_torch.utils import cameras as _cam
+
 GRAVITY = 9.81
 
 
@@ -132,7 +134,8 @@ def generate_landmarks(rng: np.random.Generator, n=500, radius=12.0):
 _T_S_C_FORWARD = (0.5, -0.5, 0.5, -0.5, 0.0, 0.0, 0.0)
 
 
-def build_gba_problem(n_kf=12, n_lm=96, seed=0, max_obs=None, device=None):
+def build_gba_problem(n_kf=12, n_lm=96, seed=0, max_obs=None, device=None,
+                      camera=None):
     """Synthetic visual-inertial GBA problem, the counterpart of the JAX
     package's `__graft_entry__._build_problem` (bench.py's GBA leg): the
     figure-8 trajectory with exact IMU at 100 Hz, ``n_lm`` landmarks, a
@@ -143,8 +146,10 @@ def build_gba_problem(n_kf=12, n_lm=96, seed=0, max_obs=None, device=None):
     of 8; keyframe 0 fixed, the others' poses perturbed by 0.02 per tangent
     component.  The draws are numpy's (``seed``), not ``jax.random``'s, so
     landmarks, perturbations and the observation count differ from the
-    reference's.  Returns (problem on ``device``, ground-truth poses
-    (K, 7), ground-truth landmarks (n_lm, 3)), numpy for the ground truth."""
+    reference's.  ``camera`` names one of :data:`SCENE_CAMERAS` (with xi
+    0.6 for the unified model) in place of that camera.  Returns (problem
+    on ``device``, ground-truth poses (K, 7), ground-truth landmarks
+    (n_lm, 3)), numpy for the ground truth."""
     from covins_tpu_torch.device import resolve_device
     from covins_tpu_torch.ops import gba, imu
     from covins_tpu_torch.utils import cameras as cam_mod
@@ -154,11 +159,14 @@ def build_gba_problem(n_kf=12, n_lm=96, seed=0, max_obs=None, device=None):
     rng = np.random.default_rng(seed)
     traj = generate(n_keyframes=n_kf, kf_dt=0.5, imu_rate=100.0)
     lms_gt = generate_landmarks(rng, n=n_lm)
+    model, dist_model, dist = ((cam_mod.PINHOLE, cam_mod.RADTAN, (0.0,) * 4)
+                               if camera is None else SCENE_CAMERAS[camera])
     cam_cpu = cam_mod.Camera(
-        intrinsics=torch.tensor([458.0, 457.0, 376.0, 240.0, 0.0], dtype=torch.float64),
-        dist=torch.zeros(4, dtype=torch.float64),
+        intrinsics=torch.tensor([458.0, 457.0, 376.0, 240.0, 0.0 if camera is None else 0.6],
+                                dtype=torch.float64),
+        dist=torch.tensor(dist, dtype=torch.float64),
         T_s_c=torch.tensor(_T_S_C_FORWARD, dtype=torch.float64),
-        cam_model=cam_mod.PINHOLE, dist_model=cam_mod.RADTAN)
+        cam_model=model, dist_model=dist_model)
     poses_gt = torch.from_numpy(traj.poses)
     T_c_w = geo.pose_inverse(geo.pose_compose(poses_gt, cam_cpu.T_s_c))
     p_c = geo.pose_apply(T_c_w[:, None], torch.from_numpy(lms_gt)[None])  # (K, L, 3)
@@ -192,7 +200,7 @@ def build_gba_problem(n_kf=12, n_lm=96, seed=0, max_obs=None, device=None):
         poses=t(poses), vels=t(traj.vels), biases=t(np.zeros((n_kf, 6))),
         kf_mask=t(np.ones(n_kf, bool), torch.bool), kf_fixed=t(fixed, torch.bool),
         cam=cam_mod.Camera(t(cam_cpu.intrinsics), t(cam_cpu.dist), t(cam_cpu.T_s_c),
-                           cam_mod.PINHOLE, cam_mod.RADTAN),
+                           model, dist_model),
         lms=t(np.concatenate([lms_gt, np.zeros((n_lm_pad - n_lm, 3))])),
         lm_mask=t(np.arange(n_lm_pad) < n_lm, torch.bool),
         obs_kf=t(obs_kf, torch.int64), obs_lm=t(obs_lm, torch.int64), obs_uv=t(obs_uv),
@@ -277,6 +285,16 @@ def stacked_states(p, S, seed=0):
             p.biases.expand(S, n, 6).clone(), p.lms + dl)
 
 
+# the scenes' cameras: (camera model, distortion model, distortion
+# parameters); "omni" is the unified model
+SCENE_CAMERAS = {
+    "pinhole": (_cam.PINHOLE, _cam.DIST_NONE, (0.0,) * 4),
+    "radtan": (_cam.PINHOLE, _cam.RADTAN, (-0.28, 0.07, 2e-4, 2e-5)),
+    "omni": (_cam.OMNI, _cam.RADTAN, (-0.1, 0.01, 1e-4, 1e-5)),
+    "equidistant": (_cam.PINHOLE, _cam.EQUIDISTANT, (0.01, -0.002, 0.0, 0.0)),
+}
+
+
 def project_match_scene(rng: np.random.Generator, L, F, device, camera="radtan",
                         view_angle=False, fail=False):
     """(args, kwargs) of `ops.projmatch.project_match_core` for a random
@@ -291,12 +309,7 @@ def project_match_scene(rng: np.random.Generator, L, F, device, camera="radtan",
     from covins_tpu_torch.utils import cameras as cam
     from covins_tpu_torch.utils import geometry as geo
 
-    model, dist_model, dist = {
-        "pinhole": (cam.PINHOLE, cam.DIST_NONE, (0.0,) * 4),
-        "radtan": (cam.PINHOLE, cam.RADTAN, (-0.28, 0.07, 2e-4, 2e-5)),
-        "omni": (cam.OMNI, cam.RADTAN, (-0.1, 0.01, 1e-4, 1e-5)),
-        "equidistant": (cam.PINHOLE, cam.EQUIDISTANT, (0.01, -0.002, 0.0, 0.0)),
-    }[camera]
+    model, dist_model, dist = SCENE_CAMERAS[camera]
     f64 = dict(dtype=torch.float64)
     c = cam.Camera(torch.tensor([458.0, 457.0, 376.0, 240.0, 0.6], **f64),
                    torch.tensor(dist, **f64), torch.tensor([1.0, 0, 0, 0, 0, 0, 0], **f64),
@@ -327,3 +340,44 @@ def project_match_scene(rng: np.random.Generator, L, F, device, camera="radtan",
             t(kp_desc), t(rng.integers(0, 4, F).astype(np.float64)), t(rng.random(F) > 0.1),
             6.0, 50.0, 752.0, 480.0]
     return args, {"check_view_angle": view_angle}
+
+
+def p3p_scene(rng: np.random.Generator, N, n_valid, H, device, sets="noise", case=None,
+              threshold_rad=0.01):
+    """(args, kwargs) of `ops.pnp.absolute_pose_ransac` in the form stage 2
+    of the loop verification calls it: a table of N candidate landmarks
+    (C = N) in front of a camera, N query bearings of which the first
+    ``n_valid`` are matched (``rows`` >= 0, permuted rows of the table; a
+    fifth of the matches have a random bearing, the rest the true one with
+    noise) and the rest padded or unmatched (``mask`` False or ``rows``
+    -1); ``H`` hypotheses from Gumbel ``noise`` (H, N) or random ``idx``
+    (H, 3) over the matches.  ``case``: "few", two matches only (the
+    minimal sets take unmatched rows), or "degenerate", every table point
+    the same (every root invalid)."""
+    from covins_tpu_torch.utils import geometry as geo
+
+    q = rng.normal(size=4)
+    T_c_w = torch.tensor(np.concatenate([q / np.linalg.norm(q), rng.normal(size=3)]))
+    p_c = np.stack([rng.uniform(-2, 2, N), rng.uniform(-1.5, 1.5, N), rng.uniform(3, 9, N)], 1)
+    table = geo.pose_apply(geo.pose_inverse(T_c_w), torch.tensor(p_c)).numpy()
+    if case == "degenerate":
+        table[:] = table[0]
+    n_valid = 2 if case == "few" else n_valid
+    perm = rng.permutation(N)
+    rows = np.full(N, -1, np.int32)
+    rows[:n_valid] = perm[:n_valid]
+    bear = geo.pose_apply(T_c_w, torch.tensor(table[perm])).numpy() \
+        + 0.002 * rng.normal(size=(N, 3))
+    bad = rng.random(N) < 0.2
+    bear[bad] = rng.normal(size=(int(bad.sum()), 3)) + [0.0, 0.0, 4.0]
+    bear /= np.linalg.norm(bear, axis=1, keepdims=True)
+    mask = np.arange(N) < min(N, n_valid + (N - n_valid) // 2)  # a padded tail
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)  # noqa: E731
+    kw = {"n_hypotheses": H, "threshold_rad": threshold_rad, "rows": t(rows)}
+    if sets == "noise":
+        u = np.clip(rng.random((H, N)), np.finfo(np.float64).tiny, None)
+        kw["noise"] = t(-np.log(-np.log(u)))
+    else:
+        kw["idx"] = t(rng.integers(0, max(n_valid, 3), (H, 3)).astype(np.int64))
+    return [t(table), t(bear), t(mask)], kw
+

@@ -31,7 +31,7 @@ def test_kernel_sources_include_the_shared_geometry():
     for name in ("project_match", "gba_reproj_blocks"):
         assert [p.name for p in cuda_build._sources(name)] == [
             f"{name}.cu", "coop_launch.cuh", "geometry.cuh"]
-    for name in ("pgo_matvec", "gba_reduced_matvec"):
+    for name in ("pgo_matvec", "gba_reduced_matvec", "hamming_mutual_nn", "p3p_ransac"):
         assert [p.name for p in cuda_build._sources(name)] == [f"{name}.cu", "coop_launch.cuh"]
     for name in cuda_build.SIGNATURES:
         assert all(p.exists() for p in cuda_build._sources(name))

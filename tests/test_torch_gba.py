@@ -177,6 +177,50 @@ def test_gn_schur_step_matches_reference(problems, variant):
                                            (p.poses, p.vels, p.biases, p.lms), False))
 
 
+@pytest.mark.parametrize("camera", ["omni", "equidistant"])
+def test_gn_schur_step_with_other_cameras_matches_reference(problems, camera):
+    """One LM step (fused PCG, 60 iterations) on the reference's problem
+    seen through the unified camera model or a pinhole camera with
+    equidistant distortion (`synthetic.SCENE_CAMERAS`, xi 0.6): the same
+    observations, their pixels the ground truth's projection through that
+    camera plus the problem's own pixel noise.  The port writes the
+    projection Jacobian out where the reference takes ``jax.jacfwd``; the
+    step is held to the pinhole step's bound (10x the reference's one-ulp
+    spread), the damping exactly."""
+    from covins_tpu.utils import cameras as ref_cam
+    from covins_tpu.utils import geometry as ref_geo
+    from covins_tpu_torch.utils.synthetic import SCENE_CAMERAS
+
+    rp, _ = problems
+    _, traj, lms_gt = _build_problem()
+    model, dist_model, dist = SCENE_CAMERAS[camera]
+    rc = ref_cam.Camera(rp.cam.intrinsics.at[4].set(0.6), jnp.asarray(dist, jnp.float64),
+                        rp.cam.T_s_c, model, dist_model)
+
+    def pixels(c):
+        T_c_w = ref_geo.pose_inverse(ref_geo.pose_compose(traj.poses[rp.obs_kf], c.T_s_c))
+        uv, valid = ref_cam.project3(c, ref_geo.pose_apply(T_c_w, lms_gt[rp.obs_lm]))
+        return np.asarray(uv), np.asarray(valid)
+
+    uv_pin, _ = pixels(rp.cam)
+    uv_new, valid = pixels(rc)
+    assert valid.all()
+    rq = dataclasses.replace(rp, cam=rc, obs_uv=jnp.asarray(uv_new + (np.asarray(rp.obs_uv)
+                                                                       - uv_pin)))
+    q = gba_problem_from_reference(rq, device="cpu")
+    step = jax.jit(lambda st, lam: ref_gba._gn_schur_step(rq, st, lam, 60, False))
+    rs, rlam, rc_ = step((rq.poses, rq.vels, rq.biases, rq.lms), jnp.asarray(1e-4))
+    s, lam, c = gba._gn_schur_step(q, gba.obs_graph(q), (q.poses, q.vels, q.biases, q.lms),
+                                   torch.tensor(1e-4, dtype=torch.float64), 60, False)
+    d_state, d_cost = STEP_SPREAD["fused"]
+    for a, b in zip(s, rs):
+        assert float(np.abs(a.numpy() - np.asarray(b)).max()) <= FACTOR * d_state
+    assert _rel(float(c), float(rc_)) <= FACTOR * d_cost
+    assert float(lam) == float(rlam)
+    assert float(c) < float(gba.total_cost(q, gba.obs_graph(q),
+                                           (q.poses, q.vels, q.biases, q.lms), False))
+
+
 @pytest.mark.parametrize("visual_only,huber", [(False, 0.0), (False, 2.447), (True, 0.0)])
 def test_batched_total_cost_equals_single_evaluations(problems, visual_only, huber):
     """The step ladder's seven costs in one evaluation (the states stacked

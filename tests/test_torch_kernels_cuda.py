@@ -19,8 +19,10 @@ and distances exactly (its float64 prologue and gates are built without
 FMA contraction and in the plain version's operation order, whose
 separate operations round alike), with the camera models whose prologue
 PyTorch computes, every landmark failing, and more features than shared
-memory holds; K6's counts, best pose and inlier mask exactly, except for a
-correspondence within 1e-12 rad of the threshold; K7 to 1e-12 relative
+memory holds; K4 (stage 1 in one launch) also with ties, every row or
+column masked and M != N; K6 (all of P3P RANSAC in one launch) its counts,
+best pose and inlier mask exactly and every root's pose bit for bit; K7
+to 1e-12 relative
 and bit for bit between two launches; K8 and K10 to 1e-13 relative, K9
 to 1e-13 of the sums of magnitudes behind each output (a landmark seen
 once or twice has a nearly singular Hll, so its terms cancel), all
@@ -29,7 +31,9 @@ observations in the plain version's order (K9's keyframe sums in fixed
 chunks of consecutive observations, then the chunks in order) and rounded
 apart only where PyTorch's library products sum another way; bit for bit
 between two launches; K8's validity and outlier decisions exactly, and
-its cost of 1 and of 7 stacked states per state to 1e-13 relative.  The
+its cost of 1 and of 7 stacked states per state to 1e-13 relative, also
+for the unified camera and equidistant distortion, whose projection
+PyTorch hands it.  The
 two PCG kernels (a Gauss-Newton step's whole loop per launch) within 10x
 the largest of their plain loop's own changes under three rounding
 differences (one ulp added to b, one ulp taken off, its dot products
@@ -44,7 +48,7 @@ import pytest
 import torch
 
 from covins_tpu_torch.ops import bow, descriptors, landmark_ops, pgo, pnp, projmatch
-from covins_tpu_torch.utils.synthetic import project_match_scene, stacked_states
+from covins_tpu_torch.utils.synthetic import p3p_scene, project_match_scene, stacked_states
 
 
 @pytest.fixture
@@ -174,6 +178,41 @@ def test_hamming_mutual_nn_matches_plain(dev, m, n):
     assert torch.equal(got.cpu(), cpu)
 
 
+@pytest.mark.parametrize("case", ["ties", "rows_masked", "cols_masked", "tall", "wide",
+                                  "one_row", "one_col"])
+def test_hamming_mutual_nn_edge_cases_match_plain(dev, case):
+    """Stage 1 in one launch against its plain version, exactly: many
+    equal distances (one descriptor repeated down rows and columns, so
+    ties go to the lowest index on both sides), every row or every column
+    masked, M != N at ragged sizes; one launch per call, equal results on
+    relaunch."""
+    rng = np.random.default_rng(len(case))
+    m, n = {"tall": (1000, 77), "wide": (65, 3000), "one_row": (1, 200),
+            "one_col": (300, 1)}.get(case, (333, 517))
+    a, b = _desc(rng, m), _desc(rng, n)
+    am, bm = rng.random(m) > 0.3, rng.random(n) > 0.3
+    if case == "ties":
+        a[::3] = a[0]
+        b[::2] = a[0]
+        b[1::4] = a[0] ^ 1
+    a[: min(m, n) // 3] = b[: min(m, n) // 3]
+    if case == "rows_masked":
+        am[:] = False
+    if case == "cols_masked":
+        bm[:] = False
+    ta, tb, tam, tbm = (torch.from_numpy(x).to(dev) for x in (a, b, am, bm))
+    before = descriptors.hamming_mutual_nn.launches
+    got = descriptors.hamming_mutual_nn(ta, tam, tb, tbm, 50.0)
+    again = descriptors.hamming_mutual_nn(ta, tam, tb, tbm, 50.0)
+    assert descriptors.hamming_mutual_nn.launches == before + 2
+    ref = descriptors.hamming_mutual_nn_plain(ta, tam, tb, tbm, 50.0)
+    assert torch.equal(got, ref) and torch.equal(got, again)
+    if case in ("rows_masked", "cols_masked"):
+        assert not bool((got >= 0).any())
+    elif case not in ("one_row", "one_col"):
+        assert int((got >= 0).sum()) > 0
+
+
 # the scenes of chip_smoke's K5 checks: the camera whose prologue the kernel
 # computes (pinhole without and with radtan distortion), with the view-angle
 # gate, every landmark failing, and the camera models whose prologue the
@@ -216,25 +255,61 @@ def test_project_match_refuses_bad_inputs(dev):
         projmatch.project_match_core(*bad, **kw)
 
 
-@pytest.mark.parametrize("H,N", [(1, 3), (37, 100), (1200, 1024)])
-def test_p3p_score_kernel_matches_plain(dev, H, N):
-    rng = np.random.default_rng(H + N)
-    q = rng.normal(size=(H, 4))
-    q /= np.linalg.norm(q, axis=1, keepdims=True)
-    T = np.concatenate([q, 0.1 * rng.normal(size=(H, 3))], 1)
-    T[H // 2:] = T[: H - H // 2]  # tied counts: the first maximum wins
-    P = rng.normal(size=(N, 3)) + [0, 0, 5]
-    B = rng.normal(size=(N, 3)) + [0, 0, 3]
-    B /= np.linalg.norm(B, axis=1, keepdims=True)
-    args = [torch.from_numpy(x).to(dev) for x in
-            (T, P, B, rng.random(N) > 0.1, rng.random(H) > 0.2)]
-    before = pnp.p3p_score.launches
-    counts, best, inl, n_inl = pnp.p3p_score(*args, 0.6)
-    assert pnp.p3p_score.launches == before + 1
-    rcounts, rbest, rinl, rn = pnp.p3p_score_plain(*args, 0.6)
-    assert torch.equal(counts, rcounts)
-    assert int(best) == int(rbest) and int(n_inl) == int(rn)
-    assert torch.equal(inl, rinl)
+# stage 2 scenes (utils/synthetic.p3p_scene): correspondences, matches,
+# hypotheses, minimal sets from, case
+K6_CASES = {"drain": (1024, 195, 300, "noise", None), "idx": (1024, 195, 300, "idx", None),
+            "ragged": (100, 37, 37, "noise", None), "minimal": (3, 3, 1, "noise", None),
+            "few_noise": (1024, 195, 300, "noise", "few"),
+            "few_idx": (1024, 195, 300, "idx", "few"),
+            "all_invalid": (1024, 195, 300, "noise", "degenerate"),
+            "unstaged": (6000, 700, 64, "noise", None),
+            "no_rows": (500, 500, 64, "noise", None)}
+
+
+def _nan_equal(a, b):
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+@pytest.mark.parametrize("case", list(K6_CASES))
+def test_p3p_ransac_kernel_matches_plain(dev, case):
+    """All of stage 2 (minimal sets, P3P, scoring, the first best pose) in
+    one launch against its plain version: counts, best pose and inlier mask
+    exactly, every root's pose bit for bit (NaN where both are), equal on
+    relaunch; "unstaged" has more correspondences than a block's shared
+    memory holds, "no_rows" passes the correspondences without stage 1's
+    rows."""
+    N, n_valid, H, sets, kind = K6_CASES[case]
+    args, kw = p3p_scene(np.random.default_rng(N + H), N, n_valid, H, dev, sets=sets,
+                         case=kind)
+    if case == "no_rows":
+        rows = kw.pop("rows")
+        args = [args[0][rows.clamp(min=0).long()].contiguous(), args[1],
+                args[2] & (rows >= 0)]
+    before = pnp.absolute_pose_ransac.launches
+    got = pnp.absolute_pose_ransac(*args, **kw)
+    again = pnp.absolute_pose_ransac(*args, **kw)
+    assert pnp.absolute_pose_ransac.launches == before + 2
+    ref = pnp.absolute_pose_ransac_plain(*args, **kw)
+    assert torch.equal(got["counts"], ref["counts"])
+    assert int(got["best"]) == int(ref["best"]) and int(got["n_inliers"]) == int(ref["n_inliers"])
+    assert torch.equal(got["inliers"], ref["inliers"])
+    for k in got:
+        assert _nan_equal(got[k], again[k]), k
+    assert _nan_equal(got["poses"], ref["poses"]) and _nan_equal(got["T_c_w"], ref["T_c_w"])
+    if kind == "degenerate":
+        assert not bool((got["counts"] >= 0).any()) and int(got["best"]) == 0
+    elif kind is None and n_valid > 30:
+        assert int(got["n_inliers"]) > n_valid // 2
+
+
+def test_p3p_ransac_refuses_bad_inputs(dev):
+    args, kw = p3p_scene(np.random.default_rng(0), 64, 20, 8, dev)
+    with pytest.raises(ValueError):
+        pnp.absolute_pose_ransac(args[0].float(), *args[1:], **kw)
+    with pytest.raises(ValueError):
+        pnp.absolute_pose_ransac(*args, **{**kw, "rows": kw["rows"].long()})
+    with pytest.raises(RuntimeError):
+        pnp.absolute_pose_ransac(args[0].cpu(), *args[1:], **kw)
 
 
 @pytest.mark.parametrize("N,E", [(1, 1), (9, 20), (256, 1300)])
@@ -354,6 +429,52 @@ def test_gba_reproj_blocks_kernel_matches_plain(dev, huber, n_kf, n_lm, max_obs)
     val, valid = gba.reproj_blocks(pd, gd, 0.0, "outlier")
     cval, cvalid = gba.reproj_blocks(pc, gc, 0.0, "outlier")
     assert torch.equal((val < 0.92).cpu(), cval < 0.92)
+
+
+@pytest.mark.parametrize("camera", ["omni", "equidistant"])
+@pytest.mark.parametrize("huber", [0.0, 2.447])
+def test_gba_reproj_blocks_given_projection_matches_plain(dev, camera, huber):
+    """K8 for the cameras it does not project itself (the unified model,
+    equidistant distortion), the projection handed to it from PyTorch: the
+    linearisation, the cost of 1 and 7 stacked states and the outlier norm
+    against the plain version to 1e-13 relative, validity exactly, bit for
+    bit on relaunch."""
+    import dataclasses
+
+    from covins_tpu_torch.ops import gba
+    from covins_tpu_torch.utils import synthetic
+
+    pc, _, _ = synthetic.build_gba_problem(n_kf=12, n_lm=150, max_obs=700, device="cpu",
+                                           camera=camera)
+    rng = np.random.default_rng(1)
+    o = pc.obs_kf.shape[0]
+    uv = pc.obs_uv.clone()
+    uv[: o // 10] += torch.from_numpy(20.0 * rng.normal(size=(o // 10, 2)))
+    lms = pc.lms.clone()
+    lms[int(pc.obs_lm[0])] = pc.poses[int(pc.obs_kf[0]), 4:7]  # at the camera: invalid
+    pc = dataclasses.replace(pc, obs_uv=uv, lms=lms)
+    pd = gba.problem_to(pc, dev)
+    gd = gba.obs_graph(pd)
+    before = gba.reproj_blocks.launches
+    got = gba.reproj_blocks(pd, gd, huber, "linearize")
+    again = gba.reproj_blocks(pd, gd, huber, "linearize")
+    assert gba.reproj_blocks.launches == before + 2
+    ref = gba.reproj_blocks_plain(pd, gd, huber, "linearize")
+    for g, a, r in zip(got, again, ref):
+        assert torch.equal(g, a)
+        assert _rel(g, r) <= 1e-13
+    val, valid = gba.reproj_blocks(pd, gd, huber, "outlier")
+    rval, rvalid = gba.reproj_blocks_plain(pd, gd, huber, "outlier")
+    assert torch.equal(valid, rvalid) and not bool(valid.all())
+    assert _rel(val, rval) <= 1e-13
+    for S in (1, 7):
+        st = stacked_states(pd, S)
+        ps = gba._with_state(pd, st)
+        cost = gba.reproj_blocks(ps, gd, huber, "cost")
+        assert torch.equal(cost, gba.reproj_blocks(ps, gd, huber, "cost"))
+        for k in range(S):
+            one = gba._with_state(pd, tuple(x[k:k + 1] for x in st))
+            assert _rel(cost[k:k + 1], gba.reproj_blocks_plain(one, gd, huber, "cost")) <= 1e-13
 
 
 @pytest.mark.parametrize("n_kf,n_lm,max_obs", [(3, 16, None), (12, 150, 700)])

@@ -149,6 +149,45 @@ def test_relative_pose_refinement_matches_reference():
     np.testing.assert_allclose(T.numpy(), np.asarray(rT), rtol=0, atol=1e-8)
 
 
+@pytest.mark.parametrize("camera", ["omni", "equidistant"])
+def test_relative_pose_refinement_with_other_cameras_matches_reference(camera):
+    """Stage 4 with the unified camera model (xi 0.9) and with equidistant
+    distortion, whose projection Jacobian the port writes out where the
+    reference takes ``jax.jacfwd``: the same inliers, and the refined pose
+    within the pinhole test's 1e-8."""
+    from covins_tpu_torch.utils.synthetic import SCENE_CAMERAS
+
+    model, dist_model, dist = SCENE_CAMERAS[camera]
+    rng = np.random.default_rng(13)
+    intr = np.asarray([458.654, 457.296, 367.215, 248.375, 0.9])
+    T_s_c = np.asarray([0.99, 0.05, -0.1, 0.02, 0.05, -0.02, 0.01])
+    T_s_c[:4] /= np.linalg.norm(T_s_c[:4])
+    T_true = np.asarray([0.98, 0.02, 0.15, -0.05, 0.3, -0.1, 0.2])
+    T_true[:4] /= np.linalg.norm(T_true[:4])
+    n = 200
+    p2 = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n),
+                   rng.uniform(3, 8, n)], 1)
+    p1 = np.asarray(ref_geo.pose_apply(jnp.asarray(T_true), jnp.asarray(p2)))
+    p1 = p1 + 0.01 * rng.normal(size=p1.shape)
+    p1[:20] += rng.normal(size=(20, 3))  # outliers
+    mask = rng.random(n) > 0.1
+    T0 = T_true + np.concatenate([0.02 * rng.normal(size=4), 0.05 * rng.normal(size=3)])
+    T0[:4] /= np.linalg.norm(T0[:4])
+    rc = ref_cam.Camera(jnp.asarray(intr), jnp.asarray(dist, jnp.float64),
+                        jnp.asarray(T_s_c), model, dist_model)
+    pc = cam.Camera(torch.tensor(intr), torch.tensor(dist, dtype=torch.float64),
+                    torch.tensor(T_s_c), model, dist_model)
+    rT, rinl, rn = ref_relpose.optimize_relative_pose(
+        rc, rc, jnp.asarray(T0), jnp.asarray(p1), jnp.asarray(p2),
+        jnp.asarray(mask), th_outlier=1.3)
+    T, inl, nn = relpose.optimize_relative_pose(
+        pc, pc, torch.tensor(T0), torch.tensor(p1), torch.tensor(p2),
+        torch.tensor(mask), th_outlier=1.3)
+    assert int(nn) == int(rn) > 100
+    np.testing.assert_array_equal(inl.numpy(), np.asarray(rinl))
+    np.testing.assert_allclose(T.numpy(), np.asarray(rT), rtol=0, atol=1e-8)
+
+
 @pytest.mark.parametrize("dist_model", [cam.DIST_NONE, cam.RADTAN])
 def test_written_out_jacobian_matches_forward_mode_ad(dist_model):
     """The relative-pose Jacobian is written out where the reference uses

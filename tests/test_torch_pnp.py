@@ -99,7 +99,7 @@ def test_p3p_score_plain_matches_reprojection_error():
     Ts = np.repeat(T[None], 40, 0)
     Ts[1:, 4:] += 0.01 * rng.normal(size=(39, 3))
     valid = rng.random(40) > 0.2
-    counts, best, inl, n_inl = pnp.p3p_score(
+    counts, best, inl, n_inl = pnp.p3p_score_plain(
         torch.tensor(Ts), torch.tensor(p_w), torch.tensor(b),
         torch.tensor(mask), torch.tensor(valid), 0.006)
     err = ref_pnp.reprojection_angular_error(jnp.asarray(Ts), jnp.asarray(p_w),
@@ -130,3 +130,55 @@ def test_best_hypothesis_matches_reference(with_valid):
     got = ransac.best_hypothesis(torch.tensor(counts),
                                  None if v is None else torch.tensor(v))
     assert int(got) == int(ref) == (120 if with_valid else 17)
+
+
+@pytest.mark.parametrize("sets", ["noise", "idx"])
+def test_absolute_pose_ransac_from_stage1_matches_reference(sets):
+    """Stage 2 as the verification calls it, from stage 1's matches: the
+    candidate table, the query bearings, their validity and the matched
+    rows (-1 = none).  The same as the gathered correspondences with the
+    mask ``valid & rows >= 0``, and as the body of the JAX package's
+    `absolute_pose_ransac` on those with the same minimal sets (for noise,
+    `jax.lax.top_k`'s sets of the same masked noise): every root's count
+    and the best index, the inliers exactly, the pose to 1e-9."""
+    from covins_tpu_torch.utils.synthetic import p3p_scene
+
+    (table, bear, mask), kw = p3p_scene(np.random.default_rng(21), 300, 80, 64, "cpu",
+                                        sets=sets)
+    rows = kw.pop("rows")
+    got = pnp.absolute_pose_ransac(table, bear, mask, rows=rows, **kw)
+    points = table[rows.clamp(min=0).long()]
+    valid = mask & (rows >= 0)
+    same = pnp.absolute_pose_ransac(points, bear, valid, **kw)
+    for k in got:
+        assert torch.equal(got[k], same[k]), k
+    P, B, v = (jnp.asarray(x.numpy()) for x in (points, bear, valid))
+    if sets == "noise":
+        idx = jax.lax.top_k(jnp.where(v[None], jnp.asarray(kw["noise"].numpy()), -jnp.inf),
+                            3)[1]
+    else:
+        idx = jnp.asarray(kw["idx"].numpy())
+    T, ok = jax.vmap(lambda ix: ref_pnp.p3p_grunert(P[ix], B[ix]))(idx)
+    T = T.reshape(-1, 7)
+    inl = (ref_pnp.reprojection_angular_error(T, P, B) < kw["threshold_rad"]) & v[None]
+    counts = np.asarray(jnp.where(ok.reshape(-1), inl.sum(-1), -1))
+    best = int(np.argmax(counts))
+    np.testing.assert_array_equal(got["counts"].numpy(), counts)
+    assert int(got["best"]) == best and int(got["n_inliers"]) == counts[best] > 40
+    np.testing.assert_array_equal(got["inliers"].numpy(), np.asarray(inl[best]))
+    np.testing.assert_allclose(got["T_c_w"].numpy(), np.asarray(T[best]), rtol=0, atol=1e-9)
+
+
+def test_minimal_sets_with_fewer_than_three_valid_match_top_k():
+    """With fewer valid correspondences than a minimal set holds, the sets
+    fill with invalid ones, the lowest indices first, as `jax.lax.top_k`
+    orders ties."""
+    rng = np.random.default_rng(8)
+    noise = rng.gumbel(size=(40, 50))
+    for n_valid in (0, 1, 2):
+        mask = np.zeros(50, bool)
+        mask[rng.choice(50, n_valid, replace=False)] = True
+        g = jnp.where(jnp.asarray(mask)[None], jnp.asarray(noise), -jnp.inf)
+        ref = np.asarray(jax.lax.top_k(g, 3)[1])
+        got = ransac.sample_minimal_sets(torch.tensor(noise), torch.tensor(mask), 3)
+        np.testing.assert_array_equal(got.numpy(), ref)
