@@ -10,8 +10,10 @@ package beside it.  Phases:
    parallel);
 1. each kernel against its plain PyTorch version on the card, on inputs
    made from a numpy seed at the main path's shapes and at ragged ones:
-   K1, K2, K4 and K5 exactly (K4, stage 1 in one launch that forms each
-   distance once; K5, the whole of project-and-match in one
+   K2, the whole landmark-attribute refresh in one launch, its descriptors
+   exactly and its normals and distance ranges bit for bit (also its
+   descriptor part alone); K1, K4 and K5 exactly (K4, stage 1 in one
+   launch that forms each distance once; K5, the whole of project-and-match in one
    launch, also with every landmark failing, the unified camera whose
    prologue PyTorch computes, and more features than shared memory holds;
    with the PyTorch operations one call issues), K3 to rtol 1e-6, K6 (all
@@ -20,8 +22,9 @@ package beside it.  Phases:
    correspondences than shared memory holds) its counts, best pose and
    inlier mask exactly and every root's pose bit for bit (else within
    1e-12 relative, printed), with at most 10 PyTorch operations a call, K7
-   to 1e-12 relative, K8 and K10 to 1e-13 relative (K8's linearisation, and
-   its cost of 1 and of 7 stacked states per state, each one launch and
+   to 1e-12 relative, K8 and K10 to 1e-13 relative (K10, one warp per
+   factor, also at 255 x 256, the shape `Map.to_gba_problem` gives it;
+   K8's linearisation, and its cost of 1 and of 7 stacked states per state, each one launch and
    timed; also for the unified camera and equidistant distortion, whose
    projection PyTorch hands the kernel), K9 to 1e-13 of the sums of
    magnitudes behind each output, the two PCG kernels (pgo_pcg, 100
@@ -51,9 +54,11 @@ package beside it.  Phases:
    run on loops, merges, accepted pairs, loop transforms and every map's
    poses; then each kernel replayed on the card on the largest input the
    CPU pass gave it (K5: the largest of verification stage 3 and of stage
-   5), against its plain version, timed beside its bound;
+   5), against its plain version, timed beside its bound (K1, K2, K3 and
+   K10 also their busy time; K2 also the PyTorch operations of one map
+   refresh and of its write-back);
 3. a five-agent deployment (5 x 32 KF) with place recognition on, card
-   only;
+   only, and K2 replayed at its largest refresh cohort;
 4. the ingest-only path (``placerec_active=False``) on the benchmark
    workload, card against CPU, every map array and database row compared;
 5. bench.py's GBA problem (256 KF, 8192 landmarks, max_obs 61440) through
@@ -248,6 +253,7 @@ def k1_case(a, b, mask, reps):
     bnd, by = bound(m * 32 + n * 32 + m + 8 * m, (2.0 * m * n * 256, INT8_OPS_S))
     return {
         "kernel_ms": cuda_ms(lambda: d.hamming_argmin(a, b, mask), reps),
+        "busy_ms": busy_ms(lambda: d.hamming_argmin(a, b, mask), reps),
         "plain_ms": cuda_ms(lambda: d.hamming_argmin_plain(a, b, mask), reps),
         "library_ms": cuda_ms(lambda: pm1_bf16_argmin(a, b), reps),
         "bound_ms": bnd, "bound_by": by,
@@ -255,7 +261,9 @@ def k1_case(a, b, mask, reps):
     }
 
 
-def k2_case(descs, mask, reps):
+def k2_descriptors_case(descs, mask, reps):
+    """K2's descriptor part (`landmark_ops.representative_descriptors` on
+    the card) against its plain version, exactly."""
     import torch
 
     from covins_tpu_torch.ops import landmark_ops as lo
@@ -263,15 +271,54 @@ def k2_case(descs, mask, reps):
     out = lo.representative_descriptors(descs, mask)
     ref = lo.representative_descriptors_plain(descs, mask)
     torch.cuda.synchronize()
-    check(torch.equal(out, ref), f"K2 disagrees at {tuple(descs.shape)}")
-    L, P, _ = descs.shape
-    bnd, by = bound(L * P * 33 + L * 32, (2.0 * L * P * P * 256, INT8_OPS_S))
+    check(torch.equal(out, ref), f"K2's descriptors disagree at {tuple(descs.shape)}")
+    return {"kernel_ms": cuda_ms(lambda: lo.representative_descriptors(descs, mask), reps),
+            "max_abs_err": int((out.int() - ref.int()).abs().max().item())}
+
+
+def refresh_bytes_ops(L, P):
+    """Bytes and operations of the landmark-attribute refresh: the packed
+    input read once ((3 + 4P) float64 and 33P bytes a landmark) and 72
+    bytes a landmark written; each pair's Hamming distance as a +-1 int8
+    dot product of 256 (512 operations), and about 40 float64 operations
+    an observation (difference, norm, direction, power, sums) and 30 a
+    landmark."""
+    return (L * ((3 + 4 * P) * 8 + 33 * P) + 72 * L,
+            [(2.0 * L * P * P * 256, INT8_OPS_S), (L * (40.0 * P + 30), FP64_OPS_S)])
+
+
+def refresh_case(packed, L, P, reps):
+    """K2, the whole landmark-attribute refresh in one launch, against its
+    plain version on the card: descriptors exactly, normals and ranges bit
+    for bit; one launch a call, bit for bit across two launches."""
+    import torch
+
+    from covins_tpu_torch.ops import landmark_ops as lo
+
+    def kernel():
+        return lo.landmark_attributes(packed, L, P)
+
+    before = lo.landmark_attributes.launches
+    out = kernel()
+    check(lo.landmark_attributes.launches == before + 1, "K2 did not launch once per call")
+    again = kernel()
+    ref = lo.landmark_attributes_plain(packed, L, P)
+    torch.cuda.synchronize()
+    check(torch.equal(out, again), "K2 differs between two launches")
+    got, want = lo.unpack_attributes(out, L), lo.unpack_attributes(ref, L)
+    check(torch.equal(got[0], want[0]), f"K2's descriptors disagree at {L} x {P}")
+    float_err = max(float((a - b).abs().max().item()) if L else 0.0
+                    for a, b in zip(got[1:], want[1:]))
+    check(float_err == 0.0, f"K2's normals or ranges differ from its plain version by "
+                            f"{float_err} at {L} x {P}")
+    nbytes, ops = refresh_bytes_ops(L, P)
+    bnd, by = bound(nbytes, *ops)
     return {
-        "kernel_ms": cuda_ms(lambda: lo.representative_descriptors(descs, mask), reps),
-        "plain_ms": cuda_ms(lambda: lo.representative_descriptors_plain(descs, mask), reps),
-        "library_ms": None,
-        "bound_ms": bnd, "bound_by": by,
-        "max_abs_err": int((out.int() - ref.int()).abs().max().item()),
+        "kernel_ms": cuda_ms(kernel, reps), "busy_ms": busy_ms(kernel, reps),
+        "ops_per_call": count_ops(kernel),
+        "plain_ms": cuda_ms(lambda: lo.landmark_attributes_plain(packed, L, P), reps),
+        "library_ms": None, "bound_ms": bnd, "bound_by": by,
+        "max_abs_err": float_err,
     }
 
 
@@ -299,6 +346,7 @@ def k3_case(words, dest, db, reps):
                     (W * F + 3.0 * W * V, FP32_OPS_S))
     return {
         "kernel_ms": cuda_ms(lambda: bow.bow_insert(words, dest, db_k), reps),
+        "busy_ms": busy_ms(lambda: bow.bow_insert(words, dest, db_k), reps),
         "plain_ms": cuda_ms(lambda: bow.bow_insert_plain(words, dest, db_p), reps),
         "library_ms": None,
         "bound_ms": bnd, "bound_by": by,
@@ -955,6 +1003,7 @@ def k10_case(args, reps, time_plain=True):
     bnd, by = bound(nbytes, (4300.0 * samples, FP64_OPS_S))
     return {
         "kernel_ms": cuda_ms(lambda: imu.preintegrate(*args, noise), reps),
+        "busy_ms": busy_ms(lambda: imu.preintegrate(*args, noise), reps),
         "plain_ms": (cuda_ms(lambda: imu.preintegrate_plain(*args, noise), 1)
                      if time_plain else None),
         "library_ms": None, "bound_ms": bnd, "bound_by": by,
@@ -999,12 +1048,21 @@ def gba_kernel_inputs(n_kf, n_lm, max_obs, dev, seed=SEED, camera=None):
     Hinv = (linalg.inv33(Hll + 1e-4 * eye) * p.lm_mask[:, None, None]).contiguous()
     v6 = t(rng.normal(size=(n_kf, 6)))
     c = t(rng.normal(size=(p.lms.shape[0], 3)))
-    F, S = n_kf - 1, 50
+    return p, graph, (v6, c, Jp, Jl, Hinv), k10_inputs(rng, n_kf - 1, 50, dev)
+
+
+def k10_inputs(rng, F, S, dev):
+    """K10's arguments for F factors of S samples (bench.py's GBA problem:
+    255 x 50; `Map.to_gba_problem` pads to 256): random specific force
+    around gravity and angular rate, each factor valid for a random prefix
+    of its samples."""
+    import torch
+
     acc = rng.normal(scale=0.5, size=(F, S, 3)) + [0.0, 0.0, 9.81]
     mask = (np.arange(S)[None, :] < rng.integers(1, S + 1, F)[:, None]).astype(np.float64)
-    k10 = [t(x) for x in (acc, 0.3 * rng.normal(size=(F, S, 3)), np.full((F, S), 0.005),
-                          mask, 0.01 * rng.normal(size=(F, 3)), 0.05 * rng.normal(size=(F, 3)))]
-    return p, graph, (v6, c, Jp, Jl, Hinv), k10
+    return [torch.as_tensor(x, device=dev)
+            for x in (acc, 0.3 * rng.normal(size=(F, S, 3)), np.full((F, S), 0.005), mask,
+                      0.01 * rng.normal(size=(F, 3)), 0.05 * rng.normal(size=(F, 3)))]
 
 
 def _k4_inputs(rng, m, n, nq, nc, t):
@@ -1054,6 +1112,9 @@ def phase1(dev):
         print(json.dumps({"phase": 1, "kernel": "hamming_argmin",
                           "shape": [m, n, 256], **r}))
 
+    # K2: its descriptor part alone, then the whole refresh at the bench
+    # drain's largest cohort (1010 x 16), the whole merged map's (run_gba)
+    # and ragged sizes
     L, P = 8192, 16
     d = rng.integers(0, 256, (L, P, 32), dtype=np.uint8)
     d[:, 6] = d[:, 2]  # duplicate descriptors
@@ -1061,9 +1122,13 @@ def phase1(dev):
     for i, nv in enumerate((0, 1, 2, 16)):
         mask[i] = False
         mask[i, :nv] = True
-    r = k2_case(t(d), t(mask), reps=20)
-    print(json.dumps({"phase": 1, "kernel": "representative_descriptors",
+    r = k2_descriptors_case(t(d), t(mask), reps=20)
+    print(json.dumps({"phase": 1, "kernel": "landmark_attributes", "part": "descriptors",
                       "shape": [L, P, 32], **r}))
+    for L, P in ((1010, 16), (9549, 16), (1, 1), (37, 1), (65, 32), (4, 7)):
+        packed = landmark_ops.pack_refresh(*synthetic.refresh_scene(rng, L, P)).to(dev)
+        r = refresh_case(packed, L, P, reps=20)
+        print(json.dumps({"phase": 1, "kernel": "landmark_attributes", "shape": [L, P], **r}))
 
     W, F, V, cap = 256, 1024, 512, 1024
     words = rng.integers(-1, V, (W, F)).astype(np.int32)
@@ -1155,6 +1220,11 @@ def phase1(dev):
         print(json.dumps({"phase": 1, "kernel": "imu_preintegrate",
                           "shape": list(k10[0].shape[:2]), **r}))
         table.setdefault("imu_preintegrate", {**r, "shape": list(k10[0].shape[:2])})
+    # K10 at the shape `Map.to_gba_problem` gives it (every factor padded to
+    # 256 samples, phase 6) and with a sample count not a multiple of 32
+    for F, S in ((255, 256), (5, 33)):
+        r = k10_case(k10_inputs(rng, F, S, dev), reps=5 if F > 5 else 2, time_plain=False)
+        print(json.dumps({"phase": 1, "kernel": "imu_preintegrate", "shape": [F, S], **r}))
     # K8 for the cameras whose projection PyTorch hands it (the unified
     # model; equidistant distortion), at bench.py's problem and ragged
     for camera in ("omni", "equidistant"):
@@ -1340,6 +1410,36 @@ def compare_ingest(gpu, cpu):
     return n_arrays, n_scores
 
 
+def refresh_size(packed, L, P, *args, **kwargs):
+    return L
+
+
+def refresh_map_counts(mgr):
+    """The PyTorch operations of one landmark-attribute refresh as a map
+    issues it (the gather into one buffer, its upload, K2: at most 5) and
+    of its write-back (one copy: at most 2), counted on the card's map of
+    agent 0 with a cohort of all its live landmarks, and the refresh's
+    wall time with the write-back (host clock, the write-back's copy waits
+    for the card)."""
+    import torch
+
+    mp = mgr.maps[mgr.map_of_client[0]]
+    mp.commit_landmark_attributes()
+    rows = np.where(mp.lm_mask[: mp.n_lm])[0]
+    ops = count_ops(lambda: mp.update_landmark_attributes(rows, lazy=True))
+    commit_ops = count_ops(mp.commit_landmark_attributes)
+    check(ops <= 5 and commit_ops <= 2, f"a map refresh issued {ops} PyTorch operations "
+                                        f"and its write-back {commit_ops}")
+    mp.update_landmark_attributes(rows)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        mp.update_landmark_attributes(rows)
+    return {"map_refresh_rows": len(rows), "map_refresh_ops": ops,
+            "map_commit_ops": commit_ops,
+            "map_refresh_wall_ms": (time.perf_counter() - t0) * 100.0}
+
+
 class Recorder:
     """Keeps a copy of the largest input (by work) that the path gives each
     kernel wrapper.  While active, the module-level name through which the
@@ -1368,7 +1468,7 @@ class Recorder:
                                          for x in args], dict(kwargs))
             return fn(*args, **kwargs)
         # a wrapper counts its launches on its module-level name, which is
-        # this shim while recording (the counts are reset after the pass)
+        # this shim while recording; they go to the wrapper at the end
         recording.launches = 0
         return recording
 
@@ -1382,6 +1482,7 @@ class Recorder:
 
     def __exit__(self, *exc):
         for mod, name, fn in self._saved:
+            fn.launches += getattr(mod, name).launches
             setattr(mod, name, fn)
 
     def on(self, name, dev):
@@ -1596,7 +1697,7 @@ def kernel_wrappers():
                                       projmatch)
 
     return {"hamming_argmin": descriptors.hamming_argmin,
-            "representative_descriptors": landmark_ops.representative_descriptors,
+            "landmark_attributes": landmark_ops.landmark_attributes,
             "bow_insert": bow.bow_insert,
             "hamming_mutual_nn": descriptors.hamming_mutual_nn,
             "project_match": projmatch.project_match_core,
@@ -1613,7 +1714,7 @@ def kernel_wrappers():
 # the pose-graph solves launch pgo_pcg once per Gauss-Newton step and the
 # standalone K7 matvec never, a GBA step gba_pcg once, K9 seven times and K8
 # twice, and the pruning between the rounds K8 once more
-DRAIN_KERNELS = ("hamming_argmin", "representative_descriptors", "bow_insert",
+DRAIN_KERNELS = ("hamming_argmin", "landmark_attributes", "bow_insert",
                  "hamming_mutual_nn", "project_match", "p3p_ransac", "pgo_pcg")
 GBA_KERNELS = ("gba_reproj_blocks", "gba_reduced_matvec", "gba_pcg", "imu_preintegrate")
 K9_PER_STEP = 7  # b_red and the six ladder scales
@@ -1656,7 +1757,7 @@ def phase2(dev, card):
     wrappers = kernel_wrappers()
     rec = Recorder([
         (descriptors, "hamming_argmin", lambda a, b, m=None: a.shape[0] * b.shape[0]),
-        (landmark_ops, "representative_descriptors", lambda d, m: d.shape[0]),
+        (landmark_ops, "landmark_attributes", refresh_size),
         (bow, "bow_insert", lambda w, d, db: w.numel()),
         (descriptors, "hamming_mutual_nn",
          lambda a, am, b, bm, md: a.shape[0] * b.shape[0]),
@@ -1734,9 +1835,9 @@ def phase2(dev, card):
     a, b, mask = rec.on("hamming_argmin", dev)
     table["hamming_argmin"] = {**k1_case(a, b, mask, reps=50),
                                "shape": [a.shape[0], b.shape[0], 256]}
-    d, m = rec.on("representative_descriptors", dev)
-    table["representative_descriptors"] = {**k2_case(d, m, reps=50),
-                                           "shape": list(d.shape)}
+    packed, L, P = rec.on("landmark_attributes", dev)
+    table["landmark_attributes"] = {**refresh_case(packed, L, P, reps=50), "shape": [L, P],
+                                    **refresh_map_counts(gpu["mgr"])}
     w, dst, db = rec.on("bow_insert", dev)
     table["bow_insert"] = {**k3_case(w, dst, db, reps=50),
                            "shape": list(w.shape) + list(db.shape)}
@@ -1778,7 +1879,7 @@ def phase2(dev, card):
 def phase3(dev, card, n_kf):
     import torch
 
-    from covins_tpu_torch.ops import bow
+    from covins_tpu_torch.ops import bow, landmark_ops
 
     # 4000 landmarks put up to ~1300 in view; the front-end keeps 1000
     # features per keyframe (ORB-SLAM3's EuRoC ORBextractor.nFeatures), and
@@ -1794,9 +1895,14 @@ def phase3(dev, card, n_kf):
     wrappers = kernel_wrappers()
     for k in wrappers.values():
         k.launches = 0
-    run = run_slice(vocab, windows, n_agents, "cuda")
+    with Recorder([(landmark_ops, "landmark_attributes", refresh_size)]) as rec:
+        run = run_slice(vocab, windows, n_agents, "cuda")
     launches = {name: k.launches for name, k in wrappers.items()}
     n_total = check_invariants(run, n_agents * n_kf, "five agents")
+    # the refresh at the deployment's largest cohort
+    packed, L, P = rec.on("landmark_attributes", dev)
+    print(json.dumps({"phase": 3, "kernel": "landmark_attributes", "shape": [L, P],
+                      **refresh_case(packed, L, P, reps=20)}))
     out = outcome(run)
     print(json.dumps({
         "phase": 3, "card": card, "n_agents": n_agents, "n_keyframes": n_total,
@@ -1830,7 +1936,7 @@ def phase4(dev, card):
         k.launches = 0
     gpu = run_slice(vocab, windows, n_agents, "cuda", placerec=False)
     launches = {name: k.launches for name, k in wrappers.items()}
-    for name in ("hamming_argmin", "representative_descriptors", "bow_insert"):
+    for name in ("hamming_argmin", "landmark_attributes", "bow_insert"):
         check(launches[name] > 0, f"ingest path never launched {name}")
     n_total = check_invariants(gpu, n_agents * n_kf, "card, ingest only")
     cpu = run_cpu(vocab, windows, n_agents, placerec=False)
@@ -2163,8 +2269,9 @@ SOURCES = {
     # removed from the JAX package; this is its live equivalent
     "hamming_argmin": ("covins_tpu_torch/csrc/hamming_argmin.cu",
                        "covins_tpu/ops/descriptors.py:58"),
-    "representative_descriptors": ("covins_tpu_torch/csrc/representative_descriptors.cu",
-                                   "covins_tpu/ops/landmark_ops.py:22"),
+    # with landmark_ops.py:54 distance_invariance and :82 landmark_normals
+    "landmark_attributes": ("covins_tpu_torch/csrc/landmark_attributes.cu",
+                            "covins_tpu/ops/landmark_ops.py:22"),
     "bow_insert": ("covins_tpu_torch/csrc/bow_insert.cu",
                    "covins_tpu/models/kf_database.py:30"),
     "hamming_mutual_nn": ("covins_tpu_torch/csrc/hamming_mutual_nn.cu",
@@ -2240,6 +2347,8 @@ def main():
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": row["shape"],
             **{k: row[k] for k in ("busy_ms", "library_busy_ms", "eager_kernel_ms",
+                                   "map_refresh_rows", "map_refresh_ops", "map_commit_ops",
+                                   "map_refresh_wall_ms",
                                    "profiler_ms", "profiler_intervals", "ops_per_call",
                                    "cost_s1_ms", "cost_s1_busy_ms", "cost_s1_bound_ms",
                                    "cost_s7_ms", "cost_s7_busy_ms", "cost_s7_bound_ms",

@@ -36,8 +36,8 @@ SIGNATURES = {
     "hamming_argmin": {
         "covins_hamming_argmin": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
     },
-    "representative_descriptors": {
-        "covins_representative_descriptors": [_P, _P, _I, _I, _P, _P],
+    "landmark_attributes": {
+        "covins_landmark_attributes": [_P] * 5 + [_I, _I, _D, _D, _P, _P, _P],
     },
     "bow_insert": {
         "covins_bow_insert": [_P, _P, _P, _P, _I, _I, _I, _L, _P],
@@ -79,6 +79,7 @@ SLOT_CAP = 2048
 # sources whose float64 arithmetic must round as the plain versions'
 # separate tensor operations do: no fused multiply-add contraction
 EXTRA_FLAGS = {
+    "landmark_attributes": ["--fmad=false"],
     "project_match": ["--fmad=false"],
     "p3p_ransac": ["--fmad=false"],
     "pgo_matvec": ["--fmad=false"],

@@ -6,8 +6,8 @@ graph as flat capacity-doubling numpy arrays.  A keyframe/landmark IS a
 row index; erasure is a mask flip.  Host numpy owns the bookkeeping, as in
 the JAX package: ingest, culling, covisibility, landmark fusion, merging,
 loop constraints and the pose-graph snapshot and write-back.  The batched
-landmark-attribute refresh runs on the device (`ops/landmark_ops.py`,
-kernel K2); the pose graph is handed to `ops/pgo.py` on the map's device.
+landmark-attribute refresh runs on the device in one launch
+(`ops/landmark_ops.py`, kernel K2); the pose graph is handed to `ops/pgo.py` on the map's device.
 
 The GBA snapshot (:meth:`Map.to_gba_problem`) re-propagates each stored
 IMU window on the map's device (kernel K10) and hands the problem to
@@ -1015,10 +1015,11 @@ class Map:
         refresh for a cohort of landmarks (the per-KF ingest loop of
         `communicator_be.cpp:181-205`).
 
-        The cohort's padded observation window is gathered on the host and
-        processed on the map's device in one pass (K2 for the descriptors,
-        float64 torch for normals and ranges).  With ``lazy=True`` the
-        results stay on the device and the write-back waits for
+        The cohort's padded observation window is gathered on the host
+        into one packed buffer (pinned on a card), copied to the map's
+        device at once and refreshed there in one launch of K2
+        (`landmark_ops.landmark_attributes`).  With ``lazy=True`` the
+        packed result stays on the device and the write-back waits for
         :meth:`commit_landmark_attributes`, so the ingest path does not
         wait for the device; consumers of lm_desc / lm_normal /
         lm_dist_rng (save, loop verification, merge) commit first."""
@@ -1033,10 +1034,14 @@ class Map:
             return
         o = self.n_obs
         n_rows = len(lm_rows)
-        descs = np.zeros((n_rows, max_obs_pad, self.desc_bytes), self.desc_dtype)
-        centers = np.zeros((n_rows, max_obs_pad, 3), np.float64)
-        octaves = np.zeros((n_rows, max_obs_pad), np.float64)
-        mask = np.zeros((n_rows, max_obs_pad), bool)
+        dev = self.device
+        buf = torch.empty(landmark_ops.refresh_layout(n_rows, max_obs_pad)[3],
+                          dtype=torch.uint8, pin_memory=dev.type == "cuda")
+        host = buf.numpy()
+        host[:] = 0
+        pos, centers, octaves, descs, mask = landmark_ops.refresh_views(
+            host, n_rows, max_obs_pad)
+        pos[...] = self.lm_pos[lm_rows]
         # vectorised cohort gather: one pass over the obs COO
         pos_of = np.full(self.lm_ids.shape[0], -1, np.int32)
         pos_of[lm_rows] = np.arange(n_rows, dtype=np.int32)
@@ -1056,31 +1061,23 @@ class Map:
             centers[ci, slots] = self.kf_pose[kr, 4:7]
             octaves[ci, slots] = self.kp_aors[kr, ft, 1]
             mask[ci, slots] = True
-        dev = self.device
-        mask_d = torch.from_numpy(mask).to(dev)
-        pos_d = torch.from_numpy(self.lm_pos[lm_rows]).to(dev)
-        centers_d = torch.from_numpy(centers).to(dev)
-        rep = landmark_ops.representative_descriptors(
-            torch.from_numpy(descs).to(dev), mask_d)
-        nrm = landmark_ops.landmark_normals(pos_d, centers_d,
-                                            mask_d.to(torch.float64))
-        rng = landmark_ops.distance_invariance(
-            pos_d, centers_d, torch.from_numpy(octaves).to(dev), mask_d)
-        self._pending_lm_attrs.append((lm_rows, mask, rep, nrm, rng))
+        out = landmark_ops.landmark_attributes(buf.to(dev, non_blocking=True), n_rows,
+                                               max_obs_pad)
+        # the host buffer is kept until the write-back, past the copy
+        self._pending_lm_attrs.append((lm_rows, mask.any(axis=1), out, buf))
         if not lazy:
             self.commit_landmark_attributes()
 
     def commit_landmark_attributes(self) -> None:
         """Write back every pending attribute cohort, in order (so the last
-        write wins), with one device-to-host copy per cohort array."""
+        write wins), with one device-to-host copy per cohort."""
         pending, self._pending_lm_attrs = self._pending_lm_attrs, []
-        for lm_rows, mask, rep, nrm, rng in pending:
-            any_obs = mask.any(axis=1)
+        for lm_rows, any_obs, out, _ in pending:
+            rep, nrm, rng = landmark_ops.unpack_attributes(out.cpu().numpy(), len(lm_rows))
             rows = lm_rows[any_obs]
-            self.lm_desc[rows] = rep.cpu().numpy()[any_obs]
-            self.lm_normal[rows] = nrm.cpu().numpy()[any_obs]
-            self.lm_dist_rng[rows] = rng.cpu().numpy()[any_obs]
-
+            self.lm_desc[rows] = rep[any_obs]
+            self.lm_normal[rows] = nrm[any_obs]
+            self.lm_dist_rng[rows] = rng[any_obs]
 
     # ------------------------------------------------------------ trajectories
     def _trajectory_lines_tum(self, client_id: int) -> str:

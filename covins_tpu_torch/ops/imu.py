@@ -8,10 +8,11 @@ differentiation through the sample loop, as the reference takes them with
 ``jax.jacfwd``.
 
 :func:`preintegrate` is batched over factors and is the K10 kernel on the
-card (`csrc/imu_preintegrate.cu`): one thread per factor walks its samples
-in order and carries the deltas as dual numbers with six tangents (the
-gyro and accel biases), so its Jacobian is the same forward-mode
-computation.  :func:`preintegrate_plain` is its plain version: one batched
+card (`csrc/imu_preintegrate.cu`): one warp per factor walks its samples
+in order, every lane on the primal values and lane k < 6 also on tangent
+k of the deltas (the gyro and accel biases), so its Jacobian is the same
+forward-mode computation; the covariance's two 9x9 products are spread
+over the warp's lanes.  :func:`preintegrate_plain` is its plain version: one batched
 pass for the deltas and the covariance, then ``torch.func.vmap`` of
 ``torch.func.jacfwd`` for the Jacobian, as the reference.
 """

@@ -2,13 +2,18 @@
 
 Counterpart of `covins_tpu/ops/landmark_ops.py`.  Whole cohorts of
 landmarks are processed at once over a padded (L, P) observation window.
-:func:`representative_descriptors` is the K2 kernel
-(`csrc/representative_descriptors.cu`); the normals and the
-scale-invariance distance range are plain float64 torch.
+:func:`landmark_attributes` is the whole refresh of a cohort (its
+representative descriptors, normals and distance ranges) in one launch of
+the K2 kernel (`csrc/landmark_attributes.cu`), from one packed input
+buffer to one packed output; :func:`representative_descriptors` launches
+the kernel's descriptor part alone.  :func:`landmark_normals` and
+:func:`distance_invariance` keep the JAX package's signatures as plain
+float64 torch.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from covins_tpu_torch import cuda_build
@@ -16,6 +21,7 @@ from covins_tpu_torch.device import check_cuda, is_cpu
 from covins_tpu_torch.ops import descriptors as desc_ops
 
 _BIG = 1e9
+OUT_F64 = 5  # per landmark: normal (3), min_dist, max_dist
 
 
 def representative_descriptors_plain(descs_u8: torch.Tensor,
@@ -44,7 +50,8 @@ def representative_descriptors(descs_u8: torch.Tensor,
     mask: (L, P) bool.  Returns (L, 32) uint8: the observation whose median
     distance to the landmark's valid observations is smallest (lowest index
     on ties; row 0 when no observation is valid).  CPU tensors take the
-    plain version; CUDA tensors launch the kernel (K2) or raise.
+    plain version; CUDA tensors launch the K2 kernel's descriptor part or
+    raise.
     """
     if is_cpu(descs_u8) and is_cpu(mask):
         return representative_descriptors_plain(descs_u8, mask)
@@ -63,12 +70,8 @@ def representative_descriptors(descs_u8: torch.Tensor,
         raise ValueError("representative_descriptors: needs contiguous, "
                          "16-byte aligned inputs")
     out = torch.empty((L, B), dtype=torch.uint8, device=dev)
-    lib = cuda_build.library("representative_descriptors")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.covins_representative_descriptors(
-            descs_u8.data_ptr(), mask.data_ptr(), L, P, out.data_ptr(), stream)
-    cuda_build.check(rc, "representative_descriptors")
+    _launch(dev, None, None, None, descs_u8.data_ptr(), mask.data_ptr(), L, P, 1.0, 1.0,
+            None, out.data_ptr(), "representative_descriptors")
     representative_descriptors.launches += 1
     return out
 
@@ -106,3 +109,147 @@ def landmark_normals(lm_pos: torch.Tensor, obs_cam_centers: torch.Tensor,
     mean = d.sum(1) / torch.clamp(mask.sum(1)[:, None], min=1.0)
     mn = torch.linalg.vector_norm(mean, dim=-1, keepdim=True)
     return mean / torch.clamp(mn, min=1e-12)
+
+
+# ------------------------------------------------- the refresh in one launch
+def refresh_layout(L: int, P: int):
+    """Byte offsets of the refresh's packed input: float64 landmark
+    positions (L, 3), observing camera centres (L, P, 3) and octaves (L, P);
+    from a 16-byte boundary the descriptors (L, P, 32) uint8; then the mask
+    (L, P) as bytes.  Returns (float64 count, descriptors' offset, mask's
+    offset, total bytes)."""
+    n_f64 = L * (3 + 4 * P)
+    desc_at = (8 * n_f64 + 15) // 16 * 16
+    mask_at = desc_at + desc_ops.ORB_BYTES * L * P
+    return n_f64, desc_at, mask_at, mask_at + L * P
+
+
+def refresh_views(buf, L: int, P: int):
+    """The five inputs as views of a packed input ``buf`` (a 1-D uint8
+    numpy array or tensor): pos, centers, octaves, descs, mask (bool)."""
+    n_f64, desc_at, mask_at, total = refresh_layout(L, P)
+    if isinstance(buf, np.ndarray):
+        f64 = buf[: 8 * n_f64].view(np.float64)
+        as_bool = lambda b: b.view(np.bool_)  # noqa: E731
+    else:
+        f64 = buf[: 8 * n_f64].view(torch.float64)
+        as_bool = lambda b: b.view(torch.bool)  # noqa: E731
+    return (f64[: 3 * L].reshape(L, 3),
+            f64[3 * L: 3 * L * (1 + P)].reshape(L, P, 3),
+            f64[3 * L * (1 + P):].reshape(L, P),
+            buf[desc_at:mask_at].reshape(L, P, desc_ops.ORB_BYTES),
+            as_bool(buf[mask_at:total].reshape(L, P)))
+
+
+def pack_refresh(pos, centers, octaves, descs, mask) -> torch.Tensor:
+    """A packed refresh input (:func:`refresh_layout`) on the CPU holding
+    the given numpy arrays."""
+    L, P = mask.shape
+    buf = torch.empty(refresh_layout(L, P)[3], dtype=torch.uint8)
+    arr = buf.numpy()
+    arr[:] = 0
+    for view, x in zip(refresh_views(arr, L, P), (pos, centers, octaves, descs, mask)):
+        view[...] = x
+    return buf
+
+
+def unpack_attributes(out, L: int):
+    """(descriptors (L, 32) uint8, normals (L, 3), ranges (L, 2)) as views
+    of a packed refresh output (numpy array or tensor)."""
+    f64 = out[: 8 * OUT_F64 * L]
+    f64 = f64.view(np.float64) if isinstance(out, np.ndarray) else f64.view(torch.float64)
+    f64 = f64.reshape(L, OUT_F64)
+    return out[8 * OUT_F64 * L:].reshape(L, desc_ops.ORB_BYTES), f64[:, :3], f64[:, 3:]
+
+
+def _sum_in_order(x: torch.Tensor) -> torch.Tensor:
+    """Sum over dim 1 one observation after the other, from 0.0: the
+    kernel's order."""
+    acc = torch.zeros_like(x[:, 0])
+    for p in range(x.shape[1]):
+        acc = acc + x[:, p]
+    return acc
+
+
+def _norm3(v: torch.Tensor) -> torch.Tensor:
+    x, y, z = v.unbind(-1)
+    return torch.sqrt((x * x + y * y) + z * z)
+
+
+def landmark_attributes_plain(packed: torch.Tensor, L: int, P: int,
+                              scale_factor: float = 1.2, n_levels: int = 8) -> torch.Tensor:
+    """Plain version of :func:`landmark_attributes` (any device): the
+    three functions of the JAX package, with the float64 sums and norms
+    written in the kernel's order (observations one after the other, x*x +
+    y*y then + z*z), where a library reduction would round otherwise."""
+    pos, centers, octaves, descs, mask = refresh_views(packed, L, P)
+    rep = representative_descriptors_plain(descs, mask)
+    d = centers - pos[:, None, :]
+    n = _norm3(d)
+    w = mask.to(torch.float64)
+    u = (d / torch.clamp(n, min=1e-12)[..., None]) * w[..., None]
+    cnt = _sum_in_order(w)
+    cc = torch.clamp(cnt, min=1.0)
+    mean = _sum_in_order(u) / cc[:, None]
+    normal = mean / torch.clamp(_norm3(mean), min=1e-12)[:, None]
+    est = (n * torch.pow(torch.tensor(scale_factor, dtype=n.dtype, device=n.device),
+                         octaves)) * w
+    max_dist = _sum_in_order(est) / cc
+    # division by a tensor: by a Python number the card multiplies by its
+    # reciprocal
+    min_dist = max_dist / torch.full_like(max_dist, scale_factor ** (n_levels - 1))
+    rng = torch.stack([min_dist, max_dist], dim=-1)
+    rng = torch.where((cnt > 0)[:, None], rng, torch.zeros_like(rng))
+    out = torch.empty((8 * OUT_F64 + desc_ops.ORB_BYTES) * L, dtype=torch.uint8,
+                      device=packed.device)
+    out_desc, out_normal, out_rng = unpack_attributes(out, L)
+    out_desc.copy_(rep)
+    out_normal.copy_(normal)
+    out_rng.copy_(rng)
+    return out
+
+
+def landmark_attributes(packed: torch.Tensor, L: int, P: int, scale_factor: float = 1.2,
+                        n_levels: int = 8) -> torch.Tensor:
+    """The landmark-attribute refresh of a cohort of L landmarks over a
+    padded window of P <= 32 observations (`Landmark::ComputeDescriptor`
+    and `Landmark::UpdateNormal`): :func:`representative_descriptors`,
+    :func:`landmark_normals` and :func:`distance_invariance` at once.
+
+    packed: the 1-D uint8 input of :func:`refresh_layout`
+    (:func:`pack_refresh`, or filled through :func:`refresh_views`).
+    Returns one 1-D uint8 output that :func:`unpack_attributes` reads:
+    descriptors (L, 32), normals (L, 3), ranges (L, 2).  A CPU tensor takes
+    the plain version; a CUDA tensor launches the K2 kernel once, or
+    raises."""
+    if is_cpu(packed):
+        return landmark_attributes_plain(packed, L, P, scale_factor, n_levels)
+    dev = check_cuda("landmark_attributes", packed)
+    if not 1 <= P <= 32:
+        raise ValueError(f"landmark_attributes: P={P} not in [1, 32]")
+    n_f64, desc_at, mask_at, total = refresh_layout(L, P)
+    if packed.dtype != torch.uint8 or packed.shape != (total,) \
+            or not packed.is_contiguous() or packed.data_ptr() % 16:
+        raise ValueError(f"landmark_attributes: packed must be a contiguous, 16-byte "
+                         f"aligned ({total},) uint8 tensor")
+    out = torch.empty((8 * OUT_F64 + desc_ops.ORB_BYTES) * L, dtype=torch.uint8, device=dev)
+    base, o = packed.data_ptr(), out.data_ptr()
+    _launch(dev, base, base + 24 * L, base + 24 * L * (1 + P), base + desc_at,
+            base + mask_at, L, P, scale_factor, scale_factor ** (n_levels - 1), o,
+            o + 8 * OUT_F64 * L, "landmark_attributes")
+    landmark_attributes.launches += 1
+    return out
+
+
+landmark_attributes.launches = 0
+
+
+def _launch(dev, pos, centers, octaves, descs, mask, L, P, scale_factor, top_scale, out_f,
+            out_desc, name):
+    lib = cuda_build.library("landmark_attributes")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.covins_landmark_attributes(pos, centers, octaves, descs, mask, L, P,
+                                            float(scale_factor), float(top_scale), out_f,
+                                            out_desc, stream)
+    cuda_build.check(rc, name)

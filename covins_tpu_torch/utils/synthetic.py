@@ -381,3 +381,28 @@ def p3p_scene(rng: np.random.Generator, N, n_valid, H, device, sets="noise", cas
         kw["idx"] = t(rng.integers(0, max(n_valid, 3), (H, 3)).astype(np.int64))
     return [t(table), t(bear), t(mask)], kw
 
+
+
+def refresh_scene(rng: np.random.Generator, L, P):
+    """numpy inputs of the landmark-attribute refresh
+    (`ops.landmark_ops.pack_refresh`) for L landmarks over P observation
+    slots, with a map's edge cases: a landmark with no valid observation
+    (row 0), one (row 1), all P (row 2), duplicated descriptors (tied
+    medians), an observing camera centre on its landmark (row 3: the
+    direction's norm clamps), octaves 0-7.  Returns (pos (L, 3), centers
+    (L, P, 3), octaves (L, P), descs (L, P, 32) uint8, mask (L, P) bool)."""
+    d = rng.integers(0, 256, (L, P, 32), dtype=np.uint8)
+    if P > 3:
+        d[:, 3] = d[:, 1]
+    mask = rng.random((L, P)) > 0.4
+    pos = rng.normal(size=(L, 3)) * 5
+    centers = pos[:, None, :] + rng.normal(size=(L, P, 3)) * 5
+    for row, valid in enumerate(([], [P - 1], list(range(P)))):
+        if row < L:
+            mask[row] = False
+            mask[row, valid] = True
+    if L > 3:
+        centers[3, 0] = pos[3]
+        mask[3, 0] = True
+    octaves = rng.integers(0, 8, (L, P)).astype(np.float64)
+    return pos, centers, octaves, d, mask

@@ -12,7 +12,9 @@ does not have; this file imports neither JAX nor the JAX package.)
 The shapes are small and ragged on purpose: row and column counts that do
 not fill a block or a shared-memory tile, a single row, P = 1 and P = 32,
 and a vocabulary large enough for the dynamic shared-memory path of K3.
-Tolerances: K1 and K2 exactly (integer results); K3's word counts exactly
+Tolerances: K1 and K2's descriptors exactly (integer results), K2's
+normals and distance ranges (the whole attribute refresh in one launch)
+bit for bit with its plain version; K3's word counts exactly
 and its vectors bit for bit (integer counts, IEEE sqrt and division); K4
 exactly; K5, the whole of project-and-match in one launch, its matches
 and distances exactly (its float64 prologue and gates are built without
@@ -119,6 +121,47 @@ def test_representative_descriptors_match_plain(dev, L, P):
     assert torch.equal(got, landmark_ops.representative_descriptors_plain(td, tm))
     assert torch.equal(got.cpu(), landmark_ops.representative_descriptors(
         torch.from_numpy(d), torch.from_numpy(mask)))
+
+
+@pytest.mark.parametrize("L,P", [(1, 1), (4, 7), (37, 1), (300, 16), (65, 32), (1010, 16)])
+def test_landmark_attributes_kernel_matches_plain(dev, L, P):
+    """The whole refresh in one launch (K2) against its plain version on
+    the card: descriptors exactly, normals and ranges bit for bit (the same
+    float64 operations in the same order, FMA contraction off); against the
+    CPU's plain version descriptors exactly, floats to 1e-12 relative (the
+    card's pow may round the octave's power apart by an ulp).  The scene
+    has a landmark with no valid observation, P = 1 and P = 32, tied
+    medians and a camera centre on its landmark."""
+    from covins_tpu_torch.utils.synthetic import refresh_scene
+
+    host = landmark_ops.pack_refresh(*refresh_scene(np.random.default_rng(L + P), L, P))
+    packed = host.to(dev)
+    before = landmark_ops.landmark_attributes.launches
+    got = landmark_ops.landmark_attributes(packed, L, P)
+    assert landmark_ops.landmark_attributes.launches == before + 1
+    assert torch.equal(got, landmark_ops.landmark_attributes(packed, L, P))
+    ref = landmark_ops.landmark_attributes_plain(packed, L, P)
+    g_desc, g_nrm, g_rng = landmark_ops.unpack_attributes(got, L)
+    r_desc, r_nrm, r_rng = landmark_ops.unpack_attributes(ref, L)
+    assert torch.equal(g_desc, r_desc)
+    assert torch.equal(g_nrm, r_nrm) and torch.equal(g_rng, r_rng)
+    c_desc, c_nrm, c_rng = landmark_ops.unpack_attributes(
+        landmark_ops.landmark_attributes(host, L, P), L)
+    assert torch.equal(g_desc.cpu(), c_desc)
+    assert _rel(g_nrm, c_nrm.to(dev)) <= 1e-12 and _rel(g_rng, c_rng.to(dev)) <= 1e-12
+
+
+def test_landmark_attributes_refuses_bad_inputs(dev):
+    L, P = 8, 16
+    total = landmark_ops.refresh_layout(L, P)[3]
+    good = torch.zeros(total, dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError):
+        landmark_ops.landmark_attributes(good[:-1], L, P)  # wrong size
+    with pytest.raises(ValueError):
+        landmark_ops.landmark_attributes(
+            torch.zeros(total + 8, dtype=torch.uint8, device=dev)[8:], L, P)  # misaligned
+    with pytest.raises(ValueError):
+        landmark_ops.landmark_attributes(good, L, 33)
 
 
 @pytest.mark.parametrize("W,F,V,cap", [(1, 1, 5, 1), (19, 300, 37, 8),
@@ -369,15 +412,26 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp(min=1e-300)) if b.numel() else 0.0
 
 
-@pytest.mark.parametrize("F,S", [(1, 1), (7, 50), (255, 256)])
-def test_imu_preintegrate_kernel_matches_plain(dev, F, S):
+@pytest.mark.parametrize("F,S,masks", [(1, 1, "prefix"), (7, 50, "prefix"),
+                                       (255, 256, "prefix"), (9, 45, "holes"),
+                                       (5, 33, "padding"), (4, 70, "holes")])
+def test_imu_preintegrate_kernel_matches_plain(dev, F, S, masks):
+    """K10 (one warp per factor, its samples in chunks of 32) against its
+    plain version: sample counts that are not a multiple of 32, validity
+    masks that end early ("prefix"), have holes, or leave a factor with
+    padding only."""
     from covins_tpu_torch.ops import imu
 
     rng = np.random.default_rng(F + S)
     acc = rng.normal(size=(F, S, 3)) + [0.0, 0.0, 9.81]
     gyro = 0.5 * rng.normal(size=(F, S, 3))
     dts = np.full((F, S), 0.005)
-    mask = (np.arange(S)[None, :] < rng.integers(1, S + 1, F)[:, None]).astype(np.float64)
+    if masks == "holes":
+        mask = (rng.random((F, S)) > 0.3).astype(np.float64)
+    else:
+        mask = (np.arange(S)[None, :] < rng.integers(1, S + 1, F)[:, None]).astype(np.float64)
+    if masks == "padding":
+        mask[F // 2] = 0.0
     bg, ba = 0.01 * rng.normal(size=(F, 3)), 0.05 * rng.normal(size=(F, 3))
     args = [torch.tensor(x, device=dev) for x in (acc, gyro, dts, mask, bg, ba)]
     before = imu.preintegrate.launches
@@ -390,6 +444,8 @@ def test_imu_preintegrate_kernel_matches_plain(dev, F, S):
         g, r = getattr(got, name), getattr(ref, name)
         assert torch.equal(g, getattr(again, name)), name
         assert _rel(g, r) <= 1e-13, (name, _rel(g, r))
+    if masks == "padding":
+        assert float(got.dt[F // 2]) == 0.0 and not got.cov[F // 2].any()
 
 
 @pytest.mark.parametrize("huber", [0.0, 2.447])

@@ -1,5 +1,6 @@
-"""Port's landmark ops (kernel K2's plain version) and BoW vectors (kernel
-K3's plain version) against the JAX package.
+"""Port's landmark ops (kernel K2's plain versions: the descriptors alone
+and the whole attribute refresh from one packed buffer) and BoW vectors
+(kernel K3's plain version) against the JAX package.
 
 Tolerances: representative descriptors exactly (integer selection);
 normals and distance ranges to 1e-12 in float64 (reductions in another
@@ -9,11 +10,13 @@ compute count / sqrt(float32 sum of integer squares).
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from covins_tpu.ops import bow as ref_bow
 from covins_tpu.ops import landmark_ops as ref_lm
 from covins_tpu_torch.ops import bow, landmark_ops
+from covins_tpu_torch.utils.synthetic import refresh_scene
 
 
 def _cohort(seed, L=300, P=16):
@@ -63,6 +66,35 @@ def test_normals_and_distance_invariance_match_reference():
     np.testing.assert_allclose(got_n.numpy(), ref_n, rtol=0, atol=1e-12)
     np.testing.assert_allclose(got_r.numpy(), ref_r, rtol=0, atol=1e-12)
     assert (got_r.numpy()[0] == 0).all()  # no observation: (0, 0)
+
+
+@pytest.mark.parametrize("seed,L,P", [(0, 300, 16), (1, 37, 1), (2, 65, 32), (3, 4, 7)])
+def test_attribute_refresh_matches_reference(seed, L, P):
+    pos, centers, octaves, d, mask = refresh_scene(np.random.default_rng(seed), L, P)
+    packed = landmark_ops.pack_refresh(pos, centers, octaves, d, mask)
+    for view, x in zip(landmark_ops.refresh_views(packed, L, P),
+                       (pos, centers, octaves, d, mask)):
+        np.testing.assert_array_equal(view.numpy(), x)
+    out = landmark_ops.landmark_attributes(packed, L, P)
+    assert out.shape == (72 * L,) and out.dtype == torch.uint8
+    rep, nrm, rng_ = landmark_ops.unpack_attributes(out.numpy(), L)
+    ref_d = np.asarray(ref_lm.representative_descriptors(jnp.asarray(d), jnp.asarray(mask)))
+    ref_n = np.asarray(ref_lm.landmark_normals(
+        jnp.asarray(pos), jnp.asarray(centers), jnp.asarray(mask, jnp.float64)))
+    ref_r = np.asarray(ref_lm.distance_invariance(
+        jnp.asarray(pos), jnp.asarray(centers), jnp.asarray(octaves), jnp.asarray(mask)))
+    np.testing.assert_array_equal(rep, ref_d)
+    np.testing.assert_allclose(nrm, ref_n, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(rng_, ref_r, rtol=0, atol=1e-12)
+    assert (rng_[0] == 0).all() and (nrm[0] == 0).all()  # no observation
+    # the port's three public functions give the same
+    t = torch.from_numpy
+    np.testing.assert_array_equal(
+        rep, landmark_ops.representative_descriptors(t(d), t(mask)).numpy())
+    np.testing.assert_allclose(nrm, landmark_ops.landmark_normals(
+        t(pos), t(centers), t(mask).double()).numpy(), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(rng_, landmark_ops.distance_invariance(
+        t(pos), t(centers), t(octaves), t(mask)).numpy(), rtol=0, atol=1e-12)
 
 
 def test_bow_insert_matches_reference_vectors_and_scatter():
