@@ -12,11 +12,16 @@ package beside it.  Phases:
    made from a numpy seed at the main path's shapes and at ragged ones:
    K2, the whole landmark-attribute refresh in one launch, its descriptors
    exactly and its normals and distance ranges bit for bit (also its
-   descriptor part alone); K1, K4 and K5 exactly (K4, stage 1 in one
+   descriptor part alone); K1, K4 and K5 exactly (K1, binary tensor-core
+   products, at the window's 6480 x 512, 8192 x 512, 65536 x 1024 and
+   ragged shapes, ties across vocabulary tiles, bit for bit across two
+   launches; K4, stage 1 in one
    launch that forms each distance once; K5, the whole of project-and-match in one
    launch, also with every landmark failing, the unified camera whose
    prologue PyTorch computes, and more features than shared memory holds;
-   with the PyTorch operations one call issues), K3 to rtol 1e-6, K6 (all
+   with the PyTorch operations one call issues), K3 (a window's vectors,
+   insertion, scores and common-word counts in one launch) its vectors,
+   rows and counts exactly and its scores bit for bit, K6 (all
    of stage 2's P3P RANSAC in one launch, from Gumbel noise and from given
    index sets, with two matches only, every root invalid, and more
    correspondences than shared memory holds) its counts, best pose and
@@ -56,11 +61,13 @@ package beside it.  Phases:
    CPU pass gave it (K5: the largest of verification stage 3 and of stage
    5), against its plain version, timed beside its bound (K1, K2, K3 and
    K10 also their busy time; K2 also the PyTorch operations of one map
-   refresh and of its write-back);
+   refresh and of its write-back; K3 also those of one window's
+   ``add_and_query_batch``, lazy and not, and its copies);
 3. a five-agent deployment (5 x 32 KF) with place recognition on, card
    only, and K2 replayed at its largest refresh cohort;
 4. the ingest-only path (``placerec_active=False``) on the benchmark
-   workload, card against CPU, every map array and database row compared;
+   workload, card against CPU, every map array, database row and queued
+   score compared (database rows, scores and counts exactly);
 5. bench.py's GBA problem (256 KF, 8192 landmarks, max_obs 61440) through
    ``global_bundle_adjustment(n_gn=10, n_cg=60)`` with the counters set to
    0 just before it (the problem's build, K10, included) and read just
@@ -239,16 +246,24 @@ def pm1_bf16_argmin(a, b):
     return torch.argmin(dot.float().neg(), dim=1)
 
 
-def k1_case(a, b, mask, reps):
+def k1_case(a, b, mask, reps, want_dist=False):
     import torch
 
     from covins_tpu_torch.ops import descriptors as d
 
     idx, dmin = d.hamming_argmin(a, b, mask)
     idx_p, dmin_p = d.hamming_argmin_plain(a, b, mask)
+    idx2, dmin2 = d.hamming_argmin(a, b, mask)
     torch.cuda.synchronize()
+    shape = f"{tuple(a.shape)}x{tuple(b.shape)}"
     check(torch.equal(idx, idx_p) and torch.equal(dmin, dmin_p),
-          f"K1 disagrees with its plain version at {tuple(a.shape)}x{tuple(b.shape)}")
+          f"K1 disagrees with its plain version at {shape}")
+    check(torch.equal(idx, idx2) and torch.equal(dmin, dmin2),
+          f"K1 differs between two launches at {shape}")
+    if want_dist:
+        dist = d.hamming_argmin(a, b, mask, want_dist=True)[2]
+        check(torch.equal(dist, d.hamming_distance(a, b)),
+              f"K1's distance matrix disagrees at {shape}")
     m, n = a.shape[0], b.shape[0]
     bnd, by = bound(m * 32 + n * 32 + m + 8 * m, (2.0 * m * n * 256, INT8_OPS_S))
     return {
@@ -322,36 +337,93 @@ def refresh_case(packed, L, P, reps):
     }
 
 
-def k3_case(words, dest, db, reps):
+def k3_case(words, dest, db, n, reps):
+    """K3 (`bow_insert_score`: a window's vectors, insertion, scores and
+    common-word counts in one launch) against its plain version: vectors,
+    rows and counts exactly, scores bit for bit, bit for bit across two
+    launches."""
     import torch
 
     from covins_tpu_torch.ops import bow
 
-    db_k, db_p = db.clone(), db.clone()
-    vecs = bow.bow_insert(words, dest, db_k)
-    ref = bow.bow_insert_plain(words, dest, db_p)
+    db_k, db_p, db_2 = db.clone(), db.clone(), db.clone()
+    before = bow.bow_insert_score.launches
+    vecs, out = bow.bow_insert_score(words, dest, db_k, n)
+    check(bow.bow_insert_score.launches == before + 1, "K3 did not launch once per call")
+    vecs_p, out_p = bow.bow_insert_score_plain(words, dest, db_p, n)
+    vecs_2, out_2 = bow.bow_insert_score(words, dest, db_2, n)
     torch.cuda.synchronize()
     # the word counts, recovered from the vectors with the exact norms
-    V = db.shape[1]
+    cap, V = db.shape
     valid = (words >= 0) & (words < V)
     counts = torch.zeros((words.shape[0], V), device=words.device).scatter_add_(
         1, torch.where(valid, words, 0).long(), valid.float())
     norm = torch.clamp(counts.square().sum(1, keepdim=True).sqrt(), min=1e-12)
-    check(torch.equal(torch.round(vecs * norm), counts), "K3 word counts disagree")
-    check(torch.allclose(vecs, ref, rtol=1e-6, atol=0), "K3 vectors disagree")
-    check(torch.allclose(db_k, db_p, rtol=1e-6, atol=0), "K3 database rows disagree")
+    shape = f"{tuple(words.shape)}, db {tuple(db.shape)}, n {n}"
+    check(torch.equal(torch.round(vecs * norm), counts), f"K3 word counts disagree at {shape}")
+    check(torch.equal(vecs, vecs_p), f"K3 vectors disagree at {shape}")
+    check(torch.equal(db_k, db_p), f"K3 database rows disagree at {shape}")
+    check(torch.equal(out[:, 0], out_p[:, 0]), f"K3 scores are not the plain version's at {shape}")
+    check(torch.equal(out[:, 1].view(torch.int32), out_p[:, 1].view(torch.int32)),
+          f"K3 common-word counts disagree at {shape}")
+    check(torch.equal(out_2, out) and torch.equal(vecs_2, vecs) and torch.equal(db_2, db_k),
+          f"K3 differs between two launches at {shape}")
     W, F = words.shape
-    stored = int(((dest >= 0) & (dest < db.shape[0])).sum().item())
-    bnd, by = bound(W * F * 4 + W * 8 + (W + stored) * V * 4,
-                    (W * F + 3.0 * W * V, FP32_OPS_S))
+    stored = int(((dest >= 0) & (dest < cap)).sum().item())
+    # bytes: the word ids and destinations, the n scored rows read; the
+    # vectors, the inserted rows and the (W, 2, n) result written;
+    # operations: an add a word, three a bin, and per scored row and
+    # window row a product, a sum and a common-word test a bin
+    bnd, by = bound(W * F * 4 + W * 8 + n * V * 4 + (W + stored) * V * 4 + W * 2 * n * 4,
+                    (W * F + 3.0 * W * V + 3.0 * W * V * n, FP32_OPS_S))
     return {
-        "kernel_ms": cuda_ms(lambda: bow.bow_insert(words, dest, db_k), reps),
-        "busy_ms": busy_ms(lambda: bow.bow_insert(words, dest, db_k), reps),
-        "plain_ms": cuda_ms(lambda: bow.bow_insert_plain(words, dest, db_p), reps),
+        "kernel_ms": cuda_ms(lambda: bow.bow_insert_score(words, dest, db_k, n), reps),
+        "busy_ms": busy_ms(lambda: bow.bow_insert_score(words, dest, db_k, n), reps),
+        "plain_ms": cuda_ms(lambda: bow.bow_insert_score_plain(words, dest, db_p, n), reps),
         "library_ms": None,
         "bound_ms": bnd, "bound_by": by,
-        "max_abs_err": float((vecs - ref).abs().max().item()),
+        "max_abs_err": float((out[:, 0] - out_p[:, 0]).abs().max().item()) if out.numel() else 0.0,
     }
+
+
+def window_counts(vocab, W, F, dev, reps=20):
+    """One window's `KeyframeDatabase.add_and_query_batch` on the card at W
+    keyframes of F descriptors, its ids already inserted (the same scoring,
+    no new rows), in a database of 1024 rows of which 1024 are scored:
+    PyTorch operations, host-to-device and device-to-host copies, lazy and
+    not, the mean host time of a call (the non-lazy one waits for its
+    fetch) and the card's busy time of the lazy one."""
+    import torch
+
+    from covins_tpu_torch.models.kf_database import KeyframeDatabase
+
+    rng = np.random.default_rng(SEED + W * F)
+    db = KeyframeDatabase(vocab, capacity=1024, device=dev)
+    fill = [rng.integers(0, 256, (64, 32), dtype=np.uint8) for _ in range(1024 - W)]
+    for k in range(0, len(fill), 64):
+        db.add_and_query_batch([(i, 1) for i in range(k, min(k + 64, len(fill)))],
+                               fill[k:k + 64], lazy=True)
+    ids = [(i, 0) for i in range(W)]
+    descs = [rng.integers(0, 256, (F, 32), dtype=np.uint8) for _ in range(W)]
+    db.add_and_query_batch(ids, descs, lazy=True)
+    check(db.n == 1024, f"the database holds {db.n} rows, not 1024")
+    row = {}
+    for lazy, tag in ((True, "_lazy"), (False, "")):
+        def call():
+            return db.add_and_query_batch(ids, descs, lazy=lazy)
+
+        call()
+        torch.cuda.synchronize()
+        ops, h2d, d2h = trace_ops(call)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+        row.update({f"window_ops{tag}": ops, f"window_h2d{tag}": h2d, f"window_d2h{tag}": d2h,
+                    f"window_ms{tag}": (time.perf_counter() - t0) * 1e3 / reps})
+    row["window_busy_ms_lazy"] = busy_ms(lambda: db.add_and_query_batch(ids, descs, lazy=True),
+                                         reps)
+    return row
 
 
 def k4_case(a, am, b, bm, max_dist, reps):
@@ -388,21 +460,34 @@ def k4_case(a, am, b, bm, max_dist, reps):
     }
 
 
-def count_ops(fn):
+def trace_ops(fn):
     """The PyTorch operations one call of ``fn`` issues, views included
-    (a TorchDispatchMode sees every ATen operation)."""
+    (a TorchDispatchMode sees every ATen operation), and among them the
+    host-to-device and device-to-host copies."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     class Count(TorchDispatchMode):
-        n = 0
+        n = h2d = d2h = 0
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
             Count.n += 1
-            return func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__
+            if name in ("_to_copy", "copy_"):
+                src, dst = ((args[0], out) if name == "_to_copy" else (args[1], args[0]))
+                kinds = (src.device.type, dst.device.type)
+                Count.h2d += kinds == ("cpu", "cuda")
+                Count.d2h += kinds == ("cuda", "cpu")
+            return out
 
     with Count():
         fn()
-    return Count.n
+    return Count.n, Count.h2d, Count.d2h
+
+
+def count_ops(fn):
+    """The PyTorch operations one call of ``fn`` issues, views included."""
+    return trace_ops(fn)[0]
 
 
 def k5_pairs(args, kwargs):
@@ -1100,15 +1185,18 @@ def phase1(dev):
 
     rng = np.random.default_rng(SEED)
     t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
-    for m, n in ((8192, 512), (65536, 1024)):
+    # K1 at the window's word assignment (phase 2: 12 x 540 descriptors
+    # against 512 words), the vocabulary training's sizes and ragged ones
+    for m, n in ((6480, 512), (8192, 512), (65536, 1024), (37, 13), (1, 300), (50, 4100)):
         a = rng.integers(0, 256, (m, 32), dtype=np.uint8)
         b = rng.integers(0, 256, (n, 32), dtype=np.uint8)
-        b[9] = b[4]  # tied words
-        a[:64] = b[4]
+        b[n - 1] = b[min(4, n - 1)]  # tied words, in the first and the last tile
+        k = min(64, m // 2 + 1)
+        a[:k] = b[min(4, n - 1)]
         mask = rng.random(m) > 0.1
-        r = k1_case(t(a), t(b), t(mask), reps=20)
-        ia, _ = descriptors.hamming_argmin(t(a[:64]), t(b))
-        check(bool((ia == 4).all()), "K1 tie does not go to the lowest index")
+        r = k1_case(t(a), t(b), t(mask), reps=20, want_dist=m * n <= 1 << 20)
+        ia, _ = descriptors.hamming_argmin(t(a[:k]), t(b))
+        check(bool((ia == min(4, n - 1)).all()), "K1 tie does not go to the lowest index")
         print(json.dumps({"phase": 1, "kernel": "hamming_argmin",
                           "shape": [m, n, 256], **r}))
 
@@ -1130,14 +1218,19 @@ def phase1(dev):
         r = refresh_case(packed, L, P, reps=20)
         print(json.dumps({"phase": 1, "kernel": "landmark_attributes", "shape": [L, P], **r}))
 
-    W, F, V, cap = 256, 1024, 512, 1024
-    words = rng.integers(-1, V, (W, F)).astype(np.int32)
-    words[7] = -1  # empty row
-    dest = np.arange(W, dtype=np.int64) + 3
-    dest[11] = cap  # dropped
-    r = k3_case(t(words), t(dest), torch.zeros((cap, V), device=dev), reps=20)
-    print(json.dumps({"phase": 1, "kernel": "bow_insert",
-                      "shape": [W, F, V, cap], **r}))
+    # K3 at phase 2's largest window scored against a full database, at a
+    # 256-row window, and ragged: V not a multiple of 32, n = cap, one
+    # window row, more window rows than one group in shared memory
+    for W, F, V, cap, n in ((12, 540, 512, 1024, 1024), (256, 1024, 512, 1024, 1024),
+                            (5, 100, 37, 16, 16), (1, 1, 5, 1, 1), (40, 64, 512, 128, 100)):
+        words = rng.integers(-1, V, (W, F)).astype(np.int32)
+        words[W // 2] = -1  # empty row
+        dest = (rng.permutation(n)[:W] if n >= W else np.arange(W)).astype(np.int64)
+        dest[W - 1] = cap if W > 1 else dest[0]  # dropped
+        db = (rng.random((cap, V)) * (rng.random((cap, V)) > 0.5)).astype(np.float32)
+        r = k3_case(t(words), t(dest), t(db), n, reps=20)
+        print(json.dumps({"phase": 1, "kernel": "bow_insert_score",
+                          "shape": [W, F, V, cap, n], **r}))
 
     # K4 at the verification's padded 1024 x 1024 and ragged sizes
     for m, n, nq, nc in ((1024, 1024, 420, 390), (1, 1, 1, 1), (5, 70, 5, 61),
@@ -1373,7 +1466,8 @@ def compare_full(gpu, cpu):
 def compare_ingest(gpu, cpu):
     """Every map SoA array and the database of the card's ingest-only run
     against the CPU run: integers and descriptors exactly, float64 to
-    1e-9, float32 database rows and scores to rtol 1e-5."""
+    1e-9, float32 database rows and scores exactly (K3 and its plain
+    version sum in one written order)."""
     g_mgr, c_mgr = gpu["mgr"], cpu["mgr"]
     check(sorted(g_mgr.maps) == sorted(c_mgr.maps), "map ids differ")
     n_arrays = 0
@@ -1393,8 +1487,7 @@ def compare_ingest(gpu, cpu):
     gdb, cdb = g_mgr.database, c_mgr.database
     check(gdb.row_ids == cdb.row_ids and np.array_equal(gdb._mask, cdb._mask),
           "database rows differ")
-    check(np.allclose(gdb.db.cpu().numpy(), cdb.db.numpy(), rtol=1e-5, atol=1e-7),
-          "database matrix differs")
+    check(np.array_equal(gdb.db.cpu().numpy(), cdb.db.numpy()), "database matrix differs")
     n_scores = 0
     for gq, cq in zip(gpu["queued"], cpu["queued"]):
         for (gk, gp), (ck, cp) in zip(gq, cq):
@@ -1404,8 +1497,7 @@ def compare_ingest(gpu, cpu):
             # the drain fetched the queued scores to the host
             check(np.array_equal(gp["common"], cp["common"]),
                   "common-word counts differ")
-            check(np.allclose(gp["scores"], cp["scores"], rtol=1e-5, atol=1e-6),
-                  "scores differ")
+            check(np.array_equal(gp["scores"], cp["scores"]), "scores differ")
             n_scores += 1
     return n_arrays, n_scores
 
@@ -1698,7 +1790,7 @@ def kernel_wrappers():
 
     return {"hamming_argmin": descriptors.hamming_argmin,
             "landmark_attributes": landmark_ops.landmark_attributes,
-            "bow_insert": bow.bow_insert,
+            "bow_insert_score": bow.bow_insert_score,
             "hamming_mutual_nn": descriptors.hamming_mutual_nn,
             "project_match": projmatch.project_match_core,
             "p3p_ransac": pnp.absolute_pose_ransac,
@@ -1714,7 +1806,7 @@ def kernel_wrappers():
 # the pose-graph solves launch pgo_pcg once per Gauss-Newton step and the
 # standalone K7 matvec never, a GBA step gba_pcg once, K9 seven times and K8
 # twice, and the pruning between the rounds K8 once more
-DRAIN_KERNELS = ("hamming_argmin", "landmark_attributes", "bow_insert",
+DRAIN_KERNELS = ("hamming_argmin", "landmark_attributes", "bow_insert_score",
                  "hamming_mutual_nn", "project_match", "p3p_ransac", "pgo_pcg")
 GBA_KERNELS = ("gba_reproj_blocks", "gba_reduced_matvec", "gba_pcg", "imu_preintegrate")
 K9_PER_STEP = 7  # b_red and the six ladder scales
@@ -1758,7 +1850,7 @@ def phase2(dev, card):
     rec = Recorder([
         (descriptors, "hamming_argmin", lambda a, b, m=None: a.shape[0] * b.shape[0]),
         (landmark_ops, "landmark_attributes", refresh_size),
-        (bow, "bow_insert", lambda w, d, db: w.numel()),
+        (bow, "bow_insert_score", lambda w, d, db, n: (w.numel(), n)),
         (descriptors, "hamming_mutual_nn",
          lambda a, am, b, bm, md: a.shape[0] * b.shape[0]),
         # stage 3 matches without the view-angle gate, stage 5 with it; the
@@ -1838,9 +1930,10 @@ def phase2(dev, card):
     packed, L, P = rec.on("landmark_attributes", dev)
     table["landmark_attributes"] = {**refresh_case(packed, L, P, reps=50), "shape": [L, P],
                                     **refresh_map_counts(gpu["mgr"])}
-    w, dst, db = rec.on("bow_insert", dev)
-    table["bow_insert"] = {**k3_case(w, dst, db, reps=50),
-                           "shape": list(w.shape) + list(db.shape)}
+    w, dst, db, n = rec.on("bow_insert_score", dev)
+    table["bow_insert_score"] = {**k3_case(w, dst, db, n, reps=50),
+                                 "shape": list(w.shape) + [db.shape[1], db.shape[0], n],
+                                 **window_counts(vocab, *w.shape, dev)}
     a, am, b, bm, md = rec.on("hamming_mutual_nn", dev)
     table["hamming_mutual_nn"] = {**k4_case(a, am, b, bm, md, reps=50),
                                   "shape": [a.shape[0], b.shape[0]]}
@@ -1936,7 +2029,7 @@ def phase4(dev, card):
         k.launches = 0
     gpu = run_slice(vocab, windows, n_agents, "cuda", placerec=False)
     launches = {name: k.launches for name, k in wrappers.items()}
-    for name in ("hamming_argmin", "landmark_attributes", "bow_insert"):
+    for name in ("hamming_argmin", "landmark_attributes", "bow_insert_score"):
         check(launches[name] > 0, f"ingest path never launched {name}")
     n_total = check_invariants(gpu, n_agents * n_kf, "card, ingest only")
     cpu = run_cpu(vocab, windows, n_agents, placerec=False)
@@ -2272,8 +2365,8 @@ SOURCES = {
     # with landmark_ops.py:54 distance_invariance and :82 landmark_normals
     "landmark_attributes": ("covins_tpu_torch/csrc/landmark_attributes.cu",
                             "covins_tpu/ops/landmark_ops.py:22"),
-    "bow_insert": ("covins_tpu_torch/csrc/bow_insert.cu",
-                   "covins_tpu/models/kf_database.py:30"),
+    "bow_insert_score": ("covins_tpu_torch/csrc/bow_insert_score.cu",
+                         "covins_tpu/models/kf_database.py:30"),
     "hamming_mutual_nn": ("covins_tpu_torch/csrc/hamming_mutual_nn.cu",
                           "covins_tpu/ops/descriptors.py:138"),
     "project_match": ("covins_tpu_torch/csrc/project_match.cu",
@@ -2348,7 +2441,10 @@ def main():
             "library_ms": row["library_ms"], "shape": row["shape"],
             **{k: row[k] for k in ("busy_ms", "library_busy_ms", "eager_kernel_ms",
                                    "map_refresh_rows", "map_refresh_ops", "map_commit_ops",
-                                   "map_refresh_wall_ms",
+                                   "map_refresh_wall_ms", "window_ops_lazy", "window_ops",
+                                   "window_h2d_lazy", "window_h2d", "window_d2h_lazy",
+                                   "window_d2h", "window_ms_lazy", "window_ms",
+                                   "window_busy_ms_lazy",
                                    "profiler_ms", "profiler_intervals", "ops_per_call",
                                    "cost_s1_ms", "cost_s1_busy_ms", "cost_s1_bound_ms",
                                    "cost_s7_ms", "cost_s7_busy_ms", "cost_s7_bound_ms",

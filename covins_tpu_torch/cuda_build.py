@@ -39,8 +39,8 @@ SIGNATURES = {
     "landmark_attributes": {
         "covins_landmark_attributes": [_P] * 5 + [_I, _I, _D, _D, _P, _P, _P],
     },
-    "bow_insert": {
-        "covins_bow_insert": [_P, _P, _P, _P, _I, _I, _I, _L, _P],
+    "bow_insert_score": {
+        "covins_bow_insert_score": [_P] * 5 + [_I, _I, _I, _L, _I, _I, _P],
     },
     "hamming_mutual_nn": {
         "covins_hamming_mutual_nn": [_P, _P, _I, _P, _P, _I, _F, _P, _P, _P],
@@ -76,10 +76,11 @@ SIGNATURES = {
 # the most blocks a PCG kernel's grid may have: the size of the block slots
 # its wrapper allocates for the dot products' partial sums
 SLOT_CAP = 2048
-# sources whose float64 arithmetic must round as the plain versions'
+# sources whose float arithmetic must round as the plain versions'
 # separate tensor operations do: no fused multiply-add contraction
 EXTRA_FLAGS = {
     "landmark_attributes": ["--fmad=false"],
+    "bow_insert_score": ["--fmad=false"],
     "project_match": ["--fmad=false"],
     "p3p_ransac": ["--fmad=false"],
     "pgo_matvec": ["--fmad=false"],

@@ -3,9 +3,12 @@
 Counterpart of `covins_tpu/models/kf_database.py`.  The database is one
 dense (cap, V) float32 matrix of L2-normalised term-frequency rows, kept
 on the device and grown by capacity doubling.  A window of keyframes is
-inserted and scored in one pass (:func:`insert_and_score`): word
-assignment (K1), BoW vectors written into their rows in place (K3), then
-cosine scores and common-word counts as two `torch.matmul` products.
+inserted and scored in one pass (:func:`insert_and_score`): its
+descriptors, feature mask and destination rows go to the device in one
+packed upload (:func:`window_layout`), then two launches: word assignment
+(K1) and the rest (K3: BoW vectors written into their rows in place, then
+cosine scores and common-word counts against the rows after the
+insertion, packed into one (W, 2, n) result).
 Only binary (ORB) vocabularies are supported by the port so far.
 """
 
@@ -16,33 +19,82 @@ from typing import Optional
 import numpy as np
 import torch
 
-from covins_tpu_torch.device import DeviceLike, resolve_device
+from covins_tpu_torch.device import (DeviceLike, check_cuda, check_tensor, is_cpu,
+                                     resolve_device)
 from covins_tpu_torch.ops import bow as bow_ops
 from covins_tpu_torch.ops import descriptors as d_ops
 
 
+def window_layout(w: int, f: int):
+    """Byte offsets of a window's packed input: the (W, F, 32) uint8
+    descriptors, the (W, F) feature mask as bytes, then from an 8-byte
+    boundary the (W,) int64 destination rows.  Returns (mask's offset,
+    destinations' offset, total bytes)."""
+    mask_at = w * f * d_ops.ORB_BYTES
+    dest_at = (mask_at + w * f + 7) // 8 * 8
+    return mask_at, dest_at, dest_at + 8 * w
+
+
+def window_views(buf, w: int, f: int):
+    """The three inputs as views of a packed input ``buf`` (a 1-D uint8
+    numpy array or tensor): descs (W, F, 32), feat_mask (W, F) bool and
+    dest (W,) int64."""
+    mask_at, dest_at, total = window_layout(w, f)
+    if isinstance(buf, np.ndarray):
+        as_bool, as_i64 = (lambda b: b.view(np.bool_)), (lambda b: b.view(np.int64))
+    else:
+        as_bool, as_i64 = (lambda b: b.view(torch.bool)), (lambda b: b.view(torch.int64))
+    return (buf[:mask_at].reshape(w, f, d_ops.ORB_BYTES),
+            as_bool(buf[mask_at:mask_at + w * f].reshape(w, f)),
+            as_i64(buf[dest_at:total]))
+
+
 def insert_and_score(db: torch.Tensor, vocab: torch.Tensor,
-                     descs: torch.Tensor, feat_mask: torch.Tensor,
-                     rows: torch.Tensor):
+                     packed: torch.Tensor, w: int, f: int, n: int) -> torch.Tensor:
     """Insert a WINDOW of keyframes and score each against the database.
 
     Args:
       db: (cap, V) float32 database, UPDATED IN PLACE (the JAX version
         donates it and returns the new buffer).
       vocab: (V, 32) uint8 words.
-      descs: (W, F, 32) uint8 padded descriptors; feat_mask: (W, F) bool.
-      rows: (W,) int64 destination rows; entries outside [0, cap) are
-        dropped.
-    Returns (scores (W, cap) float32, common (W, cap) int32); sequential
-    query semantics are restored by the caller's ``valid`` masks.
+      packed: the window's packed input on ``db``'s device
+        (:func:`window_layout`): (W, F, 32) uint8 padded descriptors, the
+        (W, F) feature mask and the (W,) int64 destination rows; entries
+        outside [0, cap) are dropped, those inside are distinct.
+      n: the rows [0, n) scored, after the insertion.
+    Returns ``out`` (W, 2, n) float32: ``out[:, 0]`` the scores,
+    ``out[:, 1]`` the common-word counts as int32 bit patterns; sequential
+    query semantics are restored by the caller's ``valid`` masks.  On the
+    card: two launches (K1, K3) reading the packed input in place, and two
+    PyTorch operations (the scratch and the result).
     """
-    w, f, b = descs.shape
-    words, _ = d_ops.hamming_argmin(descs.reshape(w * f, b), vocab,
-                                    feat_mask.reshape(-1))
-    vecs = bow_ops.bow_insert(words.reshape(w, f), rows, db)
-    scores = vecs @ db.T
-    common = ((vecs > 0).float() @ (db > 0).float().T).to(torch.int32)
-    return scores, common
+    cap, v = db.shape
+    if is_cpu(packed):
+        descs, feat_mask, dest = window_views(packed, w, f)
+        words, _ = d_ops.hamming_argmin(descs.reshape(w * f, d_ops.ORB_BYTES), vocab,
+                                        feat_mask.reshape(-1))
+        return bow_ops.bow_insert_score(words.reshape(w, f), dest, db, n)[1]
+    dev = check_cuda("insert_and_score", db, vocab, packed)
+    mask_at, dest_at, total = window_layout(w, f)
+    check_tensor("insert_and_score", "packed", packed, (total,), torch.uint8)
+    check_tensor("insert_and_score", "vocab", vocab, (v, d_ops.ORB_BYTES), torch.uint8)
+    check_tensor("insert_and_score", "db", db, (cap, v), torch.float32)
+    if not 0 <= n <= cap:
+        raise ValueError(f"insert_and_score: {n} rows to score of {cap}")
+    if v > bow_ops.MAX_VOCABULARY:
+        raise ValueError(f"insert_and_score: vocabulary of {v} words does not fit "
+                         "one block's shared memory")
+    base = packed.data_ptr()
+    # K1's word ids and distances, then K3's vectors (int32 and float32
+    # share one allocation)
+    scratch = torch.empty(w * (2 * f + v), dtype=torch.int32, device=dev)
+    out = torch.empty((w, 2, n), dtype=torch.float32, device=dev)
+    words = scratch.data_ptr()
+    d_ops.launch_argmin(dev, base, vocab.data_ptr(), base + mask_at, w * f, v,
+                        words, words + 4 * w * f)
+    bow_ops.launch_insert_score(dev, words, base + dest_at, db.data_ptr(),
+                                words + 8 * w * f, out.data_ptr(), w, f, v, cap, n)
+    return out
 
 
 class KeyframeDatabase:
@@ -152,24 +204,29 @@ class KeyframeDatabase:
         cap = self._db.shape[0]
 
         f = max(int(d.shape[0]) for d in descs_list)
-        descs = np.zeros((w, f) + descs_list[0].shape[1:], descs_list[0].dtype)
-        feat_mask = np.zeros((w, f), bool)
-        dest = np.full(w, cap, np.int64)  # cap => dropped by the insert
+        dev = self.device
+        buf = torch.empty(window_layout(w, f)[2], dtype=torch.uint8,
+                          pin_memory=dev.type == "cuda")
+        host = buf.numpy()
+        host[:] = 0
+        descs, feat_mask, dest = window_views(host, w, f)
+        dest[:] = cap  # cap => dropped by the insert
         for i in range(w):
             n = descs_list[i].shape[0]
             descs[i, :n] = descs_list[i]
             feat_mask[i, :n] = True
             if rows[i] >= self.n:  # fresh insertion
                 dest[i] = rows[i]
-        dev = self.device
-        scores, common = insert_and_score(
-            self._db, self.vocab, torch.from_numpy(descs).to(dev),
-            torch.from_numpy(feat_mask).to(dev),
-            torch.from_numpy(dest).to(dev))
-        scores = scores[:, :n_after]
-        common = common[:, :n_after]
-        if not lazy:
-            scores, common = scores.cpu().numpy(), common.cpu().numpy()
+        # one upload (pinned: it does not wait for the card; the caching
+        # host allocator keeps the buffer until the copy has run)
+        res = insert_and_score(self._db, self.vocab,
+                               buf.to(dev, non_blocking=True), w, f, n_after)
+        if lazy:
+            scores, common = res.unbind(1)
+            common = common.view(torch.int32)
+        else:
+            flat = res.cpu().numpy()  # one fetch
+            scores, common = flat[:, 0], flat[:, 1].view(np.int32)
 
         for i in fresh:
             r = int(rows[i])

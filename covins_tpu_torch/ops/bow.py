@@ -6,8 +6,10 @@ kernel, `ops/descriptors.hamming_argmin`), L2-normalised term-frequency
 vectors, cosine scores as one product against the database matrix, and a
 binarised product for the common-words gate.
 
-:func:`bow_insert` is the K3 kernel (`csrc/bow_insert.cu`): the window's
-BoW vectors, written into the database rows in place.
+:func:`bow_insert_score` is the K3 kernel (`csrc/bow_insert_score.cu`): a
+window's BoW vectors, written into their database rows in place, and each
+vector's scores and common-word counts against the database rows after
+the insertion, in one launch.  :func:`bow_insert` is its first half.
 """
 
 from __future__ import annotations
@@ -103,42 +105,133 @@ def bow_insert_plain(words: torch.Tensor, dest: torch.Tensor,
     return vecs
 
 
+def ordered_scores(vecs: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """(W, V) x (n, V) -> (W, n) float32 dot products summed in K3's order:
+    both zero-padded to a multiple of 32, lane l's products over v = l,
+    l + 32, ... added chunk after chunk, then the 32 lanes added by an
+    xor butterfly 16, 8, 4, 2, 1, each product and sum a separate
+    rounding."""
+    (w, v), n = vecs.shape, rows.shape[0]
+    vp = -(-v // 32) * 32
+    q = torch.nn.functional.pad(vecs, (0, vp - v)).reshape(w, 1, vp // 32, 32)
+    r = torch.nn.functional.pad(rows, (0, vp - v)).reshape(1, n, vp // 32, 32)
+    acc = torch.zeros((w, n, 32), dtype=vecs.dtype, device=vecs.device)
+    for c in range(vp // 32):
+        acc = acc + q[:, :, c] * r[:, :, c]
+    lanes = torch.arange(32, device=vecs.device)
+    for off in (16, 8, 4, 2, 1):
+        acc = acc + acc[..., lanes ^ off]
+    return acc[..., 0]
+
+
+def bow_insert_score_plain(words: torch.Tensor, dest: torch.Tensor,
+                           db: torch.Tensor, n: int):
+    """Plain version of :func:`bow_insert_score`: :func:`bow_insert_plain`,
+    then the scores in K3's order (:func:`ordered_scores`) and the
+    common-word counts against ``db[:n]`` after the insertion."""
+    vecs = bow_insert_plain(words, dest, db)
+    rows = db[:n]
+    out = torch.empty((vecs.shape[0], 2, n), dtype=torch.float32, device=db.device)
+    out[:, 0] = ordered_scores(vecs, rows)
+    common = ((vecs[:, None] > 0) & (rows[None] > 0)).sum(-1, dtype=torch.int32)
+    out[:, 1] = common.view(torch.float32)
+    return vecs, out
+
+
+# shared memory a K3 block gives the window vectors it scores at once: at
+# V = 512, 32 window rows a group
+GROUP_BYTES = 64 * 1024
+MAX_VOCABULARY = 200 * 1024 // 4  # one row's counts in one block's shared memory
+
+
+def score_group(w: int, v: int) -> int:
+    """Window rows K3 holds in shared memory at once (at least one)."""
+    return max(1, min(w, GROUP_BYTES // (-(-v // 32) * 32 * 4)))
+
+
+def _run_insert_score(dev, words, dest, db, vecs, out, w, f, v, cap, n):
+    lib = cuda_build.library("bow_insert_score")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.covins_bow_insert_score(words, dest, db, vecs, out, w, f, v, cap, n,
+                                         score_group(w, v), stream)
+    cuda_build.check(rc, "bow_insert_score")
+
+
+def launch_insert_score(dev: torch.device, words: int, dest: int, db: int,
+                        vecs: int, out: int, w: int, f: int, v: int, cap: int,
+                        n: int) -> None:
+    """Launch K3 on device addresses, counted on :func:`bow_insert_score`:
+    ``words`` (w, f) int32, ``dest`` (w,) int64 with distinct entries
+    inside [0, cap), ``db`` (cap, v) float32 updated in place, outputs
+    ``vecs`` (w, v) float32 and ``out`` (w, 2, n) float32; n <= cap and
+    v <= MAX_VOCABULARY.  For callers that hold their inputs in a packed
+    buffer; the checks of :func:`bow_insert_score` are theirs to make."""
+    _run_insert_score(dev, words, dest, db, vecs, out, w, f, v, cap, n)
+    bow_insert_score.launches += 1
+
+
+def _check_insert(name, words, dest, db):
+    dev = check_cuda(name, words, dest, db)
+    if words.dtype != torch.int32 or words.dim() != 2:
+        raise ValueError(f"{name}: words must be (W, F) int32")
+    w = words.shape[0]
+    if dest.dtype != torch.int64 or dest.shape != (w,):
+        raise ValueError(f"{name}: dest must be ({w},) int64")
+    if db.dtype != torch.float32 or db.dim() != 2:
+        raise ValueError(f"{name}: db must be (cap, V) float32")
+    if db.shape[1] > MAX_VOCABULARY:
+        raise ValueError(f"{name}: vocabulary of {db.shape[1]} words does not fit "
+                         "one block's shared memory")
+    for what, t in (("words", words), ("dest", dest), ("db", db)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous")
+    return dev
+
+
 def bow_insert(words: torch.Tensor, dest: torch.Tensor,
                db: torch.Tensor) -> torch.Tensor:
     """(W, F) int32 word ids (-1 = invalid) -> (W, V) float32 BoW vectors,
     each also written in place into ``db[dest[i]]`` (``db`` is (cap, V)
     float32) when ``0 <= dest[i] < cap``.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel (K3) or raise."""
+    version; CUDA tensors launch K3 with no rows to score, or raise."""
     if is_cpu(words) and is_cpu(dest) and is_cpu(db):
         return bow_insert_plain(words, dest, db)
-    dev = check_cuda("bow_insert", words, dest, db)
-    if words.dtype != torch.int32 or words.dim() != 2:
-        raise ValueError("bow_insert: words must be (W, F) int32")
-    w, f = words.shape
-    if dest.dtype != torch.int64 or dest.shape != (w,):
-        raise ValueError(f"bow_insert: dest must be ({w},) int64")
-    if db.dtype != torch.float32 or db.dim() != 2:
-        raise ValueError("bow_insert: db must be (cap, V) float32")
-    cap, v = db.shape
-    if v * 4 > 200 * 1024:
-        raise ValueError(f"bow_insert: vocabulary of {v} words does not fit "
-                         "one block's shared memory")
-    for name, t in (("words", words), ("dest", dest), ("db", db)):
-        if not t.is_contiguous():
-            raise ValueError(f"bow_insert: {name} must be contiguous")
+    dev = _check_insert("bow_insert", words, dest, db)
+    (w, f), (cap, v) = words.shape, db.shape
     vecs = torch.empty((w, v), dtype=torch.float32, device=dev)
-    lib = cuda_build.library("bow_insert")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.covins_bow_insert(words.data_ptr(), dest.data_ptr(),
-                                   db.data_ptr(), vecs.data_ptr(), w, f, v,
-                                   cap, stream)
-    cuda_build.check(rc, "bow_insert")
+    _run_insert_score(dev, words.data_ptr(), dest.data_ptr(), db.data_ptr(),
+                      vecs.data_ptr(), None, w, f, v, cap, 0)
     bow_insert.launches += 1
     return vecs
 
 
 bow_insert.launches = 0
+
+
+def bow_insert_score(words: torch.Tensor, dest: torch.Tensor,
+                     db: torch.Tensor, n: int):
+    """:func:`bow_insert`, then each window row's cosine scores and
+    common-word counts against the database rows [0, n) after the
+    insertion.  ``dest``'s entries inside [0, cap) must be distinct.
+    Returns ``(vecs (W, V) float32, out (W, 2, n) float32)``: ``out[:, 0]``
+    the scores, ``out[:, 1]`` the counts as int32 bit patterns
+    (``out[:, 1].view(torch.int32)``).  CPU tensors take the plain version;
+    CUDA tensors launch the kernel (K3, one launch) or raise."""
+    if is_cpu(words) and is_cpu(dest) and is_cpu(db):
+        return bow_insert_score_plain(words, dest, db, n)
+    dev = _check_insert("bow_insert_score", words, dest, db)
+    (w, f), (cap, v) = words.shape, db.shape
+    if not 0 <= n <= cap:
+        raise ValueError(f"bow_insert_score: n must lie in [0, {cap}], got {n}")
+    vecs = torch.empty((w, v), dtype=torch.float32, device=dev)
+    out = torch.empty((w, 2, n), dtype=torch.float32, device=dev)
+    launch_insert_score(dev, words.data_ptr(), dest.data_ptr(), db.data_ptr(),
+                        vecs.data_ptr(), out.data_ptr(), w, f, v, cap, n)
+    return vecs, out
+
+
+bow_insert_score.launches = 0
 
 
 def retrieval_scores(query_bow: torch.Tensor, db_bow: torch.Tensor,

@@ -78,6 +78,10 @@ def _check_desc(name: str, t: torch.Tensor, ndim: int) -> None:
         raise ValueError(f"{name}: needs a contiguous 16-byte aligned tensor")
 
 
+# the kernel packs (distance << 22 | column) into 32 bits
+ARGMIN_MAX_COLUMNS = (1 << 22) - 1
+
+
 def hamming_argmin(a_u8: torch.Tensor, b_u8: torch.Tensor,
                    row_mask: Optional[torch.Tensor] = None,
                    want_dist: bool = False
@@ -88,7 +92,8 @@ def hamming_argmin(a_u8: torch.Tensor, b_u8: torch.Tensor,
     Returns ``idx (M,) int32`` (lowest index on ties, -1 where ``row_mask``
     is False), ``dmin (M,) int32`` and, with ``want_dist``, the full
     ``(M, N) int32`` distance matrix.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel (K1) or raise.
+    CUDA tensors launch the kernel (K1, binary tensor-core products) or
+    raise.
     """
     if is_cpu(a_u8) and is_cpu(b_u8):
         return hamming_argmin_plain(a_u8, b_u8, row_mask, want_dist)
@@ -103,23 +108,34 @@ def hamming_argmin(a_u8: torch.Tensor, b_u8: torch.Tensor,
                                  or not row_mask.is_contiguous()):
         raise ValueError("hamming_argmin: row_mask must be a contiguous "
                          f"({m},) bool tensor")
-    if m * n >= 2**62 or max(m, n) >= 2**30:
+    if n > ARGMIN_MAX_COLUMNS or m >= 2**30:
         raise ValueError("hamming_argmin: shape too large")
     idx = torch.empty(m, dtype=torch.int32, device=dev)
     dmin = torch.empty(m, dtype=torch.int32, device=dev)
     dist = (torch.empty((m, n), dtype=torch.int32, device=dev)
             if want_dist else None)
+    launch_argmin(dev, a_u8.data_ptr(), b_u8.data_ptr(),
+                  None if row_mask is None else row_mask.data_ptr(), m, n,
+                  idx.data_ptr(), dmin.data_ptr(),
+                  None if dist is None else dist.data_ptr())
+    return (idx, dmin, dist) if want_dist else (idx, dmin)
+
+
+def launch_argmin(dev: torch.device, a: int, b: int, row_mask: Optional[int],
+                  m: int, n: int, idx: int, dmin: int,
+                  dist: Optional[int] = None) -> None:
+    """Launch K1 on device addresses, counted on :func:`hamming_argmin`:
+    ``a`` (m, 32) and ``b`` (n, 32) uint8 descriptors (4-byte aligned),
+    ``row_mask`` (m,) bool or None, outputs ``idx`` and ``dmin`` (m,)
+    int32 and ``dist`` (m, n) int32 or None; 0 < n <= ARGMIN_MAX_COLUMNS.
+    For callers that hold their inputs in a packed buffer; the checks of
+    :func:`hamming_argmin` are theirs to make."""
     lib = cuda_build.library("hamming_argmin")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.covins_hamming_argmin(
-            a_u8.data_ptr(), b_u8.data_ptr(),
-            None if row_mask is None else row_mask.data_ptr(), m, n,
-            idx.data_ptr(), dmin.data_ptr(),
-            None if dist is None else dist.data_ptr(), stream)
+        rc = lib.covins_hamming_argmin(a, b, row_mask, m, n, idx, dmin, dist, stream)
     cuda_build.check(rc, "hamming_argmin")
     hamming_argmin.launches += 1
-    return (idx, dmin, dist) if want_dist else (idx, dmin)
 
 
 hamming_argmin.launches = 0

@@ -12,10 +12,15 @@ does not have; this file imports neither JAX nor the JAX package.)
 The shapes are small and ragged on purpose: row and column counts that do
 not fill a block or a shared-memory tile, a single row, P = 1 and P = 32,
 and a vocabulary large enough for the dynamic shared-memory path of K3.
-Tolerances: K1 and K2's descriptors exactly (integer results), K2's
+Tolerances: K1 (binary tensor-core products; also ties across
+vocabulary tiles, every row masked, distances 0 and 256) and K2's
+descriptors exactly (integer results), K2's
 normals and distance ranges (the whole attribute refresh in one launch)
 bit for bit with its plain version; K3's word counts exactly
-and its vectors bit for bit (integer counts, IEEE sqrt and division); K4
+and its vectors bit for bit (integer counts, IEEE sqrt and division), and
+as `bow_insert_score` (vectors, insertion, scores and common-word counts
+in one launch) its scores bit for bit (one written summation order, no
+FMA contraction) and its counts exactly; K4
 exactly; K5, the whole of project-and-match in one launch, its matches
 and distances exactly (its float64 prologue and gates are built without
 FMA contraction and in the plain version's operation order, whose
@@ -87,6 +92,60 @@ def test_hamming_argmin_matches_plain(dev, m, n):
     assert torch.equal(idx2, ridx2) and torch.equal(dmin2, rdmin)
     if n > 3 and mask[0]:
         assert int(idx[0]) == 2
+
+
+def _k1_case(case):
+    """(a, b, row mask) for the named edge case of K1."""
+    rng = np.random.default_rng(len(case))
+    if case == "ragged":  # M and N not multiples of 16 and 8
+        return _desc(rng, 37), _desc(rng, 13), rng.random(37) > 0.3
+    if case in ("two tiles", "five tiles"):  # N above one shared-memory tile
+        n = 1025 if case == "two tiles" else 4100
+        a, b = _desc(rng, 50), _desc(rng, n)
+        b[n - 1] = b[3]  # a tie between the first and the last tile
+        a[0] = b[3]
+        a[1] = b[5]
+        a[1, 0] ^= 1
+        b[n - 2] = b[5]  # a tie at distance 1
+        return a, b, np.ones(50, bool)
+    if case == "all masked":
+        return _desc(rng, 40), _desc(rng, 64), np.zeros(40, bool)
+    if case == "zero and complement":
+        a, b = _desc(rng, 20), _desc(rng, 9)
+        a[2] = b[7]  # distance 0
+        a[3] = ~b[4]  # distance 256 to word 4
+        a[4] = 255  # all ones
+        b[8] = 0  # all zeros: distance 256 to row 4
+        b[6] = 255  # all ones: distance 0 to row 4
+        return a, b, np.ones(20, bool)
+    if case == "complement only":  # every distance 256
+        b = _desc(rng, 1)
+        return ~np.repeat(b, 3, axis=0), b, np.ones(3, bool)
+    assert case == "one row"
+    return _desc(rng, 1), _desc(rng, 300), np.ones(1, bool)
+
+
+@pytest.mark.parametrize("case", ["ragged", "two tiles", "five tiles", "all masked",
+                                  "zero and complement", "complement only", "one row"])
+def test_hamming_argmin_edge_cases(dev, case):
+    """K1 (binary tensor-core products) against its plain version exactly,
+    and bit for bit across two launches."""
+    a, b, mask = _k1_case(case)
+    ta, tb, tm = (torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (a, b, mask))
+    idx, dmin, dist = descriptors.hamming_argmin(ta, tb, tm, want_dist=True)
+    ridx, rdmin, rdist = descriptors.hamming_argmin_plain(ta, tb, tm, want_dist=True)
+    assert torch.equal(idx, ridx) and torch.equal(dmin, rdmin) and torch.equal(dist, rdist)
+    idx2, dmin2 = descriptors.hamming_argmin(ta, tb, tm)
+    assert torch.equal(idx2, idx) and torch.equal(dmin2, dmin)
+    if case == "all masked":
+        assert bool((idx == -1).all())
+    if case in ("two tiles", "five tiles"):
+        assert idx[:2].tolist() == [3, 5] and dmin[:2].tolist() == [0, 1]
+    if case == "zero and complement":
+        assert int(dmin[2]) == 0 and int(dist[3, 4]) == 256
+        assert int(dist[4, 8]) == 256 and int(idx[4]) == 6 and int(dmin[4]) == 0
+    if case == "complement only":
+        assert dmin.tolist() == [256] * 3 and idx.tolist() == [0] * 3
 
 
 def test_hamming_argmin_refuses_bad_inputs(dev):
@@ -191,6 +250,50 @@ def test_bow_insert_matches_plain(dev, W, F, V, cap):
     assert torch.equal(db_k, db_p)
 
 
+@pytest.mark.parametrize("W,F,V,cap,n", [(12, 540, 512, 1024, 1000), (5, 100, 37, 16, 16),
+                                         (7, 300, 100, 64, 20), (1, 1, 5, 1, 1),
+                                         (3, 2000, 16384, 4, 4), (40, 64, 512, 128, 100)])
+def test_bow_insert_score_matches_plain(dev, W, F, V, cap, n):
+    """K3, the window's vectors, insertion, scores and common-word counts
+    in one launch: vectors and rows exactly, scores bit for bit, counts
+    exactly, and bit for bit across two launches.  Rows inserted in the
+    launch lie inside the scored range [0, n) (scored by every window row),
+    and where cap allows one also past n; n < cap and n = cap; V not a
+    multiple of 32; a dropped destination and an empty window row; the
+    last two cases hold more window rows than one group in shared memory."""
+    rng = np.random.default_rng(W * F + V + n)
+    words = rng.integers(-1, V, (W, F)).astype(np.int32)
+    if W > 2:
+        words[2] = -1  # empty row: zero vector
+        words[1, : F // 2] = V  # out of range: invalid
+    dest = rng.permutation(n)[:W].astype(np.int64)
+    if W > 2:
+        dest[0] = -1 if W % 2 else cap  # dropped
+    if n + 2 <= cap and W > 3:
+        dest[3] = n + 1  # inserted, not scored
+    db = (rng.random((cap, V)) * (rng.random((cap, V)) > 0.5)).astype(np.float32)
+    tw, td = torch.from_numpy(words).to(dev), torch.from_numpy(dest).to(dev)
+    db_k, db_p = (torch.from_numpy(db).to(dev) for _ in range(2))
+    if W == 40:
+        assert W > bow.score_group(W, V)
+    before = bow.bow_insert_score.launches
+    vecs, out = bow.bow_insert_score(tw, td, db_k, n)
+    assert bow.bow_insert_score.launches == before + 1
+    rvecs, rout = bow.bow_insert_score_plain(tw, td, db_p, n)
+    assert torch.equal(vecs, rvecs) and torch.equal(db_k, db_p)
+    assert torch.equal(out[:, 0], rout[:, 0])
+    assert torch.equal(out[:, 1].view(torch.int32), rout[:, 1].view(torch.int32))
+    again = torch.from_numpy(db).to(dev)
+    vecs2, out2 = bow.bow_insert_score(tw, td, again, n)
+    assert torch.equal(vecs2, vecs) and torch.equal(out2, out) and torch.equal(again, db_k)
+    # float64 products of the same vectors and rows, as a sanity bound
+    rows = db_k[:n].double()
+    np.testing.assert_allclose(out[:, 0].cpu().numpy(), (vecs.double() @ rows.T).cpu().numpy(),
+                               rtol=1e-5, atol=1e-6)
+    if W > 2:
+        assert bool((out[2, 0] == 0).all()) and bool((out[2, 1] == 0).all())
+
+
 def test_bow_insert_refuses_bad_inputs(dev):
     words = torch.zeros((2, 4), dtype=torch.int32, device=dev)
     db = torch.zeros((4, 8), device=dev)
@@ -199,6 +302,10 @@ def test_bow_insert_refuses_bad_inputs(dev):
     with pytest.raises(ValueError):
         bow.bow_insert(words, torch.zeros(2, dtype=torch.int64, device=dev),
                        db.double())
+    with pytest.raises(ValueError):
+        bow.bow_insert_score(words, torch.zeros(2, dtype=torch.int64, device=dev), db, 5)
+    with pytest.raises(ValueError):
+        bow.bow_insert_score(words.T, torch.zeros(4, dtype=torch.int64, device=dev), db, 2)
 
 
 @pytest.mark.parametrize("m,n", [(1, 1), (5, 70), (300, 129), (1024, 1024)])
