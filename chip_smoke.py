@@ -39,7 +39,16 @@ package beside it.  Phases:
    spread (:func:`pcg_check`), K7-K10 and both PCG kernels bit for bit
    across two launches (K8-K10 and gba_pcg at bench.py's GBA problem and
    at ragged problems down to two keyframes); K7 and K9 beside one
-   torch.mv of their matrix assembled densely;
+   torch.mv of their matrix assembled densely; K11 (COVINS-G's top-2
+   ratio matching per column segment on K1's binary product, at the
+   verification's 2048 x 3072 in segments of 1024, ragged, with ties
+   inside a segment, across a tile and across segments, every row masked,
+   distances 0 and 256) exactly, beside the +-1 bf16 matmul and topk; K12
+   (ray-RANSAC scoring in one launch, at the COVINS-G path's shapes: six
+   central RANSACs of 2000 poses over 1024 rays, one of 512 over 6144,
+   the refine's one pose, the covariance's 60, counts only; ragged; NaN
+   poses) its counts, best and inliers exactly; both the same across two
+   launches;
 2. the full main path at the workload of the JAX package's benchmark
    (2 agents x 128 KF over 2000 landmarks, 512-word vocabulary trained on
    the card, 1024-message windows, the default ``Config()`` with
@@ -87,9 +96,22 @@ package beside it.  Phases:
    observations differently than GBA_FACTOR times what one ulp of input
    changes on the CPU, the ATE to the agents' ground truth before and
    after;
-7. one JSON line per the kernel table (K1-K7 and pgo_pcg timed on phase
+7. COVINS-G (``placerec_type="COVINS_G"``) on phase 2's streams: the
+   whole ingest and drain on the card with the launch counters set to 0
+   just before it and read just after (K11 once and K12 four times a
+   verification), the drain's time and the host's time per Gumbel draw,
+   upload and dispatch, with the default thresholds (or, if they close no
+   loop, those of ``tests/test_scenarios.py:141``, and it says which);
+   then the first WARM_WINDOWS windows on the card and on the CPU,
+   compared: candidates, every verification's gates, pair matches,
+   central inliers, pool and 17-point inliers, loops and merges exactly,
+   loop transforms to LOOP_TOL, covariances to COV_TOL, poses to
+   POSE_TOL; then K11 and K12 replayed on the card on the largest inputs
+   the CPU pass gave them;
+8. one JSON line per the kernel table (K1-K7 and pgo_pcg timed on phase
    2's inputs with phase 2's launches, K8-K10 and gba_pcg on bench.py's
-   GBA problem with phase 6's launches), the card line, and the result line
+   GBA problem with phase 6's launches, K11 and K12 on phase 7's inputs
+   with its launches), the card line, and the result line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -457,6 +479,129 @@ def k4_case(a, am, b, bm, max_dist, reps):
         "bound_ms": bnd, "bound_by": by,
         "max_abs_err": int((got - ref).abs().max().item()) if m else 0,
         "matches": int((got >= 0).sum().item()),
+    }
+
+
+def pm1_bf16_top2(a, b, seg):
+    """K11's library form: the JAX package's +-1 bf16 product as one
+    PyTorch matmul, then ``torch.topk`` of the two smallest distances of
+    each segment (a yardstick only; the port never calls it)."""
+    import torch
+
+    from covins_tpu_torch.ops.descriptors import unpack_to_pm1
+
+    dot = unpack_to_pm1(a, torch.bfloat16) @ unpack_to_pm1(b, torch.bfloat16).T
+    dist = (256.0 - dot.float()) * 0.5
+    return torch.topk(dist.view(a.shape[0], -1, seg), 2, dim=-1, largest=False)
+
+
+def k11_case(a, am, b, bm, seg, reps, max_dist=40.0, ratio=0.8):
+    """K11 (hamming_ratio_match) against its plain version: index, d1 and
+    d2 exactly, the same across two launches, one launch a call."""
+    import torch
+
+    from covins_tpu_torch.ops import descriptors as d
+
+    def kernel():
+        return d.hamming_ratio_match(a, am, b, bm, seg, max_dist, ratio)
+
+    before = d.hamming_ratio_match.launches
+    got = kernel()
+    check(d.hamming_ratio_match.launches == before + 1, "K11 did not launch once per call")
+    again = kernel()
+    ref = d.hamming_ratio_match_plain(a, am, b, bm, seg, max_dist, ratio)
+    torch.cuda.synchronize()
+    shape = f"{tuple(a.shape)}x{tuple(b.shape)} in segments of {seg}"
+    for g, x, r in zip(got, again, ref):
+        check(torch.equal(g, r), f"K11 disagrees with its plain version at {shape}")
+        check(torch.equal(g, x), f"K11 differs between two launches at {shape}")
+    m, n = a.shape[0], b.shape[0]
+    n_rows, n_cols = int(am.sum().item()), int(bm.sum().item())
+    # each valid (row, column) pair's distance: a +-1 int8 dot product of
+    # 256, 512 operations; inputs once, 12 bytes a (row, segment) out
+    bnd, by = bound((m + n) * 33 + 12 * m * (n // seg),
+                    (2.0 * n_rows * n_cols * 256, INT8_OPS_S))
+    return {
+        "kernel_ms": cuda_ms(kernel, reps), "busy_ms": busy_ms(kernel, reps),
+        "plain_ms": cuda_ms(lambda: d.hamming_ratio_match_plain(
+            a, am, b, bm, seg, max_dist, ratio), reps),
+        "library_ms": cuda_ms(lambda: pm1_bf16_top2(a, b, seg), reps),
+        "bound_ms": bnd, "bound_by": by,
+        "max_abs_err": int(max((g - r).abs().max().item() for g, r in zip(got, ref)))
+        if m else 0,
+        "matches": int((got[0] >= 0).sum().item()),
+    }
+
+
+# K12's float64 operations per (valid hypothesis, masked-in ray), as the
+# maths needs them (an add, multiply, comparison, quotient, square root or
+# arccos counts one; integer and index work none).  Non-central: the
+# origin rotated and translated (30 + 3) and the direction rotated (30),
+# w0 = va - ob (3), five dot products (25), the denominator and its test
+# (5), s and t with their signs (10), the midpoint (18), two angles (19
+# each: difference, squared norm, sqrt, clamp, dot, quotient, clip,
+# arccos), the maximum and the threshold (2): 164.  Central (zero
+# origins, known to the kernel): ob = t and w0 = -t need no work a ray,
+# the midpoint 15 and the first angle 16: 122, and w0's 3 a hypothesis.
+RAY_SCORE_OPS = {"central": 122, "noncentral": 164}
+RAY_SCORE_OPS_PER_HYP = {"central": 3, "noncentral": 0}
+
+
+def k12_work(T, va, fa, vb, fb, mask, thr, valid=None, want_inliers=True):
+    """A K12 call's size for the recorder: hypotheses x masked-in rays."""
+    return T.shape[1] * int(mask.sum().item()), T.shape[0] * T.shape[1]
+
+
+def k12_case(args, kw, reps):
+    """K12 (ray_ransac_score) against its plain version: counts, best and
+    inlier masks exactly, the same across two launches, one launch a
+    call."""
+    import torch
+
+    from covins_tpu_torch.ops import epipolar as e
+
+    def kernel():
+        return e.ray_ransac_score(*args, **kw)
+
+    before = e.ray_ransac_score.launches
+    got = kernel()
+    check(e.ray_ransac_score.launches == before + 1, "K12 did not launch once per call")
+    again = kernel()
+    ref = e.ray_ransac_score_plain(*args, **kw)
+    torch.cuda.synchronize()
+    T, va, fa, vb, fb, mask = args[:6]
+    B, H, N = T.shape[0], T.shape[1], fa.shape[1]
+    shape = f"{B} x {H} poses x {N} rays"
+    for g, x, r in zip(got, again, ref):
+        if r is None:
+            check(g is None and x is None, "K12 returned what was not asked for")
+            continue
+        check(torch.equal(g, r), f"K12 disagrees with its plain version at {shape}")
+        check(torch.equal(g, x), f"K12 differs between two launches at {shape}")
+    valid = kw.get("valid")
+    hyps = valid.sum(1) if valid is not None else torch.full((B,), H, device=T.device)
+    rays = mask.sum(1)
+    inl = kw.get("want_inliers", True)
+    kind = "noncentral" if va is not None else "central"
+    # every valid hypothesis on its batch entry's masked-in rays (the best
+    # row's inlier mask is among them, so it needs no more work)
+    ops = (RAY_SCORE_OPS[kind] * int((hyps * rays).sum().item())
+           + RAY_SCORE_OPS_PER_HYP[kind] * int(hyps.sum().item()))
+    # read once: the valid hypotheses' poses, the flags, the mask and the
+    # masked-in rays (directions, and origins where non-central); written
+    # once: the counts, and the best index and inlier mask if asked for
+    n_rays, n_hyps = int(rays.sum().item()), int(hyps.sum().item())
+    bnd, by = bound(n_hyps * 56 + (B * H if valid is not None else 0) + B * N
+                    + n_rays * 24 * (4 if kind == "noncentral" else 2)
+                    + B * H * 4 + (B * (4 + N) if inl else 0),
+                    (ops, FP64_OPS_S))
+    return {
+        "kernel_ms": cuda_ms(kernel, reps), "busy_ms": busy_ms(kernel, reps),
+        "plain_ms": cuda_ms(lambda: e.ray_ransac_score_plain(*args, **kw),
+                            max(1, reps // 10)),
+        "library_ms": None, "bound_ms": bnd, "bound_by": by,
+        "max_abs_err": int((got[0] - ref[0]).abs().max().item()),
+        "max_count": int(got[0].max().item()),
     }
 
 
@@ -1265,6 +1410,34 @@ def phase1(dev):
         r = k6_case(args, kw, reps=10)
         print(json.dumps({"phase": 1, "kernel": "p3p_ransac", "shape": [4 * H, N],
                           "sets": sets, "case": case, **r}))
+    # K11 at the COVINS-G verification's 2048 x 3072 (query rig 2 x 1024
+    # against candidate rig 3 x 1024), ragged, ties inside a segment, across
+    # a 1024-column tile and across segments, every row masked, distances 0
+    # and 256
+    for M, seg, n_seg, case in ((2048, 1024, 3, None), (37, 13, 3, None), (1, 2, 1, None),
+                                (100, 1500, 2, "ties"), (50, 40, 3, "all_masked"),
+                                (33, 300, 2, "extremes")):
+        a, am, b, bm = (t(x) for x in synthetic.ratio_match_scene(rng, M, seg, n_seg, case))
+        r = k11_case(a, am, b, bm, seg, reps=20 if M > 1000 else 3)
+        print(json.dumps({"phase": 1, "kernel": "hamming_ratio_match",
+                          "shape": [M, seg * n_seg, seg], "case": case, **r}))
+    # K12 at the COVINS-G path's four shapes (six central RANSACs of 2000
+    # poses over 1024 rays with hypothesis validity, the 17-point RANSAC's
+    # 512 over 6144, its refine's 1, the covariance's 60, counts only) and
+    # ragged ones, with NaN poses and batch entries padded to other counts
+    for B, H, N, kw in ((6, 2000, 1024, dict(central=True, with_valid=True)),
+                        (1, 512, 6144, {}), (1, 1, 6144, dict(nan_every=0)),
+                        (1, 60, 6144, dict(counts_only=True)),
+                        (3, 7, 37, dict(with_valid=True)), (1, 1, 1, dict(nan_every=0))):
+        kw = dict(kw)
+        counts_only = kw.pop("counts_only", False)
+        T, va, fa, vb, fb, mask, valid = (None if x is None else t(x) for x in
+                                          synthetic.ray_score_scene(rng, B, H, N, **kw))
+        r = k12_case((T, va, fa, vb, fb, mask, 0.004),
+                     dict(valid=valid, want_inliers=not counts_only),
+                     reps=20 if B * H * N > 1e5 else 3)
+        print(json.dumps({"phase": 1, "kernel": "ray_ransac_score", "shape": [B, H, N],
+                          "central": va is None, "counts_only": counts_only, **r}))
     # K7 at the merged bench map's graph size, ragged
     for N, E in ((256, 1300), (1, 1), (9, 20)):
         r = k7_case(*_k7_inputs(rng, N, E, dev), 1e-6, reps=50, library=N == 256)
@@ -1364,19 +1537,20 @@ def build_streams(n_agents, n_kf, n_landmarks, max_features=None):
     return world, streams
 
 
-def run_slice(vocab, windows, n_agents, device, placerec=True):
+def run_slice(vocab, windows, n_agents, device, placerec=True, **cfg_kw):
     """Fresh manager + sessions; ingest every window, then flush (which
-    drains the deferred place recognition).  Returns a dict with the
-    manager, the sessions, the queued retrieval data and the ingest and
-    flush wall times (device synchronised at both ends of each)."""
+    drains the deferred place recognition).  ``cfg_kw`` go to the
+    `Config`.  Returns a dict with the manager, the sessions, the queued
+    retrieval data and the ingest and flush wall times (device
+    synchronised at both ends of each)."""
     import torch
 
     from covins_tpu_torch.models.map_manager import MapManager
     from covins_tpu_torch.models.session import AgentSession
     from covins_tpu_torch.utils.config import Config
 
-    cfg = Config(placerec_defer=True) if placerec else \
-        Config(placerec_active=False, placerec_defer=True)
+    cfg = Config(placerec_defer=True, **cfg_kw) if placerec else \
+        Config(placerec_active=False, placerec_defer=True, **cfg_kw)
     mgr = MapManager(vocab, cfg, device=device)
     sessions = {cid: AgentSession(cid, mgr, cfg) for cid in range(n_agents)}
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
@@ -1396,14 +1570,14 @@ def run_slice(vocab, windows, n_agents, device, placerec=True):
             "ingest_s": t_ingest, "flush_s": time.perf_counter() - t0}
 
 
-def run_cpu(vocab, windows, n_agents, placerec=True):
+def run_cpu(vocab, windows, n_agents, placerec=True, **cfg_kw):
     """:func:`run_slice` on the CPU with CPU_THREADS torch threads."""
     import torch
 
     threads = torch.get_num_threads()
     torch.set_num_threads(CPU_THREADS)
     try:
-        return run_slice(vocab, windows, n_agents, "cpu", placerec)
+        return run_slice(vocab, windows, n_agents, "cpu", placerec, **cfg_kw)
     finally:
         torch.set_num_threads(threads)
 
@@ -1785,8 +1959,8 @@ def trace_slice(vocab, windows, card):
 
 
 def kernel_wrappers():
-    from covins_tpu_torch.ops import (bow, descriptors, gba, imu, landmark_ops, pgo, pnp,
-                                      projmatch)
+    from covins_tpu_torch.ops import (bow, descriptors, epipolar, gba, imu, landmark_ops, pgo,
+                                      pnp, projmatch)
 
     return {"hamming_argmin": descriptors.hamming_argmin,
             "landmark_attributes": landmark_ops.landmark_attributes,
@@ -1794,6 +1968,8 @@ def kernel_wrappers():
             "hamming_mutual_nn": descriptors.hamming_mutual_nn,
             "project_match": projmatch.project_match_core,
             "p3p_ransac": pnp.absolute_pose_ransac,
+            "hamming_ratio_match": descriptors.hamming_ratio_match,
+            "ray_ransac_score": epipolar.ray_ransac_score,
             "pgo_matvec": pgo.matvec,
             "pgo_pcg": pgo.pcg,
             "gba_reproj_blocks": gba.reproj_blocks,
@@ -2357,6 +2533,182 @@ def phase6(dev, card, gpu_run, vocab, world):
     return launches
 
 
+# ------------------------------------------------------------------ COVINS-G
+# the COVINS-G drain's kernels: K1-K3 at ingest and retrieval, K11 and K12
+# in every verification (K4-K6 are COVINS's)
+G_KERNELS = ("hamming_argmin", "landmark_attributes", "bow_insert_score",
+             "hamming_ratio_match", "ray_ransac_score")
+# the thresholds the JAX package's COVINS-G scenario closes loops with
+# (tests/test_scenarios.py:141), taken if the defaults close none
+G_LOOSE = {"nc_min_inliers": 30, "nc_cov_thres": 100.0}
+# How far the card's loop covariances may differ from the CPU's, relative
+# to their largest entry: as far as one ulp of the rays' directions moves
+# the CPU's own 5-point covariance (9.9e-5) on the two-rig scene of
+# scripts/port_covg_cov_probe.py.  The solvers are device-exact up to
+# svd3x3, whose transcendental functions round apart on the card, and a
+# near-singular 17-ray re-solve amplifies that: the probe read the card
+# 1.7e-5 from the CPU there (NVIDIA H100 80GB HBM3, 700 W)
+COV_TOL = 1e-4
+
+
+class HostLog:
+    """While active, records every COVINS-G verification's fetched result
+    and the host time of the named calls (the Gumbel draw, the upload, the
+    whole dispatch)."""
+
+    def __init__(self):
+        from covins_tpu_torch.models.placerec import PlaceRecognition
+        from covins_tpu_torch.ops import loopverify
+
+        self.targets = [(loopverify, "fetch_covinsg_verify"), (loopverify, "upload"),
+                        (loopverify, "dispatch_covinsg_verify"),
+                        (PlaceRecognition, "next_covins_g_noise")]
+        self.results, self.seconds, self.calls = [], {}, {}
+
+    def __enter__(self):
+        self._saved = []
+        for obj, name in self.targets:
+            fn = getattr(obj, name)
+            self._saved.append((obj, name, fn))
+
+            def timed(*a, _fn=fn, _name=name, **kw):
+                t0 = time.perf_counter()
+                out = _fn(*a, **kw)
+                self.seconds[_name] = self.seconds.get(_name, 0.0) + time.perf_counter() - t0
+                self.calls[_name] = self.calls.get(_name, 0) + 1
+                if _name == "fetch_covinsg_verify":
+                    self.results.append(out)
+                return out
+            setattr(obj, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in self._saved:
+            setattr(obj, name, fn)
+
+    def per_call_ms(self):
+        return {k: 1e3 * v / self.calls[k] for k, v in self.seconds.items()}
+
+
+def compare_g(gpu, cpu, g_log, c_log):
+    """The card's and the CPU's COVINS-G runs: :func:`compare_full` (loops,
+    merges, candidates, accepted pairs, loop transforms to LOOP_TOL, poses
+    to POSE_TOL), every verification's gates, pair matches and central
+    inliers, pool and 17-point inliers exactly, and the accepted loops'
+    covariances to COV_TOL."""
+    out, worst_loop, worst = compare_full(gpu, cpu)
+    check(len(g_log.results) == len(c_log.results),
+          f"card and CPU fetched {len(g_log.results)} and {len(c_log.results)} verifications")
+    for i, (g, c) in enumerate(zip(g_log.results, c_log.results)):
+        for k in ("ok", "pairs_ok", "n_pool", "n_inliers"):
+            check(g[k] == c[k], f"verification {i}: card and CPU differ in {k}: {g[k]} vs {c[k]}")
+        for k in ("pair_n_match", "pair_n_inl"):
+            check(np.array_equal(g[k], c[k]), f"verification {i}: {k} {g[k]} vs {c[k]}")
+    worst_cov = 0.0
+    for mid, gm in gpu["mgr"].maps.items():
+        for gl, cl in zip(gm.loops, cpu["mgr"].maps[mid].loops):
+            check((gl["cov"] is None) == (cl["cov"] is None), "a loop lost its covariance")
+            if gl["cov"] is not None:
+                worst_cov = max(worst_cov, float(np.abs(gl["cov"] - cl["cov"]).max()
+                                                 / np.abs(cl["cov"]).max()))
+    check(worst_cov <= COV_TOL, f"loop covariances differ by {worst_cov} relative")
+    return out, worst_loop, worst, worst_cov
+
+
+def phase7(dev, card, vocab, windows, n_kf=128):
+    """COVINS-G on the bench streams: the whole drain on the card with the
+    launch counters set to 0 just before it and read just after, then card
+    against CPU on the first WARM_WINDOWS windows, then K11 and K12
+    replayed on the largest inputs the CPU pass gave them."""
+    import torch
+
+    from covins_tpu_torch.ops import descriptors, epipolar
+
+    t_phase = time.perf_counter()
+    n_agents = 2
+    wrappers = kernel_wrappers()
+    cfg_kw, thresholds = {"placerec_type": "COVINS_G"}, "default"
+    for attempt in (0, 1):
+        for k in wrappers.values():
+            k.launches = 0
+        with HostLog() as log:
+            gpu = run_slice(vocab, windows, n_agents, "cuda", **cfg_kw)
+        launches = {name: k.launches for name, k in wrappers.items()}
+        out = outcome(gpu)
+        if out["loops"] + out["merges"] > 0 or attempt:
+            break
+        cfg_kw, thresholds = {**cfg_kw, **G_LOOSE}, "tests/test_scenarios.py:141"
+    for name in G_KERNELS:
+        check(launches[name] > 0, f"the COVINS-G path never launched {name}")
+    check(out["loops"] + out["merges"] > 0, "COVINS-G closed no loop on the bench stream")
+    n_total = check_invariants(gpu, n_agents * n_kf, "COVINS-G card")
+    with_loops = [m for m in gpu["mgr"].maps.values() if m.loops]
+    check(all(lc["cov"] is not None for m in with_loops for lc in m.loops),
+          "a COVINS-G loop edge carries no covariance")
+    print(json.dumps({
+        "phase": 7, "card": card, "mode": "COVINS_G", "thresholds": thresholds,
+        "config": cfg_kw, "n_keyframes": n_total, "windows": len(windows),
+        "ingest_wall_s": gpu["ingest_s"], "drain_wall_s": gpu["flush_s"],
+        "loops": out["loops"], "merges": out["merges"], "candidates": out["candidates"],
+        "verifications_fetched": len(log.results),
+        "accepted_verifications": sum(r["ok"] for r in log.results),
+        "pgo_solves": out["pgo_solves"], "launches": launches,
+        "launches_per_candidate": {k: v / max(out["candidates"], 1)
+                                   for k, v in launches.items()},
+        "host_ms_per_call": log.per_call_ms(), "host_calls": log.calls,
+        "elapsed_s": time.perf_counter() - t_phase}))
+    print(json.dumps({"phase": 7, "accepted": out["accepted"]}))
+
+    # card against CPU on the stream's first windows
+    rec = Recorder([
+        (descriptors, "hamming_ratio_match",
+         lambda a, am, b, bm, *r: a.shape[0] * b.shape[0]),
+        (epipolar, "ray_ransac_score", k12_work,
+         lambda kw: "central" if kw.get("valid") is not None
+         else ("counts" if not kw.get("want_inliers", True) else "non-central")),
+    ])
+    from torch.profiler import ProfilerActivity, profile
+
+    head = windows[:WARM_WINDOWS]
+    with HostLog() as g_log, profile(activities=[ProfilerActivity.CUDA]) as prof:
+        g_run = run_slice(vocab, head, n_agents, "cuda", **cfg_kw)
+    g_busy, g_top = _device_busy_ms(prof)
+    g_wall = (g_run["ingest_s"] + g_run["flush_s"]) * 1e3
+    with rec, HostLog() as c_log:
+        c_run = run_cpu(vocab, head, n_agents, **cfg_kw)
+    g_out, worst_loop, worst, worst_cov = compare_g(g_run, c_run, g_log, c_log)
+    print(json.dumps({
+        "phase": 7, "card_vs_cpu": "agree", "windows": WARM_WINDOWS,
+        "candidates": g_out["candidates"], "loops": g_out["loops"],
+        "merges": g_out["merges"], "loop_tol": LOOP_TOL, "max_loop_T_diff": worst_loop,
+        "cov_tol": COV_TOL, "max_cov_rel_diff": worst_cov, "pose_tol": POSE_TOL,
+        "max_pose_diff": worst, "card_drain_wall_s": g_run["flush_s"],
+        "card_traced_ingest_and_drain_ms": g_wall, "device_busy_ms": g_busy,
+        "device_idle_share": 1.0 - g_busy / g_wall, "device_ms_by_kernel": g_top,
+        "cpu_drain_wall_s": c_run["flush_s"], "cpu_threads": CPU_THREADS,
+        "cpu_host_ms_per_call": c_log.per_call_ms(),
+        "elapsed_s": time.perf_counter() - t_phase}))
+
+    # K11 and K12 on the card, on the largest inputs the path gave them
+    table = {}
+    a, am, b, bm, seg, max_dist, ratio = rec.on("hamming_ratio_match", dev)
+    table["hamming_ratio_match"] = {
+        **k11_case(a, am, b, bm, seg, reps=50, max_dist=max_dist, ratio=ratio),
+        "shape": [a.shape[0], b.shape[0], seg]}
+    for kind in ("central", "non-central", "counts"):
+        key = f"ray_ransac_score {kind}"
+        args = rec.on(key, dev)
+        kw = {k: v.to(dev) if hasattr(v, "to") else v for k, v in rec.kwargs(key).items()}
+        row = {**k12_case(args, kw, reps=20), "kind": kind,
+               "shape": [args[0].shape[0], args[0].shape[1], args[2].shape[1]],
+               "stage_calls": rec.calls[key][0]}
+        print(json.dumps({"phase": 7, "kernel": "ray_ransac_score", **row}))
+        table.setdefault("ray_ransac_score", row)
+    for name, row in table.items():
+        row["launches"] = launches[name]
+    return table
+
+
 SOURCES = {
     # the Pallas kernel hamming_pallas.py::hamming_distance_packed_T was
     # removed from the JAX package; this is its live equivalent
@@ -2385,6 +2737,13 @@ SOURCES = {
                 "covins_tpu/ops/gba.py:399"),
     "imu_preintegrate": ("covins_tpu_torch/csrc/imu_preintegrate.cu",
                          "covins_tpu/ops/imu.py:137"),
+    # with descriptors.py:103 masked_dist and :124 match_ratio per block
+    # (loopverify.py:488-505)
+    "hamming_ratio_match": ("covins_tpu_torch/csrc/hamming_ratio_match.cu",
+                            "covins_tpu/ops/descriptors.py:114"),
+    # with :46 triangulate_midpoint and the scoring of :131, :327, :413, :453
+    "ray_ransac_score": ("covins_tpu_torch/csrc/ray_ransac_score.cu",
+                         "covins_tpu/ops/epipolar.py:68"),
 }
 
 
@@ -2426,6 +2785,8 @@ def main():
     print(json.dumps({"phase": 5, "elapsed_s": time.perf_counter() - t_start}))
     gba_launches = phase6(dev, card, gpu_run, vocab, world)
     print(json.dumps({"phase": 6, "elapsed_s": time.perf_counter() - t_start}))
+    table.update(phase7(dev, card, vocab, make_windows(build_streams(2, 128, 2000)[1])))
+    print(json.dumps({"phase": 7, "elapsed_s": time.perf_counter() - t_start}))
     for name, row in gba_table.items():
         row["launches"] = gba_launches[name]
     table.update(gba_table)

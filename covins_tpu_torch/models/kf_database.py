@@ -106,7 +106,8 @@ class KeyframeDatabase:
         if vocabulary.dtype != np.uint8:
             raise NotImplementedError(
                 "covins_tpu_torch supports binary (ORB) vocabularies only; "
-                "the SIFT/L2 retrieval path is not ported")
+                "the SIFT/L2 retrieval path belongs to the SIFT slice of the "
+                "port")
         self.device = resolve_device(device)
         self.vocab = torch.tensor(vocabulary, device=self.device)
         self.k_words = vocabulary.shape[0]

@@ -12,8 +12,8 @@ landmark-attribute refresh runs on the device in one launch
 The GBA snapshot (:meth:`Map.to_gba_problem`) re-propagates each stored
 IMU window on the map's device (kernel K10) and hands the problem to
 `ops/gba.py`.  Keyframe culling (`erase_keyframe`,
-`remove_redundant_keyframes`) and `match_features` belong to later parts
-of the port and are not here yet.
+`remove_redundant_keyframes`) belongs to a later part of the port and is
+not here yet.
 """
 
 from __future__ import annotations
@@ -154,6 +154,19 @@ class Map:
         """Place-recognition descriptor set (the primary set; landmark-tied
         in COVINS mode).  Sliced by the caller with `kf_n_feat[row]`."""
         return self.descriptors[row]
+
+    def match_features(self, row: int):
+        """Pose-estimation feature set for image matching (COVINS-G): the
+        `_add` set when the agent sent one, else the primary set (the
+        fallback of `keyframe_be.cpp:42-226`).  Returns (keypoints,
+        descriptors, n).  The primary set's keypoints are distorted pixels;
+        the `_add` set returns its stored `kp_undist_add`, as the
+        reference does."""
+        na = int(self.kf_n_feat_add[row])
+        if na > 0 and self.descriptors_add is not None:
+            return self.kp_undist_add[row], self.descriptors_add[row], na
+        return self.kp_uv[row], self.descriptors[row], int(self.kf_n_feat[row])
+
     def lm_row(self, idpair: IdPair) -> int:
         return self._lm_index.get(tuple(idpair), -1)
 

@@ -8,11 +8,11 @@ messages build the map (`ProcessKeyframeMessages` /
 batched landmark-attribute refresh and one batched BoW insert + score into
 the device-resident retrieval database.  A keyframe is finalised once its
 landmark batch has arrived: when the NEXT keyframe arrives or on
-:meth:`AgentSession.flush`.  Place recognition (COVINS) then detects on
-the host, verifies every candidate on the device, applies loops and merges
-in keyframe order and runs one pose-graph solve per affected map — inline,
-or deferred to :meth:`AgentSession.drain_placerec` with
-``placerec_defer``.  COVINS-G is refused at construction.
+:meth:`AgentSession.flush`.  Place recognition (COVINS or COVINS-G) then
+detects on the host, verifies every candidate on the device, applies loops
+and merges in keyframe order and runs one pose-graph solve per affected
+map — inline, or deferred to :meth:`AgentSession.drain_placerec` with
+``placerec_defer``.  SIFT descriptors are refused at construction.
 """
 
 from __future__ import annotations

@@ -3,12 +3,15 @@
 Counterpart of `covins_tpu/ops/descriptors.py`.  The JAX package computes
 Hamming distance as an unpack-to-±1 matmul (`hamming_distance`), exact
 because the products are ±1 and the sums stay far below 2^24.  The port
-keeps that as its plain version and adds two CUDA kernels: the fused
+keeps that as its plain version and adds three CUDA kernels: the fused
 distance + row argmin that retrieval needs, :func:`hamming_argmin` (K1,
-`csrc/hamming_argmin.cu`), and the masked mutual-nearest-neighbour match
-of loop verification's stage 1, :func:`hamming_mutual_nn` (K4,
-`csrc/hamming_mutual_nn.cu`).  The ratio matchers (`knn2`, `match_ratio`,
-`match_mutual_nn_ratio`) belong to the COVINS-G part of the port.
+`csrc/hamming_argmin.cu`), the masked mutual-nearest-neighbour match of
+loop verification's stage 1, :func:`hamming_mutual_nn` (K4,
+`csrc/hamming_mutual_nn.cu`), and the masked top-2 ratio match of the
+COVINS-G verification per column segment, :func:`hamming_ratio_match`
+(K11, `csrc/hamming_ratio_match.cu`).  The matchers on a distance matrix
+(`knn2`, `match_ratio`, `match_mutual_nn`, `match_mutual_nn_ratio`) are
+the reference's.  The L2 distance of SIFT descriptors is not ported.
 """
 
 from __future__ import annotations
@@ -42,6 +45,12 @@ def hamming_distance(a_u8: torch.Tensor, b_u8: torch.Tensor,
     dot = torch.matmul(unpack_to_pm1(a_u8, dtype),
                        unpack_to_pm1(b_u8, dtype).transpose(-1, -2))
     return ((nbits - dot.float()) * 0.5).to(torch.int32)
+
+
+def hamming_distance_best(a_u8: torch.Tensor, b_u8: torch.Tensor) -> torch.Tensor:
+    """The reference's distance of its product paths: the +-1 product in
+    bfloat16 (exact: +-1 products summed in float32)."""
+    return hamming_distance(a_u8, b_u8, dtype=torch.bfloat16)
 
 
 def hamming_distance_xor(a_u8: torch.Tensor, b_u8: torch.Tensor,
@@ -167,6 +176,40 @@ def match_mutual_nn(dist: torch.Tensor, max_dist: float) -> torch.Tensor:
     return torch.where(ok, fwd, -1).to(torch.int32)
 
 
+def knn2(dist: torch.Tensor):
+    """Best and second-best along axis 1, ties to the lowest index (as
+    ``jax.lax.top_k``: a stable sort, where ``torch.topk`` leaves the order
+    of ties open).  Returns (idx_best (M,), d_best (M,), d_second (M,))."""
+    neg = -dist.to(torch.float32)
+    top2, idx2 = torch.sort(neg, dim=1, descending=True, stable=True)
+    return (idx2[:, 0].to(torch.int32), (-top2[:, 0]).to(dist.dtype),
+            (-top2[:, 1]).to(dist.dtype))
+
+
+def _ratio_gate(d1, d2, max_dist: float, ratio: float):
+    """``d1 < max_dist`` and ``d1 < ratio * d2`` in float32, as the
+    reference's weakly typed scalars make it."""
+    f32 = dict(dtype=torch.float32, device=d1.device)
+    d1f = d1.to(torch.float32)
+    return (d1f < torch.tensor(max_dist, **f32)) & (
+        d1f < torch.tensor(ratio, **f32) * d2.to(torch.float32))
+
+
+def match_ratio(dist: torch.Tensor, max_dist: float, ratio: float) -> torch.Tensor:
+    """knn2 + Lowe ratio + absolute gate (`placerec_gen_be.cpp:82-126`);
+    idx (M,) int32, -1 = no match."""
+    idx, d1, d2 = knn2(dist)
+    return torch.where(_ratio_gate(d1, d2, max_dist, ratio), idx, -1)
+
+
+def match_mutual_nn_ratio(dist: torch.Tensor, max_dist: float,
+                          ratio: float) -> torch.Tensor:
+    """Mutual NN + ratio + absolute gates combined."""
+    idx_r = match_ratio(dist, max_dist, ratio)
+    idx_m = match_mutual_nn(dist, max_dist)
+    return torch.where((idx_r == idx_m) & (idx_r >= 0), idx_r, -1)
+
+
 def hamming_mutual_nn_plain(a_u8, a_mask, b_u8, b_mask, max_dist: float):
     """Plain version of :func:`hamming_mutual_nn`: the reference's masked
     Hamming matrix, then :func:`match_mutual_nn` (any device)."""
@@ -215,3 +258,58 @@ def hamming_mutual_nn(a_u8: torch.Tensor, a_mask: torch.Tensor,
 
 
 hamming_mutual_nn.launches = 0
+
+
+def hamming_ratio_match_plain(a_u8, a_mask, b_u8, b_mask, seg: int,
+                              max_dist: float, ratio: float):
+    """Plain version of :func:`hamming_ratio_match` (any device): the
+    reference's masked Hamming matrix, then :func:`knn2` and the gates of
+    :func:`match_ratio` on each segment of ``seg`` columns."""
+    dist = masked_dist(hamming_distance_best(a_u8, b_u8), a_mask, b_mask)
+    out = []
+    for j in range(b_u8.shape[0] // seg):
+        idx, d1, d2 = knn2(dist[:, j * seg:(j + 1) * seg])
+        out.append((torch.where(_ratio_gate(d1, d2, max_dist, ratio), idx, -1),
+                    d1, d2))
+    return tuple(torch.stack(x, dim=1) for x in zip(*out))
+
+
+def hamming_ratio_match(a_u8: torch.Tensor, a_mask: torch.Tensor,
+                        b_u8: torch.Tensor, b_mask: torch.Tensor, seg: int,
+                        max_dist: float, ratio: float):
+    """COVINS-G image matching of the (M, 32) descriptors ``a_u8`` against
+    each of the ``N / seg`` segments of ``seg`` columns of ``b_u8`` (one
+    segment a keyframe of the candidate rig): per row and segment the
+    nearest and second-nearest valid column (ties to the lowest column; a
+    masked row or column, or a missing second neighbour, counts as
+    distance 2^30) and the match where ``d1 < max_dist`` and ``d1 < ratio
+    * d2``, both in float32.  Returns ``(idx, d1, d2)``, each (M, N / seg)
+    int32, idx the column within the segment or -1.  CPU tensors take the
+    plain version; CUDA tensors launch the kernel (K11: binary tensor-core
+    products, the two smallest keys per row and segment in registers, no
+    distance matrix) or raise."""
+    if all(is_cpu(t) for t in (a_u8, a_mask, b_u8, b_mask)):
+        return hamming_ratio_match_plain(a_u8, a_mask, b_u8, b_mask, seg,
+                                         max_dist, ratio)
+    dev = check_cuda("hamming_ratio_match", a_u8, a_mask, b_u8, b_mask)
+    _check_desc("hamming_ratio_match a", a_u8, 2)
+    _check_desc("hamming_ratio_match b", b_u8, 2)
+    m, n = a_u8.shape[0], b_u8.shape[0]
+    _check_mask("hamming_ratio_match a", a_mask, m)
+    _check_mask("hamming_ratio_match b", b_mask, n)
+    if seg < 2 or n % seg or n > ARGMIN_MAX_COLUMNS or m >= 2**30:
+        raise ValueError(f"hamming_ratio_match: {n} columns in segments of {seg} "
+                         "(a top 2 needs two columns a segment)")
+    out = torch.empty((3, m, n // seg), dtype=torch.int32, device=dev)
+    lib = cuda_build.library("hamming_ratio_match")
+    with torch.cuda.device(dev):
+        rc = lib.covins_hamming_ratio_match(
+            a_u8.data_ptr(), a_mask.data_ptr(), m, b_u8.data_ptr(),
+            b_mask.data_ptr(), n, seg, float(max_dist), float(ratio),
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(rc, "hamming_ratio_match")
+    hamming_ratio_match.launches += 1
+    return out[0], out[1], out[2]
+
+
+hamming_ratio_match.launches = 0

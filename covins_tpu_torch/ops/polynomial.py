@@ -1,7 +1,10 @@
 """Batched closed-form polynomial roots in real arithmetic.
 
-Counterpart of `covins_tpu/ops/polynomial.py` (quadratic, cubic, quartic
-and the Newton polish the P3P solver uses).  Every formula is the
+Counterpart of `covins_tpu/ops/polynomial.py`: quadratic, cubic, quartic
+and the Newton polish the P3P solver uses, and the bracketing real-root
+solver of the five-point and generalized P3P solvers
+(:func:`solve_poly_real`, batched over leading dims), with the dense
+polynomial products they build their polynomials with (:func:`convolve`).  Every formula is the
 reference's: both branches of each case split are evaluated and one is
 selected, so the results round as the reference's do.  The solvers return
 ``(roots, is_real)``: real roots with a trailing root axis, and for a
@@ -16,6 +19,10 @@ division by a Python number multiplies by its rounded reciprocal).
 """
 
 from __future__ import annotations
+
+import itertools
+import math
+from functools import lru_cache
 
 import torch
 
@@ -155,3 +162,95 @@ def polish_real_roots(coeffs, roots, iters: int = 3):
             fp = fp * x + dcoef[..., i:i + 1]
         x = x - f / torch.where(torch.abs(fp) < 1e-20, 1e-20, fp)
     return x
+
+
+def _linspace(start: float, stop: float, n: int, like):
+    """``jnp.linspace``'s grid: start + i * (stop - start) / (n - 1), the
+    last point ``stop``."""
+    delta = (stop - start) / (n - 1)
+    i = torch.arange(n - 1, dtype=like.dtype, device=like.device)
+    last = torch.full((1,), stop, dtype=like.dtype, device=like.device)
+    return torch.cat([start + i * delta, last])
+
+
+def solve_poly_real(coeffs, n_grid: int = 1024, bisect_iters: int = 48,
+                    newton_iters: int = 3):
+    """All real roots of degree-D polynomials, in real arithmetic.
+
+    ``coeffs``: (..., D+1) highest degree first.  Returns ``(roots (...,
+    D), valid (..., D))``.  The reference's method: rescale by the
+    Fujiwara bound, substitute z = tan(theta) into the homogenised form
+    sum_k c_k sin^(D-k) cos^k, bracket sign changes on an ``n_grid``
+    theta grid, bisect each bracket, Newton-polish in z.  Roots of even
+    multiplicity, and roots closer than the grid pitch, may be missed.
+    """
+    deg = coeffs.shape[-1] - 1
+    like = coeffs
+    c0 = torch.clamp(torch.abs(coeffs[..., 0]), min=1e-30)
+    k = torch.arange(1, deg + 1, dtype=like.dtype, device=like.device)
+    ratios = (torch.abs(coeffs[..., 1:]) / c0[..., None]) ** (1.0 / k)
+    s = torch.clamp(2.0 * torch.amax(ratios, dim=-1), 1e-3, 1e3)
+    pw = torch.arange(deg, -1.0, -1.0, dtype=like.dtype, device=like.device)
+    scaled = coeffs * s[..., None] ** pw
+    scaled = scaled / torch.clamp(torch.amax(torch.abs(scaled), dim=-1,
+                                             keepdim=True), min=1e-30)
+    eps = 1e-4
+    theta = _linspace(-math.pi / 2 + eps, math.pi / 2 - eps, n_grid, like)
+    pc = torch.arange(0.0, deg + 1.0, dtype=like.dtype, device=like.device)
+
+    def homog(th, c):
+        # sum_k c[k] sin^(D-k) cos^k, th (..., R) against c (..., 1, D+1)
+        return torch.sum(c * torch.sin(th)[..., None] ** pw
+                         * torch.cos(th)[..., None] ** pc, dim=-1)
+
+    f = homog(theta.expand(coeffs.shape[:-1] + (n_grid,)), scaled[..., None, :])
+    sgn = torch.sign(f)
+    change = (sgn[..., :-1] * sgn[..., 1:] < 0) | (sgn[..., :-1] == 0)
+    rank = torch.cumsum(change.to(torch.int64), dim=-1)
+    # bracket j: the (j + 1)-th sign change, if there is one
+    j = torch.arange(1, deg + 1, device=like.device)[:, None]
+    hit = change[..., None, :] & (rank[..., None, :] == j)  # (..., D, G-1)
+    valid = hit.any(dim=-1)
+    idx = torch.argmax(hit.to(torch.int8), dim=-1)
+    lo, hi = theta[idx], theta[idx + 1]
+    c = scaled[..., None, :]
+    f_lo = homog(lo, c)
+    for _ in range(bisect_iters):
+        mid = 0.5 * (lo + hi)
+        f_mid = homog(mid, c)
+        left = f_lo * f_mid <= 0
+        hi = torch.where(left, mid, hi)
+        lo = torch.where(left, lo, mid)
+        f_lo = torch.where(left, f_lo, f_mid)
+    roots = torch.tan(0.5 * (lo + hi)) * s[..., None]
+    roots = polish_real_roots(coeffs, roots, iters=newton_iters)
+    return torch.where(valid, roots, 0.0), valid
+
+
+@lru_cache(maxsize=None)
+def _conv_matrix(ps: tuple, qs: tuple, device: torch.device) -> torch.Tensor:
+    """0/1 matrix (P * Q, O) taking the outer product of two dense
+    coefficient grids of shapes ``ps`` and ``qs`` to their full
+    convolution, flattened (one per device, made once)."""
+    os_ = tuple(a + b - 1 for a, b in zip(ps, qs))
+    S = torch.zeros((math.prod(ps) * math.prod(qs), math.prod(os_)), dtype=torch.float64)
+    r = 0
+    for i in itertools.product(*map(range, ps)):
+        for j in itertools.product(*map(range, qs)):
+            o = 0
+            for k, (a, b) in enumerate(zip(i, j)):
+                o = o * os_[k] + a + b
+            S[r, o] = 1.0
+            r += 1
+    return S.to(device)
+
+
+def convolve(p, q, nd: int = 1):
+    """Full convolution of the trailing ``nd``-dim coefficient grids of p
+    and q (batched over the leading dims)."""
+    ps, qs = tuple(p.shape[-nd:]), tuple(q.shape[-nd:])
+    lead = torch.broadcast_shapes(p.shape[:-nd], q.shape[:-nd])
+    outer = p.reshape(p.shape[:-nd] + (-1, 1)) * q.reshape(q.shape[:-nd] + (1, -1))
+    S = _conv_matrix(ps, qs, p.device)
+    out = outer.reshape(lead + (-1,)) @ S
+    return out.reshape(lead + tuple(a + b - 1 for a, b in zip(ps, qs)))

@@ -225,7 +225,7 @@ def project_match(cam, T_cw, p_w, lm_desc, lm_normal, lm_mask, kp_uv,
     if lm_desc.dtype != torch.uint8:
         raise NotImplementedError(
             "covins_tpu_torch matches binary (ORB) descriptors only; the "
-            "SIFT/L2 path belongs to the COVINS-G slice")
+            "SIFT/L2 path belongs to the SIFT slice of the port")
     f64 = dict(dtype=torch.float64, device=p_w.device)
     if lm_dist_rng is None:
         lm_dist_rng = torch.zeros((p_w.shape[0], 2), **f64)

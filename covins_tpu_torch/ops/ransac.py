@@ -22,19 +22,20 @@ def gumbel_noise(generator: torch.Generator, n_sets: int, n: int,
                  device=None) -> torch.Tensor:
     """(n_sets, n) float64 standard Gumbel noise from a CPU generator, as
     `jax.random.gumbel` makes it: -log(-log(U)), U uniform in [tiny, 1)."""
-    u = torch.rand((n_sets, n), generator=generator, dtype=torch.float64)
-    g = -torch.log(-torch.log(torch.clamp(u, min=_TINY)))
+    g = torch.rand((n_sets, n), generator=generator, dtype=torch.float64)
+    g.clamp_(min=_TINY).log_().neg_().log_().neg_()  # in place: no temporaries
     return g.to(device) if device is not None else g
 
 
 def sample_minimal_sets(noise: torch.Tensor, mask: torch.Tensor,
                         set_size: int) -> torch.Tensor:
-    """(n_sets, set_size) int64 index sets of distinct valid indices: the
-    top ``set_size`` of each noise row after masking (largest first, ties
-    to the lowest index, as `jax.lax.top_k`; a stable sort, where
-    ``torch.topk`` leaves the order of ties open)."""
-    g = torch.where(mask[None, :], noise, -torch.inf)
-    return torch.sort(g, dim=-1, descending=True, stable=True).indices[:, :set_size]
+    """(..., n_sets, set_size) int64 index sets of distinct valid indices:
+    the top ``set_size`` of each (..., n_sets, N) noise row after masking
+    with the (..., N) ``mask`` (largest first, ties to the lowest index, as
+    `jax.lax.top_k`; a stable sort, where ``torch.topk`` leaves the order
+    of ties open)."""
+    g = torch.where(mask[..., None, :], noise, -torch.inf)
+    return torch.sort(g, dim=-1, descending=True, stable=True).indices[..., :set_size]
 
 
 def best_hypothesis(counts: torch.Tensor, valid=None) -> torch.Tensor:

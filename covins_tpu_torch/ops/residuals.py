@@ -72,6 +72,12 @@ def six_dof_between_residual(T_w_i, T_w_j, T_ij_meas):
     return geo.pose_boxminus(T_ij, T_ij_meas)
 
 
+def loop_sqrt_info_fixed(dtype=torch.float64, device=None):
+    """COVINS's fixed loop-edge weights: rotation x100, translation x1e4
+    (`optimization_be.cpp:247-249`), order [rot(3), trans(3)]."""
+    return torch.diag(torch.tensor([100.0] * 3 + [1e4] * 3, dtype=dtype, device=device))
+
+
 def sqrt_info_from_covariance(cov, jitter: float = 1e-12):
     """Upper-triangular sqrt-information of a covariance (COVINS-G loop
     edges carry the sampling covariance, `optimization_be.cpp:889-944`)."""

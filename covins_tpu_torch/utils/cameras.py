@@ -37,6 +37,19 @@ class Camera:
     dist_model: int = RADTAN
 
 
+def make_pinhole_radtan(fx, fy, cx, cy, dist, T_s_c=None, dtype=torch.float64,
+                        device=None) -> Camera:
+    """A pinhole camera with radtan distortion (``dist`` up to 4 values,
+    zero-padded); ``T_s_c`` defaults to the identity."""
+    f = dict(dtype=dtype, device=device)
+    if T_s_c is None:
+        T_s_c = torch.tensor([1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], **f)
+    d = torch.zeros(4, **f)
+    d[:len(dist)] = torch.as_tensor(dist, **f)
+    return Camera(torch.tensor([fx, fy, cx, cy, 0.0], **f), d,
+                  torch.as_tensor(T_s_c, **f), PINHOLE, RADTAN)
+
+
 def camera_from_calibration(calib, device) -> Camera:
     """Device-resident float64 camera of a `VICalibration` message."""
     f64 = dict(dtype=torch.float64, device=device)
@@ -226,3 +239,21 @@ def back_project3(cam: Camera, uv):
     else:
         raise ValueError(f"unknown camera model {cam.cam_model}")
     return b / torch.linalg.vector_norm(b, dim=-1, keepdim=True)
+
+
+def undistort_keypoints(cam: Camera, uv):
+    """Distorted pixel keypoints -> undistorted pixel keypoints under the
+    same K (`keyframe_be.cpp:101-140`)."""
+    fx, fy, cx, cy, _ = (cam.intrinsics[i] for i in range(5))
+    xy_d = torch.stack([(uv[..., 0] - cx) / fx, (uv[..., 1] - cy) / fy], dim=-1)
+    xy = undistort(cam.dist_model, cam.dist, xy_d)
+    return torch.stack([fx * xy[..., 0] + cx, fy * xy[..., 1] + cy], dim=-1)
+
+
+def project_world(cam: Camera, T_w_s, p_w):
+    """World point -> (pixel, valid) through body pose ``T_w_s`` and the
+    extrinsic ``T_s_c`` (`optimization_be.cpp:178-235`)."""
+    from covins_tpu_torch.utils import geometry as geo
+
+    T_w_c = geo.pose_compose(T_w_s, cam.T_s_c)
+    return project3(cam, geo.pose_apply(geo.pose_inverse(T_w_c), p_w))

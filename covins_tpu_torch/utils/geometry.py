@@ -1,7 +1,6 @@
 """SO(3) / SE(3) / Sim(3) operations on torch tensors, batched.
 
-Counterpart of the subset of `covins_tpu/utils/geometry.py` that place
-recognition, loop verification and pose-graph optimisation call.  Every
+Counterpart of `covins_tpu/utils/geometry.py`.  Every
 function is elementwise over arbitrary leading batch dimensions, keeps the
 input dtype (float64 on the main path), and is functional (no in-place
 writes), so ``torch.func.jacfwd`` and ``torch.func.vmap`` differentiate and
@@ -15,12 +14,18 @@ Conventions (as in the reference):
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from covins_tpu_torch.ops import linalg
 
 
 # --------------------------------------------------------------- quaternions
+def quat_identity(dtype=torch.float64, device=None):
+    return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
+
+
 def quat_normalize(q):
     n = torch.linalg.vector_norm(q, dim=-1, keepdim=True)
     q = q / torch.clamp(n, min=1e-12)
@@ -43,7 +48,11 @@ def quat_conjugate(q):
     return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
-def _cross(a, b):
+def _lib_cross(a, b):
+    """``torch.linalg.cross``: one operation (against about twenty for
+    :func:`linalg.cross3`), rounding on the CPU as the JAX package's
+    ``jnp.cross`` does; on the card it may round otherwise, so paths held
+    bit for bit to a kernel or across devices take ``linalg.cross3``."""
     a, b = torch.broadcast_tensors(a, b)
     return torch.linalg.cross(a, b, dim=-1)
 
@@ -52,8 +61,8 @@ def quat_rotate(q, v):
     """Rotate vectors ``v`` (..., 3) by quaternions ``q`` (..., 4)."""
     w = q[..., :1]
     u = q[..., 1:]
-    uv = _cross(u, v)
-    return v + 2.0 * (w * uv + _cross(u, uv))
+    uv = _lib_cross(u, v)
+    return v + 2.0 * (w * uv + _lib_cross(u, uv))
 
 
 def quat_to_matrix(q):
@@ -67,6 +76,36 @@ def quat_to_matrix(q):
         2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
     ], dim=-1)
     return r.reshape(q.shape[:-1] + (3, 3))
+
+
+def matrix_to_quat(R):
+    """Rotation matrix (..., 3, 3) -> quaternion (..., 4), branch-free:
+    Shepperd's four candidates, one selected (as the reference)."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def safe_sqrt(x):
+        return torch.sqrt(torch.clamp(x, min=1e-24))
+
+    s0 = safe_sqrt(tr + 1.0) * 2.0
+    q0 = torch.stack([0.25 * s0, (m21 - m12) / s0, (m02 - m20) / s0,
+                      (m10 - m01) / s0], -1)
+    s1 = safe_sqrt(1.0 + m00 - m11 - m22) * 2.0
+    q1 = torch.stack([(m21 - m12) / s1, 0.25 * s1, (m01 + m10) / s1,
+                      (m02 + m20) / s1], -1)
+    s2 = safe_sqrt(1.0 + m11 - m00 - m22) * 2.0
+    q2 = torch.stack([(m02 - m20) / s2, (m01 + m10) / s2, 0.25 * s2,
+                      (m12 + m21) / s2], -1)
+    s3 = safe_sqrt(1.0 + m22 - m00 - m11) * 2.0
+    q3 = torch.stack([(m10 - m01) / s3, (m02 + m20) / s3, (m12 + m21) / s3,
+                      0.25 * s3], -1)
+    cond0 = (tr > 0.0)[..., None]
+    cond1 = ((m00 > m11) & (m00 > m22))[..., None]
+    cond2 = (m11 > m22)[..., None]
+    q = torch.where(cond0, q0, torch.where(cond1, q1, torch.where(cond2, q2, q3)))
+    return quat_normalize(q)
 
 
 def _safe_norm(x):
@@ -103,6 +142,15 @@ def so3_hat(w):
     return m.reshape(w.shape[:-1] + (3, 3))
 
 
+def so3_exp_matrix(w):
+    """Rodrigues: (..., 3) -> (..., 3, 3)."""
+    return quat_to_matrix(quat_exp(w))
+
+
+def so3_log_matrix(R):
+    return quat_log(matrix_to_quat(R))
+
+
 def so3_left_jacobian(w):
     """Left Jacobian of SO(3), (..., 3, 3)."""
     theta = _safe_norm(w)[..., None]
@@ -134,6 +182,18 @@ def pose_q(p):
 
 def pose_t(p):
     return p[..., 4:7]
+
+
+def pose_from_matrix(T):
+    return pose_from_qt(matrix_to_quat(T[..., :3, :3]), T[..., :3, 3])
+
+
+def pose_to_matrix(p):
+    R = quat_to_matrix(pose_q(p))
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=p.dtype,
+                          device=p.device).expand(p.shape[:-1] + (4,))
+    top = torch.cat([R, pose_t(p)[..., :, None]], dim=-1)
+    return torch.cat([top, bottom[..., None, :]], dim=-2)
 
 
 def pose_compose(p1, p2):
@@ -185,8 +245,44 @@ def pose_boxminus(p1, p2):
     return se3_log(pose_compose(pose_inverse(p2), p1))
 
 
+# ----------------------------------------------------------------- Sim(3)
+def sim3_from_pose_scale(p, s):
+    s = torch.as_tensor(s, dtype=p.dtype, device=p.device)
+    return torch.cat([p, s[..., None]], dim=-1)
+
+
 def sim3_apply(g, x):
     return g[..., 7:8] * quat_rotate(g[..., :4], x) + g[..., 4:7]
+
+
+def sim3_compose(g1, g2):
+    q = quat_multiply(g1[..., :4], g2[..., :4])
+    t = g1[..., 7:8] * quat_rotate(g1[..., :4], g2[..., 4:7]) + g1[..., 4:7]
+    s = g1[..., 7:8] * g2[..., 7:8]
+    return torch.cat([quat_normalize(q), t, s], dim=-1)
+
+
+def sim3_inverse(g):
+    qi = quat_conjugate(g[..., :4])
+    si = 1.0 / g[..., 7:8]
+    ti = -si * quat_rotate(qi, g[..., 4:7])
+    return torch.cat([qi, ti, si], dim=-1)
+
+
+# ---------------------------------------------------------- Euler helpers
+# (`utils_base.hpp:65-135` R2ypr / normalizeAngle)
+def rotation_to_ypr(R):
+    """Rotation matrix -> [yaw, pitch, roll] in radians (ZYX convention)."""
+    yaw = torch.atan2(R[..., 1, 0], R[..., 0, 0])
+    pitch = torch.atan2(-R[..., 2, 0],
+                        torch.sqrt(R[..., 2, 1] ** 2 + R[..., 2, 2] ** 2))
+    roll = torch.atan2(R[..., 2, 1], R[..., 2, 2])
+    return torch.stack([yaw, pitch, roll], dim=-1)
+
+
+def normalize_angle(a):
+    """Wrap angle to (-pi, pi]."""
+    return a - 2.0 * math.pi * torch.floor((a + math.pi) / (2.0 * math.pi))
 
 
 # ------------------------------------------------------------- alignment
@@ -242,6 +338,20 @@ def umeyama_alignment(src, dst, weights=None, with_scale=True):
         + R[..., :, 2] * mu_s[..., 2:3]
     t = mu_d - scale[..., None] * Rmu
     return torch.cat([q, t, scale[..., None]], dim=-1)
+
+
+def ate_rmse(est, gt, weights=None, align_scale=True):
+    """Absolute trajectory error RMSE after Sim(3) (or SE(3)) alignment
+    (the `evo_ape ... -vas` protocol).  Returns (rmse, aligned_est)."""
+    g = umeyama_alignment(est, gt, weights, with_scale=align_scale)
+    aligned = sim3_apply(g, est)
+    err2 = torch.sum((aligned - gt) ** 2, dim=-1)
+    if weights is None:
+        rmse = torch.sqrt(torch.mean(err2))
+    else:
+        rmse = torch.sqrt(torch.sum(err2 * weights)
+                          / torch.clamp(torch.sum(weights), min=1e-12))
+    return rmse, aligned
 
 
 def _sum_points(x):

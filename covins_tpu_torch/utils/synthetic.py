@@ -406,3 +406,157 @@ def refresh_scene(rng: np.random.Generator, L, P):
         mask[3, 0] = True
     octaves = rng.integers(0, 8, (L, P)).astype(np.float64)
     return pos, centers, octaves, d, mask
+
+
+def covins_g_scene(rng: np.random.Generator, F, nq_rig=2, nc_rig=3, n_points=100,
+                   n_inliers=70, n_outliers=20, bit_flips=4, pixel_noise=0.1, spacing=0.6,
+                   intrinsics=(458.0, 458.0, 376.0, 240.0), size=(752.0, 480.0)):
+    """numpy inputs of `ops.loopverify.covinsg_verify` for two rigs that
+    see one scene: ``n_points`` points in front of the query anchor with
+    random descriptors; each of the query rig's ``nq_rig`` and the
+    candidate rig's ``nc_rig`` keyframe cameras (pinhole, no distortion,
+    the candidate rig's anchor at ``T_true`` in the query anchor's frame,
+    keyframes ``spacing`` metres apart) keeps ``n_inliers`` of its visible points
+    (pixels with ``pixel_noise``, descriptors with ``bit_flips`` bits
+    flipped) and ``n_outliers`` random features, of ``F`` slots (the rest
+    masked).  Returns a dict with the rays ``qo, qd, co, cd`` in their
+    anchor frames, descriptors ``q_desc, c_desc``, masks ``qmask,
+    cmask``, camera-frame bearings ``qbear, cbear``, the keyframe cameras'
+    poses ``q_T, c_T`` (R, 7) in their anchor frames, distorted pixels
+    ``q_uv, c_uv`` and ``T_true`` (7,)."""
+    from covins_tpu_torch.utils import npgeo
+
+    fx, fy, cx, cy = intrinsics
+    pts = np.stack([rng.uniform(-4, 4, n_points), rng.uniform(-3, 3, n_points),
+                    rng.uniform(5, 12, n_points)], 1)
+    pdesc = rng.integers(0, 256, (n_points, 32), dtype=np.uint8)
+    w = rng.normal(size=3) * 0.1
+    q = np.concatenate([[np.cos(np.linalg.norm(w) / 2)],
+                        np.sin(np.linalg.norm(w) / 2) * w / np.linalg.norm(w)])
+    T_true = np.concatenate([q, rng.normal(size=3) * [0.4, 0.1, 0.3]])
+
+    def rig(n_rig, T_world_anchor):
+        out = {k: [] for k in ("o", "d", "desc", "mask", "bear", "T", "uv")}
+        for i in range(n_rig):
+            T_a_cam = np.asarray([1.0, 0.0, 0.0, 0.0, -spacing * i, 0.1 * spacing * i, -0.3 * spacing * i])
+            T_w_cam = npgeo.pose_compose(T_world_anchor, T_a_cam)
+            p_c = npgeo.pose_apply(npgeo.pose_inverse(T_w_cam), pts)
+            z = np.clip(p_c[:, 2], 1e-9, None)
+            uv = np.stack([fx * p_c[:, 0] / z + cx, fy * p_c[:, 1] / z + cy], 1)
+            vis = np.where((p_c[:, 2] > 0.1) & (uv[:, 0] >= 0) & (uv[:, 0] < size[0])
+                           & (uv[:, 1] >= 0) & (uv[:, 1] < size[1]))[0]
+            keep = rng.permutation(vis)[:n_inliers]
+            n_in = len(keep)
+            n_feat = min(F, n_in + n_outliers)
+            kp = np.zeros((F, 2))
+            desc = np.zeros((F, 32), np.uint8)
+            kp[:n_in] = uv[keep] + pixel_noise * rng.normal(size=(n_in, 2))
+            desc[:n_in] = pdesc[keep]
+            for r in range(n_in):  # flip some bits of each true descriptor
+                bits = rng.choice(256, bit_flips, replace=False)
+                desc[r, bits // 8] ^= (1 << (bits % 8)).astype(np.uint8)
+            kp[n_in:n_feat] = rng.uniform([0, 0], size, (n_feat - n_in, 2))
+            desc[n_in:n_feat] = rng.integers(0, 256, (n_feat - n_in, 32), dtype=np.uint8)
+            perm = rng.permutation(n_feat)
+            kp[:n_feat], desc[:n_feat] = kp[perm], desc[perm]
+            bear = np.stack([(kp[:, 0] - cx) / fx, (kp[:, 1] - cy) / fy, np.ones(F)], 1)
+            bear /= np.linalg.norm(bear, axis=1, keepdims=True)
+            out["o"].append(np.broadcast_to(T_a_cam[4:], (F, 3)))
+            out["d"].append(npgeo.quat_rotate(np.broadcast_to(T_a_cam[:4], (F, 4)), bear))
+            out["desc"].append(desc)
+            out["mask"].append(np.arange(F) < n_feat)
+            out["bear"].append(bear)
+            out["T"].append(T_a_cam)
+            out["uv"].append(kp)
+        return {k: np.concatenate(v) if k != "T" else np.stack(v) for k, v in out.items()}
+
+    qr = rig(nq_rig, np.asarray([1.0, 0, 0, 0, 0, 0, 0]))
+    cr = rig(nc_rig, T_true)
+    return {"qo": qr["o"], "qd": qr["d"], "co": cr["o"], "cd": cr["d"],
+            "q_desc": qr["desc"], "c_desc": cr["desc"], "qmask": qr["mask"],
+            "cmask": cr["mask"], "qbear": qr["bear"], "cbear": cr["bear"],
+            "q_T": qr["T"], "c_T": cr["T"], "q_uv": qr["uv"], "c_uv": cr["uv"],
+            "T_true": T_true}
+
+
+def ratio_match_scene(rng: np.random.Generator, M, seg, n_seg, case=None):
+    """numpy inputs ``(a, a_mask, b, b_mask)`` of
+    `ops.descriptors.hamming_ratio_match`: M query and ``seg * n_seg``
+    candidate descriptors, a third of the queries with a candidate a few
+    bits away (some with a second one close by), a tenth of rows and
+    columns masked.  ``case``: "ties", equal columns inside a segment,
+    across a 1024-column tile and across segments; "all_masked", every row
+    masked; "extremes", distances 0 and 256."""
+    a = rng.integers(0, 256, (M, 32), dtype=np.uint8)
+    N = seg * n_seg
+    b = rng.integers(0, 256, (N, 32), dtype=np.uint8)
+    a_mask = rng.random(M) > 0.1
+    b_mask = rng.random(N) > 0.1
+
+    def flip(x, k):
+        y = x.copy()
+        for bit in rng.choice(256, k, replace=False):
+            y[bit // 8] ^= np.uint8(1 << (bit % 8))
+        return y
+
+    for r in range(0, M, 3):
+        c = int(rng.integers(0, N))
+        b[c] = flip(a[r], int(rng.integers(0, 30)))
+        if r % 2:
+            b[(c + 1) % N] = flip(a[r], int(rng.integers(0, 40)))
+    if case == "ties":
+        for r in range(min(M, 8)):
+            c = int(rng.integers(0, seg))
+            b[c] = flip(a[r], 3)
+            for c2 in (c + seg // 2, c + min(1100, seg - 1 - c), c + seg):
+                if c2 < N:
+                    b[c2] = b[c]  # the same word later in the segment, tile and row
+    elif case == "all_masked":
+        a_mask[:] = False
+    elif case == "extremes":
+        b[0] = a[0]
+        b[1] = ~a[1]
+        b[seg - 1] = a[2]
+        b[seg - 2] = ~a[2]
+        a_mask[:3] = True
+        b_mask[[0, 1, seg - 1, seg - 2]] = True
+    return a, a_mask, b, b_mask
+
+
+def ray_score_scene(rng: np.random.Generator, B, H, N, central=False, n_valid=None,
+                    with_valid=False, nan_every=7):
+    """numpy inputs of `ops.epipolar.ray_ransac_score`: B RANSACs over N
+    rays of two rigs (``central``: origins None) that see one scene, H
+    hypotheses each near the true pose (every ``nan_every``-th NaN, a
+    degenerate sample), a fifth of the rays outliers, the first
+    ``n_valid[b]`` rays of batch b masked in (default: a different count
+    per batch), ``with_valid`` a random hypothesis validity.  Returns
+    (T, va, fa, vb, fb, mask, valid) with None for what is absent."""
+    from covins_tpu_torch.utils import npgeo
+
+    va = np.zeros((B, N, 3)) if central else rng.normal(size=(B, N, 3)) * 0.4
+    vb = np.zeros((B, N, 3)) if central else rng.normal(size=(B, N, 3)) * 0.4
+    fa, fb, T = np.empty((B, N, 3)), np.empty((B, N, 3)), np.empty((B, H, 7))
+    for i in range(B):
+        q = rng.normal(size=4) * [8.0, 1.0, 1.0, 1.0]
+        Tt = np.concatenate([q / np.linalg.norm(q), rng.normal(size=3)])
+        pts = np.stack([rng.uniform(-5, 5, N), rng.uniform(-4, 4, N),
+                        rng.uniform(4, 15, N)], 1)
+        fa[i] = pts - va[i]
+        fb[i] = npgeo.pose_apply(npgeo.pose_inverse(Tt), pts) - vb[i]
+        bad = rng.random(N) < 0.2
+        fb[i][bad] = rng.normal(size=(int(bad.sum()), 3))
+        dq = rng.normal(size=(H, 4)) * [1.0, 1e-3, 1e-3, 1e-3]
+        dq[:, 0] = 1.0
+        dT = np.concatenate([dq / np.linalg.norm(dq, axis=1, keepdims=True),
+                             rng.normal(size=(H, 3)) * 1e-2], 1)
+        T[i] = npgeo.pose_compose(np.broadcast_to(Tt, (H, 7)), dT)
+        if nan_every:
+            T[i, ::nan_every] = np.nan
+    fa /= np.linalg.norm(fa, axis=-1, keepdims=True)
+    fb /= np.linalg.norm(fb, axis=-1, keepdims=True)
+    if n_valid is None:
+        n_valid = [N - (i * N) // (2 * B) for i in range(B)]
+    mask = np.arange(N)[None, :] < np.asarray(n_valid)[:, None]
+    valid = rng.random((B, H)) > 0.3 if with_valid else None
+    return (T, None if central else va, fa, None if central else vb, fb, mask, valid)

@@ -9,6 +9,7 @@ polynomials.  Eigenvectors are compared up to nothing: the Jacobi solver
 is the reference's, so even their signs agree.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -157,3 +158,93 @@ def test_undistort_and_back_project_match_reference(dist_model):
     r_uv, r_valid = ref_cam.project3(rc, jnp.asarray(b.numpy()))
     _close(p_uv, r_uv, tol=1e-8)
     np.testing.assert_array_equal(valid.numpy(), np.asarray(r_valid))
+
+
+def _rotations(rng, n):
+    return np.array(ref_geo.quat_to_matrix(jnp.asarray(_poses(rng, n)[:, :4])))
+
+
+# the rest of the reference's geometry, each on the same inputs
+A1_GEOMETRY = {
+    "matrix_to_quat": lambda m, R, p, g, x: m.matrix_to_quat(R),
+    "so3_exp_matrix": lambda m, R, p, g, x: m.so3_exp_matrix(x),
+    "so3_log_matrix": lambda m, R, p, g, x: m.so3_log_matrix(R),
+    "pose_to_matrix": lambda m, R, p, g, x: m.pose_to_matrix(p),
+    "pose_from_matrix": lambda m, R, p, g, x: m.pose_from_matrix(m.pose_to_matrix(p)),
+    "sim3_from_pose_scale": lambda m, R, p, g, x: m.sim3_from_pose_scale(p, g[..., 7]),
+    "sim3_compose": lambda m, R, p, g, x: m.sim3_compose(g[:20], g[20:]),
+    "sim3_inverse": lambda m, R, p, g, x: m.sim3_inverse(g),
+    "rotation_to_ypr": lambda m, R, p, g, x: m.rotation_to_ypr(R),
+    "normalize_angle": lambda m, R, p, g, x: m.normalize_angle(x * 7.0),
+    "quat_identity": lambda m, R, p, g, x: m.quat_identity(p.dtype),
+}
+
+
+@pytest.mark.parametrize("name", list(A1_GEOMETRY))
+def test_geometry_functions_match_reference(name):
+    """The reference's remaining geometry: rotation matrices of every
+    branch of Shepperd's method (trace-, x-, y- and z-dominant), Sim(3),
+    Euler angles, angle wrapping; 1e-10."""
+    rng = np.random.default_rng(11)
+    R = _rotations(rng, 40)
+    R[:3] = np.diag([1.0, -1.0, -1.0]), np.diag([-1.0, 1.0, -1.0]), np.diag([-1.0, -1.0, 1.0])
+    p = _poses(rng, 40)
+    g = np.concatenate([p, rng.uniform(0.5, 2.0, (40, 1))], axis=1)
+    x = rng.normal(size=(40, 3))
+    x[0] = 0.0
+    got = A1_GEOMETRY[name](geo, *map(torch.tensor, (R, p, g, x)))
+    ref = A1_GEOMETRY[name](ref_geo, *map(jnp.asarray, (R, p, g, x)))
+    _close(got, ref)
+
+
+@pytest.mark.parametrize("weights", [False, True])
+@pytest.mark.parametrize("align_scale", [True, False])
+def test_ate_rmse_matches_reference(weights, align_scale):
+    rng = np.random.default_rng(12)
+    gt = rng.normal(size=(30, 3)) * 4
+    est = gt * 1.3 + 0.05 * rng.normal(size=gt.shape) + 2.0
+    w = rng.random(30) if weights else None
+    got, got_al = geo.ate_rmse(torch.tensor(est), torch.tensor(gt),
+                               None if w is None else torch.tensor(w), align_scale)
+    ref, ref_al = ref_geo.ate_rmse(jnp.asarray(est), jnp.asarray(gt),
+                                   None if w is None else jnp.asarray(w), align_scale)
+    _close(got, ref)
+    _close(got_al, ref_al)
+
+
+def test_svd3x3_det33_min_eigvec_match_reference():
+    """The epipolar solvers' linear algebra: the Jacobi-based 3x3 SVD (also
+    of rank-2 and rank-1 matrices, where the left basis is completed), the
+    determinant, the nullspace vector by shifted inverse iteration (18 x
+    18, rank 17: 1e-10 after the reference's four iterations).  A zero
+    singular value is the square root of an eigenvalue of A^T A at the
+    rounding level (1e-16 |A|^2), so singular values are held to 1e-7.
+    (A rank-1 matrix's two-dimensional nullspace has no defined basis:
+    rounding picks it, so it is not compared.)"""
+    rng = np.random.default_rng(13)
+    A = rng.normal(size=(30, 3, 3))
+    A[1, :, 2] = A[1, :, 0] + A[1, :, 1]  # rank 2
+    for k, (got, ref) in enumerate(zip(la.svd3x3(torch.tensor(A)),
+                                       ref_la.svd3x3(jnp.asarray(A)))):
+        _close(got, ref, tol=1e-7 if k == 1 else TOL)
+    _close(la.det33(torch.tensor(A)), ref_la.det33(jnp.asarray(A)))
+    M = rng.normal(size=(20, 17, 18))
+    M = np.swapaxes(M, -1, -2) @ M
+    _close(la.min_eigvec_psd(torch.tensor(M)), ref_la.min_eigvec_psd(jnp.asarray(M)))
+
+
+@pytest.mark.parametrize("grid,bisect", [(1024, 48), (256, 44)])
+def test_solve_poly_real_matches_reference(grid, bisect):
+    """The bracketing root finder, batched, at its default grid and the
+    five-point solver's: the same brackets (validity exactly) and roots to
+    1e-10, on separated real roots and on random polynomials of degree 8
+    and 10."""
+    rng = np.random.default_rng(14)
+    sep = [np.poly(np.sort(rng.uniform(-3, 3, 4)) + np.arange(4)) for _ in range(10)]
+    sep = np.stack([np.convolve(c, [1.0, 0.3, 5.0]) for c in sep])  # degree 6
+    for coeffs in (sep, rng.normal(size=(30, 9)), rng.normal(size=(30, 11))):
+        got, got_v = poly.solve_poly_real(torch.tensor(coeffs), grid, bisect)
+        ref, ref_v = jax.vmap(lambda c: ref_poly.solve_poly_real(c, grid, bisect))(
+            jnp.asarray(coeffs))
+        np.testing.assert_array_equal(got_v.numpy(), np.asarray(ref_v))
+        _close(got, ref)

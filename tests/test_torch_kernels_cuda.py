@@ -47,15 +47,26 @@ differences (one ulp added to b, one ulp taken off, its dot products
 summed in another order), at ragged sizes (two poses, five keyframes,
 landmarks seen 0, 1 and 2 times, visual only, no loop edge, 0, 1 and full
 iteration counts) and on a pose graph whose edges all weigh 100, and bit
-for bit between two launches.
+for bit between two launches.  K11 (top-2 ratio matching per column
+segment on K1's product) exactly, ragged, with ties inside a segment,
+across a shared-memory tile and across segments, every row masked, and
+distances 0 and 256; K12 (ray-RANSAC scoring in one launch) its counts,
+best hypotheses and inlier masks exactly at the COVINS-G path's four
+shapes (six central RANSACs of 2000 poses over 1024 rays, one of 512
+over 6144, the refine's single pose, the covariance's 60, counts only),
+with NaN poses, hypothesis validity and batch entries padded to
+different ray counts; both the same across two launches.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from covins_tpu_torch.ops import bow, descriptors, landmark_ops, pgo, pnp, projmatch
-from covins_tpu_torch.utils.synthetic import p3p_scene, project_match_scene, stacked_states
+from covins_tpu_torch.ops import (bow, descriptors, epipolar, landmark_ops, pgo, pnp,
+                                  projmatch)
+from covins_tpu_torch.utils.synthetic import (p3p_scene, project_match_scene,
+                                              ratio_match_scene, ray_score_scene,
+                                              stacked_states)
 
 
 @pytest.fixture
@@ -901,3 +912,163 @@ def test_pcg_kernels_raise_when_the_launch_is_refused(dev, monkeypatch):
         pgo.pcg(b, Minv, free, Ji, Jj, graph, 1e-6, 3)
     assert (gba.pcg.launches, pgo.pcg.launches, gba.reduced_matvec.launches,
             pgo.matvec.launches) == before
+
+
+# ------------------------------------------------------------------ K11
+@pytest.mark.parametrize("M,seg,n_seg,case", [
+    (1, 2, 1, None), (37, 13, 3, None), (2048, 1024, 3, None), (100, 1500, 2, "ties"),
+    (64, 1030, 3, "ties"), (50, 40, 3, "all_masked"), (33, 300, 2, "extremes")])
+def test_hamming_ratio_match_matches_plain(dev, M, seg, n_seg, case):
+    rng = np.random.default_rng(M + seg)
+    t = [torch.from_numpy(x).to(dev) for x in ratio_match_scene(rng, M, seg, n_seg, case)]
+    n0 = descriptors.hamming_ratio_match.launches
+    got = descriptors.hamming_ratio_match(*t, seg, 40.0, 0.8)
+    again = descriptors.hamming_ratio_match(*t, seg, 40.0, 0.8)
+    plain = descriptors.hamming_ratio_match_plain(*t, seg, 40.0, 0.8)
+    torch.cuda.synchronize()
+    assert descriptors.hamming_ratio_match.launches == n0 + 2
+    for g, a, p in zip(got, again, plain):
+        assert torch.equal(g, p) and torch.equal(g, a)
+    if case == "extremes":
+        assert got[1][0, 0] == 0 and got[1][2, 0] == 0 and got[2][2, 0] <= 256
+    if case == "all_masked":
+        assert (got[0] == -1).all() and (got[1] == 2**30).all()
+
+
+def test_hamming_ratio_match_refuses_bad_inputs(dev):
+    a = torch.zeros((4, 32), dtype=torch.uint8, device=dev)
+    m = torch.ones(4, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="segments"):
+        descriptors.hamming_ratio_match(a, m, a[:3], m[:3], 2, 40.0, 0.8)
+    with pytest.raises(ValueError, match="two columns"):
+        descriptors.hamming_ratio_match(a, m, a, m, 1, 40.0, 0.8)
+    with pytest.raises(ValueError):
+        descriptors.hamming_ratio_match(a[:, :16].contiguous(), m, a, m, 2, 40.0, 0.8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        descriptors.hamming_ratio_match(a, m, a.cpu(), m.cpu(), 2, 40.0, 0.8)
+
+
+# ------------------------------------------------------------------ K12
+K12_CASES = {
+    "central": dict(B=6, H=2000, N=1024, central=True, with_valid=True),
+    "noncentral": dict(B=1, H=512, N=6144),
+    "refine": dict(B=1, H=1, N=6144, nan_every=0),
+    "covariance": dict(B=1, H=60, N=6144, counts_only=True),
+    "ragged": dict(B=3, H=7, N=37, with_valid=True),
+    "one": dict(B=1, H=1, N=1, nan_every=0),
+}
+
+
+@pytest.mark.parametrize("case", list(K12_CASES))
+def test_ray_ransac_score_matches_plain(dev, case):
+    kw = dict(K12_CASES[case])
+    counts_only = kw.pop("counts_only", False)
+    rng = np.random.default_rng(len(case))
+    ins = [None if x is None else torch.from_numpy(x).to(dev)
+           for x in ray_score_scene(rng, **kw)]
+    T, va, fa, vb, fb, mask, valid = ins
+    n0 = epipolar.ray_ransac_score.launches
+    args = (T, va, fa, vb, fb, mask, 0.004)
+    got = epipolar.ray_ransac_score(*args, valid=valid, want_inliers=not counts_only)
+    again = epipolar.ray_ransac_score(*args, valid=valid, want_inliers=not counts_only)
+    plain = epipolar.ray_ransac_score_plain(*args, valid=valid,
+                                            want_inliers=not counts_only)
+    torch.cuda.synchronize()
+    assert epipolar.ray_ransac_score.launches == n0 + 2
+    for g, a, p in zip(got, again, plain):
+        if p is None:
+            assert g is None and a is None
+        else:
+            assert torch.equal(g, p) and torch.equal(g, a)
+    if kw.get("nan_every", 7):
+        assert (got[0][:, ::7] == 0).all()  # NaN poses count nothing
+    assert int(got[0].max()) > 0
+
+
+def test_ray_ransac_score_refuses_bad_inputs(dev):
+    T = torch.zeros((1, 2, 7), dtype=torch.float64, device=dev)
+    f = torch.zeros((1, 5, 3), dtype=torch.float64, device=dev)
+    m = torch.ones((1, 5), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="mask"):
+        epipolar.ray_ransac_score(T, None, f, None, f, m[:, :4], 0.01)
+    with pytest.raises(ValueError, match="fa"):
+        epipolar.ray_ransac_score(T, None, f.float(), None, f, m, 0.01)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        epipolar.ray_ransac_score(T, None, f.cpu(), None, f, m, 0.01)
+
+
+@pytest.mark.parametrize("solver", ["5pt", "8pt"])
+def test_covinsg_verify_on_the_card_matches_the_cpu(dev, solver):
+    """The whole COVINS-G verification at the path's width (rigs of 2 and
+    3 keyframes of 1024 features) on the card (K11 once, K12 four times)
+    against the same on the CPU (plain versions), with the same draws and,
+    after a first call, no host synchronisation on the card's way (sync
+    debug mode): the gates, every pair's matches and central inliers, the
+    pool and the 17-point inliers exactly; T_12 and the covariance no
+    further from the CPU's (relative to the largest entry) than the CPU's
+    own result moves when one rig's ray directions move by one ulp (up or
+    down).  The solvers are device-exact up to `svd3x3`, whose
+    transcendental functions round apart on the card, and a near-singular
+    17-ray re-solve amplifies that in its projection to SO(3):
+    `scripts/port_covg_cov_probe.py` read the covariances 1.7e-5 / 9.5e-8
+    apart (5- / 8-point) against spreads of 9.9e-5 / 2.8e-6 (NVIDIA H100
+    80GB HBM3, 700 W)."""
+    from covins_tpu_torch.ops import loopverify
+    from covins_tpu_torch.utils.synthetic import covins_g_scene
+
+    rng = np.random.default_rng(5)
+    F, nq, nc = 1024, 2, 3
+    sc = covins_g_scene(rng, F, nq, nc, n_points=400, n_inliers=300, n_outliers=200)
+    n_hyp5 = 50 if solver == "5pt" else 200
+    g = lambda *shape: -np.log(-np.log(np.clip(rng.random(shape), 1e-300, None)))  # noqa: E731
+    noise = {"noise5": g(nq * nc, n_hyp5, F), "noise17": g(512, nq * nc * F),
+             "noise_cov": g(60, nq * nc * F)}
+    keys = ("qo", "qd", "co", "cd", "q_desc", "c_desc", "qmask", "cmask", "qbear", "cbear")
+    params = dict(img_match_thres=40.0, ratio_thres=0.8, thr5=float(np.arctan2(16.0, 458.0)),
+                  rel_min_img_matches=20, rel_min_inliers=20,
+                  thr17=float(np.arctan2(1.5, 458.0)), nc_min_inliers=100,
+                  thr_cov_rad=float(np.arctan2(10.0, 458.0)), nc_cov_thres=10.0,
+                  nq_rig=nq, nc_rig=nc, Fq=F, Fc=F, n_hyp5=n_hyp5, n_hyp17=512, n_cov=60,
+                  solver=solver)
+    arrays = {**{k: sc[k] for k in keys}, **noise}
+
+    def run_cpu(arrays):
+        t = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in arrays.items()}
+        return loopverify.covinsg_verify(*(t[k] for k in keys), **params,
+                                         **{k: t[k] for k in noise})
+
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(d) for k, v in arrays.items()}
+        if d.type == "cuda":  # after a first call (which makes the solvers'
+            # constants on the card), nothing waits for the card
+            loopverify.covinsg_verify(*(t[k] for k in keys), **params,
+                                      **{k: t[k] for k in noise})
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        n11, n12 = descriptors.hamming_ratio_match.launches, epipolar.ray_ransac_score.launches
+        try:
+            out = loopverify.covinsg_verify(*(t[k] for k in keys), **params,
+                                            **{k: t[k] for k in noise})
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        outs.append({k: v.cpu() for k, v in out.items()})
+        if d.type == "cuda":
+            assert descriptors.hamming_ratio_match.launches == n11 + 1
+            assert epipolar.ray_ransac_score.launches == n12 + 4
+    card, cpu = outs
+    for k in ("ok", "pairs_ok", "n_inliers", "n_pool", "pair_n_match", "pair_n_inl"):
+        assert torch.equal(card[k].to(torch.int64), cpu[k].to(torch.int64)), k
+    assert bool(card["ok"])
+
+    def rel(a, k):
+        return float((a[k] - cpu[k]).abs().max() / cpu[k].abs().max())
+
+    spread = {"T_12": 0.0, "cov": 0.0}
+    for side in ("qd", "cd"):
+        for direction in (np.inf, -np.inf):
+            moved = run_cpu({**arrays, side: np.nextafter(arrays[side], direction)})
+            for k in spread:
+                spread[k] = max(spread[k], rel(moved, k))
+    for k in spread:
+        assert rel(card, k) <= spread[k], (k, rel(card, k), spread)

@@ -243,3 +243,126 @@ def test_relative_reprojection_residual_matches_reference(dist_model):
     assert 0 < v_ref.sum() < len(v_ref)
     np.testing.assert_allclose(r.numpy()[v_ref], np.asarray(r_ref)[v_ref],
                                rtol=0, atol=1e-9)
+
+
+# ------------------------------------------------------------------ COVINS-G
+# `_covinsg_verify_impl`'s thresholds at the default configuration
+# (focal 458 px): 16 px central, 1.5 px 17-point, 10 px covariance
+G_PARAMS = dict(img_match_thres=40.0, ratio_thres=0.8, thr5=float(np.arctan2(16.0, 458.0)),
+                rel_min_img_matches=20, rel_min_inliers=20,
+                thr17=float(np.arctan2(1.5, 458.0)), nc_min_inliers=100,
+                thr_cov_rad=float(np.arctan2(10.0, 458.0)), nc_cov_thres=10.0)
+G_F, G_NQ, G_NC, G_H17, G_COV = 128, 2, 3, 512, 60
+G_KEYS = ("qo", "qd", "co", "cd", "q_desc", "c_desc", "qmask", "cmask", "qbear", "cbear")
+
+
+def _g_scene(case):
+    from covins_tpu_torch.utils import synthetic
+
+    sc = synthetic.covins_g_scene(np.random.default_rng(1), G_F, G_NQ, G_NC)
+    if case == "no_overlap":  # the candidate rig sees another scene
+        other = synthetic.covins_g_scene(np.random.default_rng(2), G_F, G_NQ, G_NC)
+        for k in ("co", "cd", "c_desc", "cmask", "cbear"):
+            sc[k] = other[k]
+    return sc
+
+
+def _ref_covinsg_unfused(key, sc, n_hyp5):
+    """`_covinsg_verify_impl`'s body with the 5-point solver, its jitted
+    calls made one by one (the fused program takes some 13 minutes to
+    compile on the CPU): the same keys, functions and gates."""
+    from covins_tpu.ops import descriptors as ref_desc
+    from covins_tpu.ops import epipolar as ref_epi
+
+    F, p = G_F, G_PARAMS
+    a = {k: jnp.asarray(sc[k]) for k in G_KEYS}
+    dist = ref_desc.masked_dist(ref_desc.hamming_distance_best(a["q_desc"], a["c_desc"]),
+                                a["qmask"], a["cmask"])
+    keys = jax.random.split(key, G_NQ * G_NC + 2)
+    pool, qidx, cidx, n_match, n_inl = [], [], [], [], []
+    k_i, pairs_ok = 0, True
+    for iq in range(G_NQ):
+        for jc in range(G_NC):
+            midx = ref_desc.match_ratio(dist[iq * F:(iq + 1) * F, jc * F:(jc + 1) * F],
+                                        max_dist=p["img_match_thres"], ratio=p["ratio_thres"])
+            matched = midx >= 0
+            ci = jc * F + jnp.clip(midx, 0, F - 1)
+            out5 = ref_epi.relative_pose_ransac_central_5pt(
+                keys[k_i], a["qbear"][iq * F:(iq + 1) * F], a["cbear"][ci], matched,
+                n_hypotheses=n_hyp5, threshold_rad=p["thr5"])
+            k_i += 1
+            n_match.append(int(matched.sum()))
+            n_inl.append(int(out5["n_inliers"]))
+            pairs_ok &= n_match[-1] >= p["rel_min_img_matches"] and \
+                n_inl[-1] >= p["rel_min_inliers"]
+            pool.append(out5["inliers"] & matched)
+            qidx.append(iq * F + jnp.arange(F))
+            cidx.append(ci)
+    pool, qidx, cidx = (jnp.concatenate(x) for x in (pool, qidx, cidx))
+    va, fa, vb, fb = a["qo"][qidx], a["qd"][qidx], a["co"][cidx], a["cd"][cidx]
+    out17 = ref_epi.relative_pose_ransac_noncentral(
+        keys[-2], va, fa, vb, fb, pool, n_hypotheses=G_H17, threshold_rad=p["thr17"])
+    cov, _ = ref_epi.sampling_covariance(keys[-1], out17["T_a_b"], va, fa, vb, fb,
+                                         out17["inliers"], n_samples=G_COV,
+                                         threshold_rad=p["thr_cov_rad"])
+    n_pool = int(pool.sum())
+    min_inl = min(p["nc_min_inliers"], max(17, int(0.5 * n_pool)))
+    ok = (pairs_ok and n_pool >= 17 and int(out17["n_inliers"]) >= min_inl
+          and float(jnp.trace(cov)) <= p["nc_cov_thres"])
+    return {"ok": ok, "pairs_ok": pairs_ok, "T_12": out17["T_a_b"],
+            "n_inliers": out17["n_inliers"], "cov": cov, "n_pool": n_pool,
+            "pair_n_match": np.asarray(n_match), "pair_n_inl": np.asarray(n_inl)}
+
+
+@pytest.mark.parametrize("solver,case", [("8pt", "loop"), ("8pt", "no_overlap"),
+                                         ("5pt", "loop")])
+def test_covins_g_verification_matches_reference(solver, case):
+    """The port's COVINS-G verification (`loopverify.covinsg_verify`, the
+    plain versions of K11 and K12) against `_covinsg_verify_impl` at F =
+    128 with rigs of 2 and 3 keyframes, on a synthetic two-rig scene, with
+    the reference's Gumbel draws (its key split into one key per pair, the
+    17-point key and the covariance key) injected.  Held exactly: the
+    accept flag, the pair gate, every pair's matches and central inliers,
+    the pool and the 17-point inliers.  T_12 to 1e-7 (the weighted
+    17-point re-solve over the pool of a 0.6 m rig amplifies rounding:
+    measured 3.4e-9; 1e-6 for the 5-point, whose nullspace basis each
+    package rounds its own way, tests/test_torch_epipolar.py) and the
+    covariance to 1e-6 relative to its largest entry
+    (tests/test_torch_epipolar.py)."""
+    sc = _g_scene(case)
+    key = jax.random.PRNGKey(3)
+    n_hyp5 = 200 if solver == "8pt" else 50
+    if solver == "8pt":
+        ref = ref_lv._covinsg_verify_impl(
+            key, *(jnp.asarray(sc[k]) for k in G_KEYS), *G_PARAMS.values(),
+            nq_rig=G_NQ, nc_rig=G_NC, Fq=G_F, Fc=G_F, n_hyp5=n_hyp5, n_hyp17=G_H17,
+            n_cov=G_COV, solver="8pt")
+        ref = jax.device_get(ref)
+    else:
+        ref = _ref_covinsg_unfused(key, sc, n_hyp5)
+    keys = jax.random.split(key, G_NQ * G_NC + 2)
+    n_pairs = G_NQ * G_NC
+    noise5 = np.stack([np.array(jax.random.gumbel(keys[i], (n_hyp5, G_F)))
+                       for i in range(n_pairs)])
+    noise17 = np.array(jax.random.gumbel(keys[-2], (G_H17, n_pairs * G_F)))
+    noise_cov = np.array(jax.random.gumbel(keys[-1], (G_COV, n_pairs * G_F)))
+    out = loopverify.covinsg_verify(
+        *(torch.from_numpy(np.ascontiguousarray(sc[k])) for k in G_KEYS), **G_PARAMS,
+        nq_rig=G_NQ, nc_rig=G_NC, Fq=G_F, Fc=G_F, n_hyp5=n_hyp5, n_hyp17=G_H17,
+        n_cov=G_COV, solver=solver, noise5=torch.from_numpy(noise5),
+        noise17=torch.from_numpy(noise17), noise_cov=torch.from_numpy(noise_cov))
+    out = {k: v.detach() for k, v in out.items()}
+    for k in ("ok", "pairs_ok", "n_inliers", "n_pool"):
+        assert int(out[k]) == int(ref[k]), k
+    for k in ("pair_n_match", "pair_n_inl"):
+        np.testing.assert_array_equal(out[k].numpy(), np.asarray(ref[k]))
+    if case == "loop":
+        np.testing.assert_allclose(out["T_12"].numpy(), np.asarray(ref["T_12"]), rtol=0,
+                                   atol=1e-7 if solver == "8pt" else 1e-6)
+        rc = np.asarray(ref["cov"])
+        np.testing.assert_allclose(out["cov"].numpy(), rc, rtol=0,
+                                   atol=1e-6 * np.abs(rc).max())
+        assert bool(out["ok"])
+        np.testing.assert_allclose(out["T_12"].numpy()[:4], sc["T_true"][:4], atol=0.02)
+    else:  # the 17-point solves of an empty pool are meaningless in both
+        assert not bool(out["pairs_ok"]) and int(out["pair_n_match"].max()) < 20

@@ -17,6 +17,7 @@ that seed each loop's Gauss-Newton refinement differ; the refinement and
 the pose-graph solve then converge to the same solution up to rounding.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -120,11 +121,14 @@ def test_slice_matches_reference(world_vocab, scenario):
 
 
 def test_covins_g_is_refused(world_vocab):
+    """COVINS-G runs (test_covins_g_slice_matches_reference); SIFT
+    descriptors, in either mode, are still refused."""
     _, vocab = world_vocab
-    cfg = Config(placerec_type="COVINS_G")
+    cfg = Config(placerec_type="COVINS_G", feat_type="SIFT")
     mgr = MapManager(vocab, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="COVINS-G"):
+    with pytest.raises(NotImplementedError, match="SIFT"):
         AgentSession(0, mgr, cfg)
+    AgentSession(0, mgr, Config(placerec_type="COVINS_G"))
 
 
 def test_process_keyframe_matches_reference(world_vocab):
@@ -161,3 +165,85 @@ def test_process_keyframe_matches_reference(world_vocab):
             (rr.query_id, rr.candidate_id, rr.n_inliers)
         np.testing.assert_array_equal(r.matches, np.asarray(rr.matches))
         np.testing.assert_allclose(r.T_12, np.asarray(rr.T_12), rtol=0, atol=1e-6)
+
+
+# the JAX package's COVINS-G scenario (tests/test_placerec.py
+# test_covins_g_mode), with the linear 8-point prefilter: the reference's
+# fused 5-point program takes some 13 minutes to compile on the CPU
+# (tests/test_torch_loopverify.py holds the 5-point verification)
+G_CFG = dict(CFG, placerec_type="COVINS_G", nc_min_inliers=30, nc_cov_thres=100.0,
+             rel_min_img_matches=17, rel_minimal_solver="8pt", perform_pgo=True)
+G_FEATURES = 256  # the stream keeps at most 166 features a keyframe
+
+
+def _jax_draws(monkeypatch):
+    """Hand the port's COVINS-G verifications the reference's Gumbel
+    draws: the agent's key (``rng_seed + 1000 * client_id``) split once per
+    verification, then into one key per keyframe pair, the 17-point key and
+    the covariance key (`_covinsg_verify_impl`)."""
+    keys = {}
+
+    def noise(self, n_pairs, n_hyp5, Fq, n_hyp17, n_cov):
+        key = keys.get(id(self), jax.random.PRNGKey(1000 * self.client_id))
+        keys[id(self)], k = jax.random.split(key)
+        ks = jax.random.split(k, n_pairs + 2)
+        g = lambda kk, shape: np.array(jax.random.gumbel(kk, shape))  # noqa: E731
+        return {"noise5": np.stack([g(ks[i], (n_hyp5, Fq)) for i in range(n_pairs)]),
+                "noise17": g(ks[-2], (n_hyp17, n_pairs * Fq)),
+                "noise_cov": g(ks[-1], (n_cov, n_pairs * Fq))}
+    monkeypatch.setattr(PlaceRecognition, "next_covins_g_noise", noise)
+
+
+def test_covins_g_slice_matches_reference(world_vocab, monkeypatch):
+    """COVINS-G through both packages' `AgentSession` (one agent, 30
+    keyframes revisiting its start, pose-graph solves on), with the
+    reference's draws injected and both packages' maps holding
+    G_FEATURES features a keyframe.  Expected: the same loops with the
+    same candidates (the accepted pairs), each loop edge carrying the
+    sampling covariance into the pose graph and the GBA problem, loop
+    transforms within 1e-6 (the weighted 17-point re-solve amplifies
+    rounding, tests/test_torch_loopverify.py) and every final pose within
+    1e-4 (the pose-graph solve amplifies that, as in
+    test_slice_matches_reference)."""
+    import functools
+
+    from covins_tpu.models import map_manager as ref_mm
+    from covins_tpu.ops import residuals as ref_res
+    from covins_tpu_torch.models import map_manager as mm
+    from covins_tpu_torch.ops import residuals
+
+    world, vocab = world_vocab
+    _jax_draws(monkeypatch)
+    for mod in (ref_mm, mm):
+        monkeypatch.setattr(mod, "Map", functools.partial(mod.Map, max_features=G_FEATURES))
+    stream = list(SyntheticAgent(world, client_id=0, n_keyframes=30).messages())
+    runs = []
+    for ref in (True, False):
+        cfg = (RefConfig if ref else Config)(**G_CFG)
+        mgr = RefManager(vocab, cfg) if ref else MapManager(vocab, cfg, device="cpu")
+        sess = (RefSession if ref else AgentSession)(0, mgr, cfg)
+        s = stream if ref else messages_from_reference(stream)
+        outs = [sess.ingest(m) for m in s] + [sess.flush()]
+        runs.append((mgr, [o for o in outs if o], sess))
+    (ref_mgr, ref_out, _), (mgr, out, sess) = runs
+    assert out == ref_out and out.count("loop") >= 1
+    ref_mp, mp = ref_mgr.map_of(0), mgr.map_of(0)
+    assert _loops(mp) == _loops(ref_mp)
+    # the accepted (query, candidate) pairs are the reference's loop edges
+    assert sorted(sess.accepted) == sorted(_loops(ref_mp))
+    graph = mp.to_pose_graph()
+    problem = mp.to_gba_problem()
+    n_loops = len(mp.loops)
+    for i, (lc, rl) in enumerate(zip(mp.loops, ref_mp.loops)):
+        np.testing.assert_allclose(lc["T_12"], np.asarray(rl["T_12"]), rtol=0, atol=1e-6)
+        rc = np.asarray(rl["cov"])
+        np.testing.assert_allclose(lc["cov"], rc, rtol=0, atol=1e-6 * np.abs(rc).max())
+        S = residuals.sqrt_info_from_covariance(torch.as_tensor(lc["cov"]))
+        np.testing.assert_allclose(
+            S.numpy(), np.asarray(ref_res.sqrt_info_from_covariance(jnp.asarray(rc))),
+            rtol=1e-6, atol=1e-6 * float(S.abs().max()))
+        e = graph.edge_sqrt_info.shape[0] - n_loops + i
+        assert bool(graph.edge_is_loop[e])
+        np.testing.assert_allclose(graph.edge_sqrt_info[e].numpy(), S.numpy(), rtol=1e-12)
+        np.testing.assert_allclose(problem.loop_sqrt_info[i].numpy(), S.numpy(), rtol=1e-6)
+    np.testing.assert_allclose(mp.kf_pose, ref_mp.kf_pose, rtol=0, atol=1e-4)

@@ -182,3 +182,63 @@ def test_minimal_sets_with_fewer_than_three_valid_match_top_k():
         ref = np.asarray(jax.lax.top_k(g, 3)[1])
         got = ransac.sample_minimal_sets(torch.tensor(noise), torch.tensor(mask), 3)
         np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def _rig_scene(seed, n=60, rig_spread=0.6, outliers=0):
+    """A non-central scene: rays from n distinct origins in the rig frame
+    (the JAX package's `_random_rig_scene` with numpy draws)."""
+    rng = np.random.default_rng(seed)
+    points = rng.uniform(-5, 5, (n, 3)) + [0.0, 0.0, 12.0]
+    T = np.array(ref_geo.pose_from_qt(ref_geo.quat_exp(jnp.asarray(rng.normal(size=3) * 0.3)),
+                                      jnp.asarray(rng.normal(size=3) * 2.0)))
+    origins = rng.normal(size=(n, 3)) * rig_spread
+    d = np.array(ref_geo.pose_apply(jnp.asarray(T)[None], jnp.asarray(points))) - origins
+    bearings = d / np.linalg.norm(d, axis=1, keepdims=True)
+    bad = rng.normal(size=(outliers, 3))
+    bearings[:outliers] = bad / np.linalg.norm(bad, axis=1, keepdims=True)
+    return points, origins, bearings, T
+
+
+@pytest.mark.parametrize("spread", [0.6, 0.0])
+def test_gp3p_kneip_matches_reference(spread):
+    """The generalized P3P on 24 triples, central (spread 0) and not:
+    validity exactly, poses to 1e-7 where valid (relative above 1: the
+    resultant's degree-8 coefficients come out of a chain of products, and
+    its close roots amplify their rounding; measured 6.7e-9), and the true
+    pose among the valid roots of most triples (the reference's bracketing
+    root finder misses close roots: 18 of 24 here, in both packages)."""
+    P, O, B, T = zip(*(_rig_scene(s, n=3, rig_spread=spread) for s in range(24)))
+    P, O, B = (np.stack(x) for x in (P, O, B))
+    got_T, got_v = pnp.gp3p_kneip(torch.tensor(P), torch.tensor(O), torch.tensor(B))
+    ref_T, ref_v = jax.jit(jax.vmap(ref_pnp.gp3p_kneip))(*map(jnp.asarray, (P, O, B)))
+    ref_T, ref_v = np.asarray(ref_T), np.asarray(ref_v)
+    np.testing.assert_array_equal(got_v.numpy(), ref_v)
+    np.testing.assert_allclose(got_T.numpy()[ref_v], ref_T[ref_v], rtol=1e-7, atol=1e-7)
+    err = np.abs(got_T.numpy() - np.stack(T)[:, None]).max(-1)
+    assert (np.where(ref_v, err, 1.0).min(-1) < 1e-5).mean() >= 0.5
+
+
+def test_generalized_absolute_pose_ransac_matches_reference():
+    points, origins, bearings, T = _rig_scene(21, n=60, outliers=18)
+    mask = np.ones(60, bool)
+    mask[-5:] = False
+    key = jax.random.PRNGKey(4)
+    ref = ref_pnp.generalized_absolute_pose_ransac(
+        key, *map(jnp.asarray, (points, origins, bearings, mask)), n_hypotheses=64,
+        threshold_rad=0.002)
+    noise = np.array(jax.random.gumbel(key, (64, 60)))
+    got = pnp.generalized_absolute_pose_ransac(
+        *map(torch.tensor, (points, origins, bearings, mask)), 64, 0.002,
+        noise=torch.tensor(noise))
+    assert int(got["n_inliers"]) == int(ref["n_inliers"]) >= 30
+    np.testing.assert_array_equal(got["inliers"].numpy(), np.asarray(ref["inliers"]))
+    np.testing.assert_allclose(got["T_rig_w"].numpy(), np.asarray(ref["T_rig_w"]),
+                               rtol=0, atol=1e-9)
+    np.testing.assert_allclose(
+        pnp.generalized_reprojection_angular_error(
+            got["T_rig_w"], *map(torch.tensor, (points, origins, bearings))).numpy(),
+        np.asarray(ref_pnp.generalized_reprojection_angular_error(
+            ref["T_rig_w"], *map(jnp.asarray, (points, origins, bearings)))),
+        rtol=0, atol=5e-8)
+    assert float(pnp.px_threshold_to_angular(1.5, 458.0)) == \
+        float(ref_pnp.px_threshold_to_angular(1.5, 458.0))

@@ -183,8 +183,10 @@ def test_reference_checkpoint_loads_into_port(runs, tmp_path):
 
 
 def test_placerec_active_is_refused(streams):
+    """Place recognition over SIFT descriptors is refused (COVINS-G over
+    ORB runs); the message names the way out."""
     _, _, vocab = streams
-    cfg = Config(placerec_active=True, placerec_type="COVINS_G")
+    cfg = Config(placerec_active=True, feat_type="SIFT")
     mgr = MapManager(vocab, cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="placerec_active=False"):
         AgentSession(0, mgr, cfg)
