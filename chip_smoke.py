@@ -43,11 +43,17 @@ package beside it.  Phases:
    ratio matching per column segment on K1's binary product, at the
    verification's 2048 x 3072 in segments of 1024, ragged, with ties
    inside a segment, across a tile and across segments, every row masked,
-   distances 0 and 256) exactly, beside the +-1 bf16 matmul and topk; K12
-   (ray-RANSAC scoring in one launch, at the COVINS-G path's shapes: six
-   central RANSACs of 2000 poses over 1024 rays, one of 512 over 6144,
-   the refine's one pose, the covariance's 60, counts only; ragged; NaN
-   poses) its counts, best and inliers exactly; both the same across two
+   distances 0 and 256, few rows over many segments; a block a row tile,
+   segment and column part) exactly, beside the +-1 bf16 matmul and topk;
+   K12's scoring (work items of hypothesis and chunk of masked-in rays, at
+   the COVINS-G path's shapes: six central RANSACs of 2000 poses over 1024
+   rays, one of 512 over 6144, the refine's one pose, the covariance's 60,
+   counts only; ragged; NaN poses) its counts, best and inliers exactly;
+   K12's central 5-point RANSAC whole (sampling, Nister's solve, the
+   decompositions, scoring and the best in one launch, at the drain's six
+   pairs of 50 samples over 1024 rays from noise and from given sets,
+   ragged, degenerate) every pose, validity, count, best and inlier mask
+   bit for bit, its bound from FIVE_POINT_OPS; all the same across two
    launches;
 2. the full main path at the workload of the JAX package's benchmark
    (2 agents x 128 KF over 2000 landmarks, 512-word vocabulary trained on
@@ -99,7 +105,8 @@ package beside it.  Phases:
 7. COVINS-G (``placerec_type="COVINS_G"``) on phase 2's streams: the
    whole ingest and drain on the card with the launch counters set to 0
    just before it and read just after (K11 once and K12 four times a
-   verification), the drain's time and the host's time per Gumbel draw,
+   verification: the central 5-point RANSACs whole, then three scorings),
+   the drain's time and the host's time per Gumbel draw,
    upload and dispatch, with the default thresholds (or, if they close no
    loop, those of ``tests/test_scenarios.py:141``, and it says which);
    then the first WARM_WINDOWS windows on the card and on the CPU,
@@ -107,7 +114,9 @@ package beside it.  Phases:
    central inliers, pool and 17-point inliers, loops and merges exactly,
    loop transforms to LOOP_TOL, covariances to COV_TOL, poses to
    POSE_TOL; then K11 and K12 replayed on the card on the largest inputs
-   the CPU pass gave them;
+   the CPU pass gave them, and the PyTorch operations of one
+   verification's dispatch on the card (at most 20,000) beside the host's
+   ms a dispatch;
 8. one JSON line per the kernel table (K1-K7 and pgo_pcg timed on phase
    2's inputs with phase 2's launches, K8-K10 and gba_pcg on bench.py's
    GBA problem with phase 6's launches, K11 and K12 on phase 7's inputs
@@ -602,6 +611,96 @@ def k12_case(args, kw, reps):
         "library_ms": None, "bound_ms": bnd, "bound_by": by,
         "max_abs_err": int((got[0] - ref[0]).abs().max().item()),
         "max_count": int(got[0].max().item()),
+    }
+
+
+# The 5-point solve's float64 operations a sample (K12's central RANSAC
+# whole, `csrc/relpose_ransac.cu`), as the maths needs them (an add,
+# multiply, comparison, quotient, square root or transcendental function
+# counts one; integer, index and select work none; the polynomial products
+# over the monomials that can be nonzero): the 5 x 9 A; A^T A (81 entries
+# of 5 products and 4 sums; the emulated fused multiply-adds' extra
+# operations not counted); 8 Jacobi sweeps of 36 rotations (the angle 11,
+# the row update 9 x 6, the column update 18 x 6); the eigenvalue order;
+# the minors, E E^T, its trace, det(E) and the 9 trace constraints at
+# their 20 monomials (a linear times a linear form 16 products and 16
+# sums, a linear times a quadratic 40 and 40); the 10 x 20 Gauss-Jordan
+# on its remaining columns; Bx, By, Bz and the degree-10 determinant; the
+# Fujiwara scale and the scaled coefficients; the 256-point grid (its
+# angles, and the homogenised form: sin, cos, two chains of 10 products,
+# 22 products and 10 sums) and its sign changes; then for each of the 10
+# roots the back-substitution, the normalised E, the 3 x 3 SVD (24
+# rotations of 65) and the 4 poses.  A valid root adds its bisection (45
+# forms), tan and 3 Newton steps.
+FIVE_POINT_OPS = {
+    "A": 45, "AtA": 81 * 9, "jacobi": 8 * 36 * (11 + 9 * 6 + 18 * 6), "order": 81,
+    "minors": 3 * (2 * 32 + 10), "EEt": 9 * (3 * 32 + 2 * 10), "trace": 20,
+    "det": 3 * 80 + 2 * 20, "constraints": 9 * (3 * 80 + 2 * 20 + 20 + 80 + 20),
+    "gauss_jordan": 55 + 155 + 18 * 155, "p10": 39 + 88 + 88 + 71 + 220,
+    "scale": 32 + 53, "grid": 256 * (2 + 54) + 255 * 4,
+    "roots": 10 * (215 + (45 + 1560 + 110) + 322),
+}
+FIVE_POINT_OPS_PER_VALID_ROOT = 54 + 44 * 58 + 2 + 136
+
+
+def k12_5pt_work(fa, fb, mask, *args, **kw):
+    """A 5-point call's size for the recorder: masked-in rays, pairs."""
+    return int(mask.sum().item()), fa.shape[0]
+
+
+def k12_5pt_case(args, kw, reps):
+    """K12's central 5-point RANSAC whole (relpose_ransac_5pt) against its
+    plain version: every pose bit for bit (NaN where both are), validity,
+    counts, the best, its pose, count and inliers exactly, the same across
+    two launches, one launch a call; call and busy times and the bound for
+    this input (FIVE_POINT_OPS a sample and a valid root, RAY_SCORE_OPS
+    central a valid pose and masked-in ray)."""
+    import torch
+
+    from covins_tpu_torch.ops import epipolar as e
+
+    def kernel():
+        return e.relpose_ransac_5pt(*args, **kw)
+
+    before = e.relpose_ransac_5pt.launches
+    got = kernel()
+    check(e.relpose_ransac_5pt.launches == before + 1, "K12 (5-point) did not launch once")
+    again = kernel()
+    ref = e.relative_pose_ransac_central_5pt_plain(*args, **kw)
+    torch.cuda.synchronize()
+    fa, fb, mask, H = args[:4]
+    B, N = mask.shape
+    shape = f"{B} x {H} samples x {N} rays"
+    for k in ref:
+        check(_nan_equal(got[k], again[k]), f"K12 (5-point) {k} differs between two launches")
+        if not _nan_equal(got[k], ref[k]):
+            bad = ~((got[k] == ref[k]) | (got[k].isnan() & ref[k].isnan()))
+            print(json.dumps({"k12_5pt_differs": shape, "output": k,
+                              "entries": int(bad.sum().item())}))
+        check(_nan_equal(got[k], ref[k]), f"K12 (5-point) {k} disagrees with its plain "
+                                          f"version at {shape}")
+    ops = count_ops(kernel)
+    check(ops <= 20, f"a 5-point K12 call issues {ops} PyTorch operations")
+    rays = mask.sum(1)
+    hyps = ref["valid"].sum(1)
+    n_rays, n_hyps = int(rays.sum().item()), int(hyps.sum().item())
+    n_roots = n_hyps // 4
+    nops = (B * H * sum(FIVE_POINT_OPS.values()) + n_roots * FIVE_POINT_OPS_PER_VALID_ROOT
+            + RAY_SCORE_OPS["central"] * int((hyps * rays).sum().item())
+            + RAY_SCORE_OPS_PER_HYP["central"] * n_hyps)
+    # read once: the masked-in rays, the mask, the sets' noise at the
+    # masked-in rays (or idx); written once: every pose, its validity and
+    # count, the best pose, index and count, the inlier mask
+    P = 40 * H
+    nbytes = (n_rays * 48 + B * N + (H * n_rays * 8 if kw.get("idx") is None else B * H * 40)
+              + B * P * (56 + 1 + 4) + B * (56 + 8) + B * N)
+    bnd, by = bound(nbytes, (nops, FP64_OPS_S))
+    return {
+        "kernel_ms": cuda_ms(kernel, reps), "busy_ms": busy_ms(kernel, reps),
+        "plain_ms": cuda_ms(lambda: e.relative_pose_ransac_central_5pt_plain(*args, **kw), 1),
+        "library_ms": None, "bound_ms": bnd, "bound_by": by, "ops_per_call": ops,
+        "max_abs_err": 0.0, "valid_poses": n_hyps, "masked_in_rays": n_rays,
+        "n_inliers": got["n_inliers"].tolist(),
     }
 
 
@@ -1413,10 +1512,10 @@ def phase1(dev):
     # K11 at the COVINS-G verification's 2048 x 3072 (query rig 2 x 1024
     # against candidate rig 3 x 1024), ragged, ties inside a segment, across
     # a 1024-column tile and across segments, every row masked, distances 0
-    # and 256
+    # and 256, few rows over many segments
     for M, seg, n_seg, case in ((2048, 1024, 3, None), (37, 13, 3, None), (1, 2, 1, None),
                                 (100, 1500, 2, "ties"), (50, 40, 3, "all_masked"),
-                                (33, 300, 2, "extremes")):
+                                (33, 300, 2, "extremes"), (6, 512, 40, None)):
         a, am, b, bm = (t(x) for x in synthetic.ratio_match_scene(rng, M, seg, n_seg, case))
         r = k11_case(a, am, b, bm, seg, reps=20 if M > 1000 else 3)
         print(json.dumps({"phase": 1, "kernel": "hamming_ratio_match",
@@ -1438,6 +1537,17 @@ def phase1(dev):
                      reps=20 if B * H * N > 1e5 else 3)
         print(json.dumps({"phase": 1, "kernel": "ray_ransac_score", "shape": [B, H, N],
                           "central": va is None, "counts_only": counts_only, **r}))
+    # K12's central 5-point RANSAC whole at the COVINS-G drain's six pairs
+    # of 50 samples over 1024 rays, from noise and from given sets, ragged,
+    # and degenerate (3 rays masked in, none, 4 distinct rays repeated)
+    for B, H, N, sets, case in ((6, 50, 1024, "noise", None), (6, 50, 1024, "idx", None),
+                                (3, 7, 37, "noise", None), (3, 50, 1024, "noise", "degenerate")):
+        fa, fb, mask, noise, idx = (None if x is None else t(x) for x in
+                                    synthetic.central_5pt_scene(rng, B, H, N, sets, case))
+        r = k12_5pt_case((fa, fb, mask, H, 0.004), dict(noise=noise, idx=idx),
+                         reps=20 if B * H > 100 else 5)
+        print(json.dumps({"phase": 1, "kernel": "relpose_ransac_5pt", "shape": [B, H, N],
+                          "sets": sets, "case": case, **r}))
     # K7 at the merged bench map's graph size, ragged
     for N, E in ((256, 1300), (1, 1), (9, 20)):
         r = k7_case(*_k7_inputs(rng, N, E, dev), 1e-6, reps=50, library=N == 256)
@@ -1970,6 +2080,7 @@ def kernel_wrappers():
             "p3p_ransac": pnp.absolute_pose_ransac,
             "hamming_ratio_match": descriptors.hamming_ratio_match,
             "ray_ransac_score": epipolar.ray_ransac_score,
+            "relpose_ransac_5pt": epipolar.relpose_ransac_5pt,
             "pgo_matvec": pgo.matvec,
             "pgo_pcg": pgo.pcg,
             "gba_reproj_blocks": gba.reproj_blocks,
@@ -2537,7 +2648,7 @@ def phase6(dev, card, gpu_run, vocab, world):
 # the COVINS-G drain's kernels: K1-K3 at ingest and retrieval, K11 and K12
 # in every verification (K4-K6 are COVINS's)
 G_KERNELS = ("hamming_argmin", "landmark_attributes", "bow_insert_score",
-             "hamming_ratio_match", "ray_ransac_score")
+             "hamming_ratio_match", "ray_ransac_score", "relpose_ransac_5pt")
 # the thresholds the JAX package's COVINS-G scenario closes loops with
 # (tests/test_scenarios.py:141), taken if the defaults close none
 G_LOOSE = {"nc_min_inliers": 30, "nc_cov_thres": 100.0}
@@ -2564,6 +2675,7 @@ class HostLog:
                         (loopverify, "dispatch_covinsg_verify"),
                         (PlaceRecognition, "next_covins_g_noise")]
         self.results, self.seconds, self.calls = [], {}, {}
+        self.first_dispatch = None
 
     def __enter__(self):
         self._saved = []
@@ -2578,6 +2690,8 @@ class HostLog:
                 self.calls[_name] = self.calls.get(_name, 0) + 1
                 if _name == "fetch_covinsg_verify":
                     self.results.append(out)
+                if _name == "dispatch_covinsg_verify" and self.first_dispatch is None:
+                    self.first_dispatch = (a, kw)
                 return out
             setattr(obj, name, timed)
         return self
@@ -2666,6 +2780,7 @@ def phase7(dev, card, vocab, windows, n_kf=128):
         (epipolar, "ray_ransac_score", k12_work,
          lambda kw: "central" if kw.get("valid") is not None
          else ("counts" if not kw.get("want_inliers", True) else "non-central")),
+        (epipolar, "relpose_ransac_5pt", k12_5pt_work),
     ])
     from torch.profiler import ProfilerActivity, profile
 
@@ -2697,6 +2812,8 @@ def phase7(dev, card, vocab, windows, n_kf=128):
         "shape": [a.shape[0], b.shape[0], seg]}
     for kind in ("central", "non-central", "counts"):
         key = f"ray_ransac_score {kind}"
+        if key not in rec.largest:  # the 5-point solver scores its central RANSACs itself
+            continue
         args = rec.on(key, dev)
         kw = {k: v.to(dev) if hasattr(v, "to") else v for k, v in rec.kwargs(key).items()}
         row = {**k12_case(args, kw, reps=20), "kind": kind,
@@ -2704,6 +2821,29 @@ def phase7(dev, card, vocab, windows, n_kf=128):
                "stage_calls": rec.calls[key][0]}
         print(json.dumps({"phase": 7, "kernel": "ray_ransac_score", **row}))
         table.setdefault("ray_ransac_score", row)
+    if "relpose_ransac_5pt" in rec.largest:
+        args = rec.on("relpose_ransac_5pt", dev)
+        kw = {k: v.to(dev) if hasattr(v, "to") else v
+              for k, v in rec.kwargs("relpose_ransac_5pt").items()}
+        row = {**k12_5pt_case(args, kw, reps=20),
+               "shape": [args[2].shape[0], args[3], args[2].shape[1]],
+               "stage_calls": rec.calls["relpose_ransac_5pt"][0]}
+        print(json.dumps({"phase": 7, "kernel": "relpose_ransac_5pt", **row}))
+        table["relpose_ransac_5pt"] = row
+
+    # the PyTorch operations and copies of one verification's dispatch on
+    # the card (the first of the card's pass), beside the host's time a
+    # dispatch
+    from covins_tpu_torch.ops import loopverify
+
+    a, kw = g_log.first_dispatch
+    ops, h2d, d2h = trace_ops(lambda: loopverify.dispatch_covinsg_verify(*a, **kw))
+    torch.cuda.synchronize()
+    print(json.dumps({"phase": 7, "torch_ops_per_verification": ops, "h2d": h2d, "d2h": d2h,
+                      "host_ms_per_dispatch": log.per_call_ms()["dispatch_covinsg_verify"],
+                      "host_ms_per_dispatch_first_windows":
+                          g_log.per_call_ms()["dispatch_covinsg_verify"]}))
+    check(ops <= 20000, f"a COVINS-G verification issues {ops} PyTorch operations on the card")
     for name, row in table.items():
         row["launches"] = launches[name]
     return table
@@ -2741,9 +2881,13 @@ SOURCES = {
     # (loopverify.py:488-505)
     "hamming_ratio_match": ("covins_tpu_torch/csrc/hamming_ratio_match.cu",
                             "covins_tpu/ops/descriptors.py:114"),
-    # with :46 triangulate_midpoint and the scoring of :131, :327, :413, :453
-    "ray_ransac_score": ("covins_tpu_torch/csrc/ray_ransac_score.cu",
+    # with :46 triangulate_midpoint and the scoring of :131, :413, :453
+    "ray_ransac_score": ("covins_tpu_torch/csrc/relpose_ransac.cu",
                          "covins_tpu/ops/epipolar.py:68"),
+    # the whole central 5-point RANSAC (with ransac.py:18, :216
+    # essential_5pt, :113 decompose_essential), loopverify.py:509-511
+    "relpose_ransac_5pt": ("covins_tpu_torch/csrc/relpose_ransac.cu",
+                           "covins_tpu/ops/epipolar.py:327"),
 }
 
 

@@ -43,10 +43,11 @@ SIGNATURES = {
         "covins_bow_insert_score": [_P] * 5 + [_I, _I, _I, _L, _I, _I, _P],
     },
     "hamming_ratio_match": {
-        "covins_hamming_ratio_match": [_P, _P, _I, _P, _P, _I, _I, _F, _F, _P, _P],
+        "covins_hamming_ratio_match": [_P, _P, _I, _P, _P, _I, _I, _F, _F, _P, _P, _P],
     },
-    "ray_ransac_score": {
-        "covins_ray_ransac_score": [_P] * 7 + [_I, _I, _I, _D] + [_P] * 4,
+    "relpose_ransac": {
+        "covins_ray_ransac_score": [_P] * 7 + [_I, _I, _I, _D] + [_P] * 5,
+        "covins_relpose_ransac_5pt": [_P] * 5 + [_I] * 4 + [_D] + [_P] * 4,
     },
     "hamming_mutual_nn": {
         "covins_hamming_mutual_nn": [_P, _P, _I, _P, _P, _I, _F, _P, _P, _P],
@@ -89,7 +90,7 @@ EXTRA_FLAGS = {
     "bow_insert_score": ["--fmad=false"],
     "project_match": ["--fmad=false"],
     "p3p_ransac": ["--fmad=false"],
-    "ray_ransac_score": ["--fmad=false"],
+    "relpose_ransac": ["--fmad=false"],
     "pgo_matvec": ["--fmad=false"],
     "gba_reproj_blocks": ["--fmad=false"],
     "gba_reduced_matvec": ["--fmad=false"],

@@ -286,8 +286,9 @@ def hamming_ratio_match(a_u8: torch.Tensor, a_mask: torch.Tensor,
     * d2``, both in float32.  Returns ``(idx, d1, d2)``, each (M, N / seg)
     int32, idx the column within the segment or -1.  CPU tensors take the
     plain version; CUDA tensors launch the kernel (K11: binary tensor-core
-    products, the two smallest keys per row and segment in registers, no
-    distance matrix) or raise."""
+    products, the two smallest keys per row and segment in registers, a
+    block a (row tile, segment, column part), no distance matrix) or
+    raise."""
     if all(is_cpu(t) for t in (a_u8, a_mask, b_u8, b_mask)):
         return hamming_ratio_match_plain(a_u8, a_mask, b_u8, b_mask, seg,
                                          max_dist, ratio)
@@ -300,13 +301,19 @@ def hamming_ratio_match(a_u8: torch.Tensor, a_mask: torch.Tensor,
     if seg < 2 or n % seg or n > ARGMIN_MAX_COLUMNS or m >= 2**30:
         raise ValueError(f"hamming_ratio_match: {n} columns in segments of {seg} "
                          "(a top 2 needs two columns a segment)")
-    out = torch.empty((3, m, n // seg), dtype=torch.int32, device=dev)
+    S = n // seg
+    # the outputs, then the kernel's scratch: each column part's two keys
+    # (at most 8 parts a segment) and a counter a (row tile, segment)
+    buf = torch.empty(3 * m * S + 16 * m * S + -(-m // 32) * S, dtype=torch.int32,
+                      device=dev)
+    out = buf.as_strided((3, m, S), (m * S, S, 1))
     lib = cuda_build.library("hamming_ratio_match")
     with torch.cuda.device(dev):
         rc = lib.covins_hamming_ratio_match(
             a_u8.data_ptr(), a_mask.data_ptr(), m, b_u8.data_ptr(),
             b_mask.data_ptr(), n, seg, float(max_dist), float(ratio),
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            buf.data_ptr(), buf.data_ptr() + 4 * 3 * m * S,
+            torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, "hamming_ratio_match")
     hamming_ratio_match.launches += 1
     return out[0], out[1], out[2]

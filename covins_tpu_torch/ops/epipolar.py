@@ -11,9 +11,13 @@ Cholesky, Jacobi eigensolver and bracketing root finder, `ops/linalg.py`,
 `ops/polynomial.py`).  The scoring of every RANSAC, the triangulated ray
 angular error against the threshold with the inlier counts, the first
 best hypothesis and its inlier mask, is :func:`ray_ransac_score`: on the
-card one kernel launch (K12, `csrc/ray_ransac_score.cu`) for a whole batch
-of RANSACs; its plain version :func:`ray_ransac_score_plain` writes the
-kernel's arithmetic as tensor operations.
+card one kernel launch (K12, `csrc/relpose_ransac.cu`) for a whole batch
+of RANSACs.  The central 5-point RANSAC is whole on the card, sampling,
+Nister's solve, decompositions and scoring in one launch of the same
+kernel source (:func:`relpose_ransac_5pt`).  The plain versions
+(:func:`ray_ransac_score_plain`, :func:`relative_pose_ransac_central_5pt_plain`)
+write the kernel's arithmetic as tensor operations, every sum in the
+kernel's order.
 
 The central RANSACs take a leading batch dimension (one RANSAC per pair
 of keyframes, all scored in one call); the minimal sets are the top k of
@@ -137,7 +141,9 @@ def ray_ransac_score(T, va, fa, vb, fb, mask, threshold_rad: float, valid=None,
     ``threshold_rad``.  Returns ``(counts (B, H) int32, best (B,) int32 the
     first maximum, inliers (B, N) bool of the best)``, or ``(counts, None,
     None)`` without ``want_inliers``.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel (K12, one cooperative launch) or raise.
+    CUDA tensors launch the kernel (K12, one cooperative launch: work items
+    of (batch entry, hypothesis, chunk of masked-in rays), so that a call
+    of one hypothesis spreads its rays over the card) or raise.
     """
     ts = (T, va, fa, vb, fb, mask, valid)
     if all(t is None or is_cpu(t) for t in ts):
@@ -155,18 +161,20 @@ def ray_ransac_score(T, va, fa, vb, fb, mask, threshold_rad: float, valid=None,
             ptr("fa", fa, (B, N, 3), f64), ptr("vb", vb, (B, N, 3), f64),
             ptr("fb", fb, (B, N, 3), f64), ptr("mask", mask, (B, N), torch.bool),
             ptr("valid", valid, (B, H), torch.bool)]
-    counts = torch.empty((B, H), dtype=torch.int32, device=dev)
+    # counts, best, then the kernel's scratch (compacted rays and their number)
+    ibuf = torch.empty(B * H + B + B * N + B, dtype=torch.int32, device=dev)
+    counts = ibuf[:B * H].view(B, H)
     best = inliers = None
     if want_inliers:
-        best = torch.empty(B, dtype=torch.int32, device=dev)
+        best = ibuf[B * H:B * H + B]
         inliers = torch.empty((B, N), dtype=torch.bool, device=dev)
-    lib = cuda_build.library("ray_ransac_score")
+    lib = cuda_build.library("relpose_ransac")
     with torch.cuda.device(dev):
         rc = lib.covins_ray_ransac_score(
             *ptrs, B, H, N, float(threshold_rad), counts.data_ptr(),
             0 if best is None else best.data_ptr(),
             0 if inliers is None else inliers.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            ibuf.data_ptr() + 4 * (B * H + B), torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, "ray_ransac_score")
     ray_ransac_score.launches += 1
     return counts, best, inliers
@@ -237,21 +245,6 @@ def essential_8pt(fa, fb, weights=None):
     return (U * _consts(E.device)["D"]) @ Vt2
 
 
-def decompose_essential(E):
-    """E (..., 3, 3) -> the 4 candidate T_a_b (R, unit t): (..., 4, 7)."""
-    U, _, Vt = la.svd3x3(E)
-    U = U * torch.sign(la.det33(U))[..., None, None]
-    Vt = Vt * torch.sign(la.det33(Vt))[..., None, None]
-    W = _consts(E.device)["W"]
-    t = U[..., :, 2]
-    poses = []
-    for R in (U @ W @ Vt, U @ W.T @ Vt):
-        q = geo.matrix_to_quat(R)
-        for s in (1.0, -1.0):
-            poses.append(geo.pose_from_qt(q, s * t))
-    return torch.stack(poses, dim=-2)
-
-
 @_batched
 def relative_pose_ransac_central(fa, fb, mask, n_hypotheses: int = 128,
                                  threshold_rad: float = 0.004, noise=None, idx=None):
@@ -280,7 +273,8 @@ _NISTER_MONOMIALS = (
 
 def _pmul(p, q):
     """Product of trivariate polynomials on dense exponent grids (...,
-    dx, dy, dz): the full 3-D convolution."""
+    dx, dy, dz): the full 3-D convolution, in `polynomial.convolve`'s
+    order."""
     return poly.convolve(p, q, 3)
 
 
@@ -324,14 +318,142 @@ def _horner(coeffs, z):
     return out
 
 
+# The 5-point path's products, norms and 3x3 SVD with every sum in index
+# order (the kernel, `csrc/relpose_ransac.cu`, repeats each operation; a
+# library product or norm sums another way on the card)
+def _mm(A, B):
+    """A (..., n, k) @ B (..., k, m), each entry's k products summed in
+    index order."""
+    acc = A[..., :, 0:1] * B[..., 0:1, :]
+    for k in range(1, A.shape[-1]):
+        acc = acc + A[..., :, k:k + 1] * B[..., k:k + 1, :]
+    return acc
+
+
+def _split(x):
+    """Veltkamp's split of x into two halves of 26 bits (x = hi + lo)."""
+    t = 134217729.0 * x
+    hi = t - (t - x)
+    return hi, x - hi
+
+
+def _fma(a, b, c):
+    """a * b + c rounded once, as a fused multiply-add rounds it: Dekker's
+    exact product p + e = a * b and a two-sum s + t = p + c, then s + (t +
+    e), in elementwise operations that round alike on every device (no
+    case in 200,000 random draws rounds apart from an exact FMA)."""
+    p = a * b
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    s = p + c
+    bb = s - p
+    t = (p - (s - bb)) + (c - bb)
+    return s + (t + e)
+
+
+def _gram(A):
+    """A^T A of (..., k, n) as the CPU's BLAS product forms it: each entry
+    a chain of fused multiply-adds over the k rows in order, from zero.
+    The 5-point nullspace basis turns within itself under one ulp of A^T
+    A, and which true roots the bracketing finds turns with it; this order
+    keeps the basis of the CPU's library product."""
+    acc = torch.zeros(A.shape[:-2] + A.shape[-1:] * 2, dtype=A.dtype, device=A.device)
+    for k in range(A.shape[-2]):
+        acc = _fma(A[..., k, :, None], A[..., k, None, :], acc)
+    return acc
+
+
+def _norm(x):
+    """Euclidean norm over the last axis, the squares summed in order."""
+    return la.sqrt_rn(poly.sum_seq(x * x))
+
+
+def _orthogonal_unit(u):
+    """`linalg._orthogonal_unit` with :func:`_norm`."""
+    c = la.cross3(u, la._unit_axis(u, 0))
+    alt = la.cross3(u, la._unit_axis(u, 1))
+    c = torch.where(_norm(c)[..., None] < 1e-6, alt, c)
+    return c / torch.clamp(_norm(c), min=1e-30)[..., None]
+
+
+def _svd3x3(A):
+    """`linalg.svd3x3`'s (U, Vt) with its products and norms in order."""
+    w, V = la.jacobi_eigh(_mm(A.transpose(-1, -2), A))
+    w, V = w.flip(-1), V.flip(-1)
+    S = la.sqrt_rn(torch.clamp(w, min=0.0))
+    AV = _mm(A, V)
+    eps = 1e-12 * (1.0 + S[..., :1])
+    u0 = AV[..., :, 0]
+    n0 = _norm(u0)[..., None]
+    u0 = torch.where(n0 > eps, u0 / torch.clamp(n0, min=1e-30), la._unit_axis(u0, 0))
+    u1 = AV[..., :, 1]
+    u1 = u1 - la.dot3(u1, u0)[..., None] * u0
+    n1 = _norm(u1)[..., None]
+    u1 = torch.where(n1 > eps, u1 / torch.clamp(n1, min=1e-30), _orthogonal_unit(u0))
+    u2 = la.cross3(u0, u1)
+    d2 = la.dot3(AV[..., :, 2], u2)[..., None]
+    u2 = u2 * torch.where(torch.abs(d2) > eps, torch.sign(d2), 1.0)
+    return torch.stack([u0, u1, u2], dim=-1), V.transpose(-1, -2)
+
+
+def _quat_normalize(q):
+    """`geometry.quat_normalize` with :func:`_norm`."""
+    q = q / torch.clamp(_norm(q), min=1e-12)[..., None]
+    return torch.where(q[..., :1] < 0, -q, q)
+
+
+def _matrix_to_quat(R):
+    """`geometry.matrix_to_quat` with its square roots rounded to nearest
+    and :func:`_quat_normalize`."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def root2(x):
+        return la.sqrt_rn(torch.clamp(x, min=1e-24)) * 2.0
+
+    s0 = root2(tr + 1.0)
+    q0 = torch.stack([0.25 * s0, (m21 - m12) / s0, (m02 - m20) / s0, (m10 - m01) / s0], -1)
+    s1 = root2(1.0 + m00 - m11 - m22)
+    q1 = torch.stack([(m21 - m12) / s1, 0.25 * s1, (m01 + m10) / s1, (m02 + m20) / s1], -1)
+    s2 = root2(1.0 + m11 - m00 - m22)
+    q2 = torch.stack([(m02 - m20) / s2, (m01 + m10) / s2, 0.25 * s2, (m12 + m21) / s2], -1)
+    s3 = root2(1.0 + m22 - m00 - m11)
+    q3 = torch.stack([(m10 - m01) / s3, (m02 + m20) / s3, (m12 + m21) / s3, 0.25 * s3], -1)
+    cond0 = (tr > 0.0)[..., None]
+    cond1 = ((m00 > m11) & (m00 > m22))[..., None]
+    cond2 = (m11 > m22)[..., None]
+    q = torch.where(cond0, q0, torch.where(cond1, q1, torch.where(cond2, q2, q3)))
+    return _quat_normalize(q)
+
+
+def decompose_essential(E):
+    """E (..., 3, 3) -> the 4 candidate T_a_b (R, unit t): (..., 4, 7),
+    every sum in a written order (the 5-point kernel repeats it)."""
+    U, Vt = _svd3x3(E)
+    U = U * torch.sign(la.det33(U))[..., None, None]
+    Vt = Vt * torch.sign(la.det33(Vt))[..., None, None]
+    W = _consts(E.device)["W"]
+    t = U[..., :, 2]
+    poses = []
+    for R in (_mm(_mm(U, W), Vt), _mm(_mm(U, W.T), Vt)):
+        q = _matrix_to_quat(R)
+        for s in (1.0, -1.0):
+            poses.append(torch.cat([_quat_normalize(q), s * t], dim=-1))
+    return torch.stack(poses, dim=-2)
+
+
 def essential_5pt(fa, fb):
     """Nister 5-point: (..., 5, 3) bearing pairs -> up to 10 essential
     matrices ``(E (..., 10, 3, 3), valid (..., 10))``, one per real root of
     the degree-10 polynomial (built by polynomial arithmetic on dense
-    exponent grids, roots by `polynomial.solve_poly_real`)."""
+    exponent grids, roots by `polynomial.solve_poly_real`).  Every sum in
+    one written order, as the kernel repeats it."""
     lead = fa.shape[:-2]
     A = (fa[..., :, :, None] * fb[..., :, None, :]).reshape(lead + (5, 9))
-    _, V = la.jacobi_eigh(A.transpose(-1, -2) @ A)
+    _, V = la.jacobi_eigh(_gram(A))
     return essential_5pt_from_basis(V[..., :, :4].transpose(-1, -2).reshape(lead + (4, 3, 3)))
 
 
@@ -356,13 +478,14 @@ def essential_5pt_from_basis(basis):
     det = (_pmul(lin(0, 0), minor(1, 2, 1, 2)) - _pmul(lin(0, 1), minor(1, 2, 0, 2))
            + _pmul(lin(0, 2), minor(1, 2, 0, 1)))
     # trace constraint 2 E E^T E - tr(E E^T) E = 0 (9 cubics)
-    EEt = [[sum(_pmul(lin(i, k), lin(j, k)) for k in range(3)) for j in range(3)]
-           for i in range(3)]
+    EEt = [[_pmul(lin(i, 0), lin(j, 0)) + _pmul(lin(i, 1), lin(j, 1))
+            + _pmul(lin(i, 2), lin(j, 2)) for j in range(3)] for i in range(3)]
     tr = EEt[0][0] + EEt[1][1] + EEt[2][2]
     rows = [det]
     for i in range(3):
         for j in range(3):
-            cub = sum(_pmul(EEt[i][k], lin(k, j)) for k in range(3))
+            cub = (_pmul(EEt[i][0], lin(0, j)) + _pmul(EEt[i][1], lin(1, j))
+                   + _pmul(EEt[i][2], lin(2, j)))
             rows.append(2.0 * cub - _pmul(tr, lin(i, j)))
     R = _gauss_jordan(torch.stack([_cubic_to_row(r) for r in rows], dim=-2))
 
@@ -392,16 +515,93 @@ def essential_5pt_from_basis(basis):
     # back-substitute each root: [Bx(z) By(z)] [x y]^T = -Bz(z), 3x2 lsq
     ax, ay, az = _horner(Bx, z), _horner(By, z), _horner(Bz, z)  # (..., 10, 3)
     Mz = torch.stack([ax, ay], dim=-1)  # (..., 10, 3, 2)
-    N = Mz.transpose(-1, -2) @ Mz
-    rhs = -(Mz.transpose(-1, -2) @ az[..., None])[..., 0]
+    MzT = Mz.transpose(-1, -2)
+    N = _mm(MzT, Mz)
+    rhs = -_mm(MzT, az[..., None])[..., 0]
     d = _psafe(N[..., 0, 0] * N[..., 1, 1] - N[..., 0, 1] * N[..., 1, 0])
     x = (rhs[..., 0] * N[..., 1, 1] - rhs[..., 1] * N[..., 0, 1]) / d
     y = (N[..., 0, 0] * rhs[..., 1] - N[..., 1, 0] * rhs[..., 0]) / d
     b = basis[..., None, :, :, :]
     E = (x[..., None, None] * b[..., 0, :, :] + y[..., None, None] * b[..., 1, :, :]
          + z[..., None, None] * b[..., 2, :, :] + b[..., 3, :, :])
-    nrm = torch.linalg.vector_norm(E, dim=(-2, -1))
+    nrm = _norm(E.flatten(-2))
     return E / torch.clamp(nrm, min=1e-30)[..., None, None], valid
+
+
+def relative_pose_ransac_central_5pt_plain(fa, fb, mask, n_hypotheses: int = 64,
+                                           threshold_rad: float = 0.004, noise=None,
+                                           idx=None):
+    """Plain version of :func:`relpose_ransac_5pt` (any device): the
+    minimal sets, :func:`essential_5pt`, :func:`decompose_essential` and
+    :func:`ray_ransac_score_plain`."""
+    idx = _minimal_sets(noise, idx, mask, n_hypotheses, 5)
+    E, valid = essential_5pt(_take(fa, idx), _take(fb, idx))  # (B, H, 10, ...)
+    B = fa.shape[0]
+    T = decompose_essential(E).reshape(B, -1, 7).contiguous()  # (B, 40 H, 7)
+    valid = torch.repeat_interleave(valid.reshape(B, -1), 4, dim=-1)
+    counts, best, inliers = ray_ransac_score_plain(T, None, fa, None, fb, mask,
+                                                   threshold_rad, valid=valid)
+    return {**_best_of(T, counts, best, inliers), "T": T, "valid": valid,
+            "counts": counts, "best": best}
+
+
+def relpose_ransac_5pt(fa, fb, mask, n_hypotheses: int = 64, threshold_rad: float = 0.004,
+                       noise=None, idx=None):
+    """The whole central 5-point RANSAC of a batch of keyframe pairs:
+    central bearings ``fa``, ``fb`` (B, N, 3) float64 with ``mask`` (B, N)
+    bool, minimal sets the top 5 of each row of ``noise`` (B, >= H, N)
+    float64 over the masked-in rays (largest first, ties to the lowest
+    index) or given ``idx`` (B, H, 5) int64; Nister's solve of every
+    sample, the 4 decompositions of each of its 10 roots, the scoring of
+    the (B, 40 H) poses, the first best and its inliers.  Returns
+    ``T_a_b`` (B, 7), ``inliers`` (B, N), ``n_inliers`` (B,) and every
+    pose ``T`` (B, 40 H, 7), its validity ``valid``, the ``counts`` and
+    ``best``.  CPU tensors take the plain version; CUDA tensors launch the
+    kernel (K12, one cooperative launch: a warp a sample, then the scoring)
+    or raise."""
+    ts = (fa, fb, mask, noise, idx)
+    if all(t is None or is_cpu(t) for t in ts):
+        return relative_pose_ransac_central_5pt_plain(fa, fb, mask, n_hypotheses,
+                                                      threshold_rad, noise, idx)
+    dev = check_cuda("relpose_ransac_5pt", *ts)
+    B, N = mask.shape
+    H = n_hypotheses
+    name = "relpose_ransac_5pt"
+    if (noise is None) == (idx is None):
+        raise ValueError(f"{name}: pass noise or idx")
+    if noise is not None and (noise.dim() != 3 or noise.shape[1] < H or N < 5):
+        raise ValueError(f"{name}: noise must be (B, >= {H}, N >= 5), got "
+                         f"{tuple(noise.shape)}")
+    f64 = torch.float64
+    ptrs = [check_tensor(name, "fa", fa, (B, N, 3), f64),
+            check_tensor(name, "fb", fb, (B, N, 3), f64),
+            check_tensor(name, "mask", mask, (B, N), torch.bool),
+            0 if noise is None else check_tensor(name, "noise", noise,
+                                                 (B, noise.shape[1], N), f64),
+            0 if idx is None else check_tensor(name, "idx", idx, (B, H, 5), torch.int64)]
+    P = 40 * H
+    # outputs and scratch in one buffer per dtype: poses, the best poses;
+    # counts, best, n_inliers, compacted ray order, ray counts; validity, inliers
+    fbuf = torch.empty(B * P * 7 + B * 7, dtype=f64, device=dev)
+    ibuf = torch.empty(B * P + 2 * B + B * N + B, dtype=torch.int32, device=dev)
+    bbuf = torch.empty(B * P + B * N, dtype=torch.bool, device=dev)
+    lib = cuda_build.library("relpose_ransac")
+    with torch.cuda.device(dev):
+        rc = lib.covins_relpose_ransac_5pt(
+            *ptrs, B, N, 0 if noise is None else noise.shape[1], H, float(threshold_rad),
+            fbuf.data_ptr(), ibuf.data_ptr(), bbuf.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(rc, name)
+    relpose_ransac_5pt.launches += 1
+    T = fbuf[:B * P * 7].view(B, P, 7)
+    counts = ibuf[:B * P].view(B, P)
+    return {"T_a_b": fbuf[B * P * 7:].view(B, 7), "inliers": bbuf[B * P:].view(B, N),
+            "n_inliers": ibuf[B * P + B:B * P + 2 * B], "T": T,
+            "valid": bbuf[:B * P].view(B, P), "counts": counts,
+            "best": ibuf[B * P:B * P + B]}
+
+
+relpose_ransac_5pt.launches = 0
 
 
 @_batched
@@ -412,15 +612,10 @@ def relative_pose_ransac_central_5pt(fa, fb, mask, n_hypotheses: int = 64,
     STEWENIUS prefilter (`RelNonCentralPosSolver.cpp:343-377`): each sample
     gives up to 10 essentials x 4 decompositions, all scored in one batch
     (B, 40 H).  Same arguments and results as
-    :func:`relative_pose_ransac_central` (idx (B, H, 5))."""
-    idx = _minimal_sets(noise, idx, mask, n_hypotheses, 5)
-    E, valid = essential_5pt(_take(fa, idx), _take(fb, idx))  # (B, H, 10, ...)
-    T = decompose_essential(E)  # (B, H, 10, 4, 7)
-    T = T.reshape(T.shape[0], -1, 7).contiguous()
-    valid = torch.repeat_interleave(valid.reshape(valid.shape[0], -1), 4, dim=-1)
-    counts, best, inliers = ray_ransac_score(T, None, fa, None, fb, mask,
-                                             threshold_rad, valid=valid)
-    return _best_of(T, counts, best, inliers)
+    :func:`relative_pose_ransac_central` (idx (B, H, 5)); on the card one
+    launch (:func:`relpose_ransac_5pt`)."""
+    out = relpose_ransac_5pt(fa, fb, mask, n_hypotheses, threshold_rad, noise=noise, idx=idx)
+    return {k: out[k] for k in ("T_a_b", "inliers", "n_inliers")}
 
 
 # ------------------------------------------------- non-central 17-point

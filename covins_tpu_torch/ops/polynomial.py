@@ -10,8 +10,9 @@ selected, so the results round as the reference's do.  The solvers return
 ``(roots, is_real)``: real roots with a trailing root axis, and for a
 complex-conjugate pair the pair's real part with ``is_real = False``.
 
-The P3P kernel (`csrc/p3p_ransac.cu`) repeats this arithmetic and is held
-to it bit for bit on the card, so every operation here is one that rounds
+The P3P kernel (`csrc/p3p_ransac.cu`) and the 5-point kernel
+(`csrc/relpose_ransac.cu`) repeat this arithmetic and are held to it bit
+for bit on the card, so every operation here is one that rounds
 alike in both: powers are written as products (``x ** 3`` as ``(x * x) *
 x``, the JAX package's integer power, where PyTorch would call ``pow``),
 and a division by 3 or 27 divides by a device tensor (PyTorch's CUDA
@@ -22,7 +23,6 @@ from __future__ import annotations
 
 import itertools
 import math
-from functools import lru_cache
 
 import torch
 
@@ -173,6 +173,22 @@ def _linspace(start: float, stop: float, n: int, like):
     return torch.cat([start + i * delta, last])
 
 
+def _powers(x, deg: int):
+    """x^0 .. x^deg (..., deg + 1) as a product chain, x^m = x^(m-1) * x."""
+    out = [torch.ones_like(x)]
+    for _ in range(deg):
+        out.append(out[-1] * x)
+    return torch.stack(out, dim=-1)
+
+
+def sum_seq(x):
+    """Sum over the last axis from left to right."""
+    acc = x[..., 0]
+    for k in range(1, x.shape[-1]):
+        acc = acc + x[..., k]
+    return acc
+
+
 def solve_poly_real(coeffs, n_grid: int = 1024, bisect_iters: int = 48,
                     newton_iters: int = 3):
     """All real roots of degree-D polynomials, in real arithmetic.
@@ -183,6 +199,9 @@ def solve_poly_real(coeffs, n_grid: int = 1024, bisect_iters: int = 48,
     sum_k c_k sin^(D-k) cos^k, bracket sign changes on an ``n_grid``
     theta grid, bisect each bracket, Newton-polish in z.  Roots of even
     multiplicity, and roots closer than the grid pitch, may be missed.
+    Integer powers are product chains and the homogenised form's terms are
+    summed from left to right, as the 5-point kernel (`csrc/relpose_ransac.cu`)
+    repeats them.
     """
     deg = coeffs.shape[-1] - 1
     like = coeffs
@@ -190,18 +209,16 @@ def solve_poly_real(coeffs, n_grid: int = 1024, bisect_iters: int = 48,
     k = torch.arange(1, deg + 1, dtype=like.dtype, device=like.device)
     ratios = (torch.abs(coeffs[..., 1:]) / c0[..., None]) ** (1.0 / k)
     s = torch.clamp(2.0 * torch.amax(ratios, dim=-1), 1e-3, 1e3)
-    pw = torch.arange(deg, -1.0, -1.0, dtype=like.dtype, device=like.device)
-    scaled = coeffs * s[..., None] ** pw
+    scaled = coeffs * _powers(s, deg).flip(-1)
     scaled = scaled / torch.clamp(torch.amax(torch.abs(scaled), dim=-1,
                                              keepdim=True), min=1e-30)
     eps = 1e-4
     theta = _linspace(-math.pi / 2 + eps, math.pi / 2 - eps, n_grid, like)
-    pc = torch.arange(0.0, deg + 1.0, dtype=like.dtype, device=like.device)
 
     def homog(th, c):
         # sum_k c[k] sin^(D-k) cos^k, th (..., R) against c (..., 1, D+1)
-        return torch.sum(c * torch.sin(th)[..., None] ** pw
-                         * torch.cos(th)[..., None] ** pc, dim=-1)
+        return sum_seq(c * _powers(torch.sin(th), deg).flip(-1)
+                        * _powers(torch.cos(th), deg))
 
     f = homog(theta.expand(coeffs.shape[:-1] + (n_grid,)), scaled[..., None, :])
     sgn = torch.sign(f)
@@ -227,30 +244,19 @@ def solve_poly_real(coeffs, n_grid: int = 1024, bisect_iters: int = 48,
     return torch.where(valid, roots, 0.0), valid
 
 
-@lru_cache(maxsize=None)
-def _conv_matrix(ps: tuple, qs: tuple, device: torch.device) -> torch.Tensor:
-    """0/1 matrix (P * Q, O) taking the outer product of two dense
-    coefficient grids of shapes ``ps`` and ``qs`` to their full
-    convolution, flattened (one per device, made once)."""
-    os_ = tuple(a + b - 1 for a, b in zip(ps, qs))
-    S = torch.zeros((math.prod(ps) * math.prod(qs), math.prod(os_)), dtype=torch.float64)
-    r = 0
-    for i in itertools.product(*map(range, ps)):
-        for j in itertools.product(*map(range, qs)):
-            o = 0
-            for k, (a, b) in enumerate(zip(i, j)):
-                o = o * os_[k] + a + b
-            S[r, o] = 1.0
-            r += 1
-    return S.to(device)
-
-
 def convolve(p, q, nd: int = 1):
     """Full convolution of the trailing ``nd``-dim coefficient grids of p
-    and q (batched over the leading dims)."""
-    ps, qs = tuple(p.shape[-nd:]), tuple(q.shape[-nd:])
+    and q (batched over the leading dims).  Each coefficient sums its
+    products over the entries of the smaller grid (p on a tie) in index
+    order, starting from zero: the 5-point kernel (`csrc/relpose_ransac.cu`)
+    repeats that order, where a library product sums another way on the card."""
+    ps, qs = p.shape[-nd:], q.shape[-nd:]
+    if math.prod(ps) > math.prod(qs):
+        p, q, ps, qs = q, p, qs, ps
     lead = torch.broadcast_shapes(p.shape[:-nd], q.shape[:-nd])
-    outer = p.reshape(p.shape[:-nd] + (-1, 1)) * q.reshape(q.shape[:-nd] + (1, -1))
-    S = _conv_matrix(ps, qs, p.device)
-    out = outer.reshape(lead + (-1,)) @ S
-    return out.reshape(lead + tuple(a + b - 1 for a, b in zip(ps, qs)))
+    out = torch.zeros(lead + tuple(a + b - 1 for a, b in zip(ps, qs)),
+                      dtype=torch.result_type(p, q), device=p.device)
+    for i in itertools.product(*map(range, ps)):
+        sl = tuple(slice(a, a + b) for a, b in zip(i, qs))
+        out[(...,) + sl] += p[(...,) + i + (None,) * nd] * q
+    return out

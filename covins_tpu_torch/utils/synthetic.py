@@ -523,6 +523,50 @@ def ratio_match_scene(rng: np.random.Generator, M, seg, n_seg, case=None):
     return a, a_mask, b, b_mask
 
 
+def central_5pt_scene(rng: np.random.Generator, B, H, N, sets="noise", case=None):
+    """numpy inputs of `ops.epipolar.relpose_ransac_5pt`: B keyframe pairs'
+    unit central bearings of N rays that see one scene a pair (a fifth of
+    the rays outliers), the first ``n_valid[b]`` rays of pair b masked in
+    (a different count a pair, about a fifth of N as the COVINS-G drain
+    matches), and the minimal sets from Gumbel noise (B, H, N) or as idx
+    (B, H, 5) of distinct masked-in rays.  ``case="degenerate"``: pair 0
+    has 3 rays masked in, pair 1 none, pair 2 (if any) only 4 distinct
+    rays, repeated (idx: pair 2's sets repeat a ray).  Returns (fa, fb,
+    mask, noise, idx), None for the sets not asked for."""
+    from covins_tpu_torch.utils import npgeo
+
+    fa, fb = np.empty((B, N, 3)), np.empty((B, N, 3))
+    for i in range(B):
+        q = rng.normal(size=4) * [8.0, 1.0, 1.0, 1.0]
+        t = rng.normal(size=3)
+        Tt = np.concatenate([q / np.linalg.norm(q), t / np.linalg.norm(t)])
+        pts = np.stack([rng.uniform(-5, 5, N), rng.uniform(-4, 4, N),
+                        rng.uniform(4, 15, N)], 1)
+        fa[i] = pts
+        fb[i] = npgeo.pose_apply(npgeo.pose_inverse(Tt), pts)
+        bad = rng.random(N) < 0.2
+        fb[i][bad] = rng.normal(size=(int(bad.sum()), 3))
+    fa /= np.linalg.norm(fa, axis=-1, keepdims=True)
+    fb /= np.linalg.norm(fb, axis=-1, keepdims=True)
+    n_valid = [max(5, min(N, N // 5 + (i * N) // (7 * B))) for i in range(B)]
+    if case == "degenerate":
+        n_valid[0] = 3
+        if B > 1:
+            n_valid[1] = 0
+        if B > 2:
+            fa[2] = fa[2, np.arange(N) % 4]
+            fb[2] = fb[2, np.arange(N) % 4]
+    mask = np.arange(N)[None, :] < np.asarray(n_valid)[:, None]
+    if sets == "noise":
+        u = np.clip(rng.random((B, H, N)), np.finfo(np.float64).tiny, None)
+        return fa, fb, mask, -np.log(-np.log(u)), None
+    idx = np.stack([np.stack([rng.choice(max(n, 5), 5, replace=False) for _ in range(H)])
+                    for n in n_valid]).astype(np.int64)
+    if case == "degenerate" and B > 2:
+        idx[2, :, 1] = idx[2, :, 0]
+    return fa, fb, mask, None, idx
+
+
 def ray_score_scene(rng: np.random.Generator, B, H, N, central=False, n_valid=None,
                     with_valid=False, nan_every=7):
     """numpy inputs of `ops.epipolar.ray_ransac_score`: B RANSACs over N

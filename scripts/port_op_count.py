@@ -72,7 +72,8 @@ def main():
               (loopverify.d_ops, "hamming_mutual_nn"),
               (loopverify.d_ops, "hamming_ratio_match"),
               (epipolar, "essential_5pt"), (epipolar, "essential_8pt"),
-              (epipolar, "decompose_essential"), (epipolar, "gep_17pt"),
+              (epipolar, "decompose_essential"), (epipolar, "relpose_ransac_5pt"),
+              (epipolar, "gep_17pt"),
               (epipolar, "ray_ransac_score"), (epipolar.la, "jacobi_eigh"),
               (epipolar.poly, "solve_poly_real"), (polynomial, "polish_real_roots"),
               (epipolar.ransac, "sample_minimal_sets")]

@@ -303,3 +303,97 @@ def test_align_ransac_3d3d_matches_reference():
     np.testing.assert_array_equal(out["inliers"].numpy(), np.asarray(ref["inliers"]))
     np.testing.assert_allclose(out["T_12"].numpy(), np.asarray(ref["T_12"]), rtol=0,
                                atol=POSE_TOL)
+
+
+@pytest.mark.parametrize("masks", ["random", "few", "none"])
+def test_top5_sets_match_reference(masks):
+    """The 5-point RANSAC's minimal sets (the top 5 of each noise row over
+    the masked-in rays, ties to the lowest index; with fewer than five, the
+    masked rays by index) against the reference's `sample_minimal_sets`
+    under the same key, exactly."""
+    from covins_tpu.ops import ransac as ref_ransac
+    from covins_tpu_torch.ops import ransac
+
+    rng = np.random.default_rng(11)
+    N, H = 60, 40
+    mask = {"random": rng.random(N) > 0.5, "few": np.arange(N) % 23 == 5,
+            "none": np.zeros(N, bool)}[masks]
+    key = jax.random.PRNGKey(12)
+    ref = np.asarray(ref_ransac.sample_minimal_sets(key, jnp.asarray(mask), H, 5))
+    got = ransac.sample_minimal_sets(_t(_gumbel(key, (H, N))), _t(mask), 5)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("case", ["few_masked", "all_masked", "duplicated"])
+def test_central_5pt_degenerate_samples_match_reference(case):
+    """Degenerate 5-point samples against the reference: a pair with 3 rays
+    masked in (its sets take masked rays, as the reference's top_k does),
+    a pair with none (every count 0, no inlier), and sets that repeat a ray
+    (a nullspace of more than 4 dimensions: the reference's basis handed
+    to both, the same validity exactly and every valid E to 1e-7)."""
+    rng = np.random.default_rng(13)
+    N, H = 60, 24
+    fa, fb, _ = _central(rng, n=N, n_out=10)
+    if case == "duplicated":
+        idx = np.stack([rng.choice(N, 4, replace=False) for _ in range(H)])
+        idx = np.concatenate([idx, idx[:, :1]], axis=1)  # ray 0 twice
+        a, b = fa[idx], fb[idx]
+
+        def ref_basis(x, y):
+            A = (x[:, :, None] * y[:, None, :]).reshape(5, 9)
+            return ref_la.jacobi_eigh(A.T @ A)[1]
+
+        V = jax.jit(jax.vmap(ref_basis))(jnp.asarray(a), jnp.asarray(b))
+        rE, rvalid = jax.jit(jax.vmap(_ref_essential_5pt_from_basis))(
+            jnp.asarray(a), jnp.asarray(b), V)
+        rE, rvalid = np.asarray(rE), np.asarray(rvalid)
+        E, valid = epi.essential_5pt_from_basis(
+            _t(V)[..., :, :4].transpose(-1, -2).reshape(H, 4, 3, 3))
+        np.testing.assert_array_equal(valid.numpy(), rvalid)
+        assert rvalid.any()
+        np.testing.assert_allclose(E.numpy()[rvalid], rE[rvalid], rtol=0, atol=1e-7)
+        return
+    mask = np.zeros(N, bool)
+    if case == "few_masked":
+        mask[[7, 30, 44]] = True
+    key = jax.random.PRNGKey(14)
+    ref = ref_epi.relative_pose_ransac_central_5pt(
+        key, jnp.asarray(fa), jnp.asarray(fb), jnp.asarray(mask), n_hypotheses=H,
+        threshold_rad=0.002)
+    noise = _t(_gumbel(key, (H, N)))
+    out = epi.relative_pose_ransac_central_5pt_plain(
+        _t(fa)[None], _t(fb)[None], _t(mask)[None], H, 0.002, noise=noise[None])
+    assert int(out["n_inliers"][0]) == int(ref["n_inliers"])
+    np.testing.assert_array_equal(out["inliers"][0].numpy(), np.asarray(ref["inliers"]))
+    if case == "all_masked":
+        assert int(out["counts"].max()) == 0 and not bool(out["inliers"].any())
+    else:
+        assert 0 < int(out["n_inliers"][0]) <= 3
+
+
+def test_relpose_ransac_5pt_takes_the_plain_version_on_the_cpu():
+    """On CPU tensors the 5-point RANSAC's wrapper is its plain version
+    (nothing launches), from noise and from given sets, and the public
+    RANSAC returns its best pose, inliers and count."""
+    rng = np.random.default_rng(15)
+    B, N, H = 2, 50, 6
+    scenes = [_central(rng, n=N, n_out=8) for _ in range(B)]
+    fa = _t(np.stack([s[0] for s in scenes]))
+    fb = _t(np.stack([s[1] for s in scenes]))
+    mask = _t(rng.random((B, N)) > 0.2)
+    noise = _t(rng.gumbel(size=(B, H + 2, N)))
+    idx = torch.from_numpy(np.stack([np.stack([rng.choice(N, 5, replace=False)
+                                               for _ in range(H)]) for _ in range(B)]))
+    before = epi.relpose_ransac_5pt.launches
+    for sets in (dict(noise=noise), dict(idx=idx)):
+        got = epi.relpose_ransac_5pt(fa, fb, mask, H, 0.004, **sets)
+        plain = epi.relative_pose_ransac_central_5pt_plain(fa, fb, mask, H, 0.004, **sets)
+        assert set(got) == {"T_a_b", "inliers", "n_inliers", "T", "valid", "counts", "best"}
+        for k in plain:
+            assert torch.equal(got[k].nan_to_num(7.0), plain[k].nan_to_num(7.0)), k
+        assert got["T"].shape == (B, 40 * H, 7) and got["valid"].shape == (B, 40 * H)
+        public = epi.relative_pose_ransac_central_5pt(fa, fb, mask, H, 0.004, **sets)
+        assert set(public) == {"T_a_b", "inliers", "n_inliers"}
+        for k in public:
+            assert torch.equal(public[k], got[k]), k
+    assert epi.relpose_ransac_5pt.launches == before

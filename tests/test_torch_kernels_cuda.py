@@ -48,14 +48,19 @@ summed in another order), at ragged sizes (two poses, five keyframes,
 landmarks seen 0, 1 and 2 times, visual only, no loop edge, 0, 1 and full
 iteration counts) and on a pose graph whose edges all weigh 100, and bit
 for bit between two launches.  K11 (top-2 ratio matching per column
-segment on K1's product) exactly, ragged, with ties inside a segment,
-across a shared-memory tile and across segments, every row masked, and
-distances 0 and 256; K12 (ray-RANSAC scoring in one launch) its counts,
-best hypotheses and inlier masks exactly at the COVINS-G path's four
-shapes (six central RANSACs of 2000 poses over 1024 rays, one of 512
+segment on K1's product, a block a row tile, segment and column part)
+exactly, ragged, with ties inside a segment, across a shared-memory tile,
+across column parts and across segments, every row masked, distances 0
+and 256, and few rows over many segments; K12's scoring (one launch) its
+counts, best hypotheses and inlier masks exactly at the COVINS-G path's
+four shapes (six central RANSACs of 2000 poses over 1024 rays, one of 512
 over 6144, the refine's single pose, the covariance's 60, counts only),
 with NaN poses, hypothesis validity and batch entries padded to
-different ray counts; both the same across two launches.
+different ray counts; K12's central 5-point RANSAC whole (one launch)
+every pose bit for bit, its validity, the counts, the best pose, count
+and inliers exactly, at the drain's 6 x 50 samples over 1024 rays from
+noise and from given sets, ragged, and with degenerate pairs; all the
+same across two launches.
 """
 
 import numpy as np
@@ -64,7 +69,8 @@ import torch
 
 from covins_tpu_torch.ops import (bow, descriptors, epipolar, landmark_ops, pgo, pnp,
                                   projmatch)
-from covins_tpu_torch.utils.synthetic import (p3p_scene, project_match_scene,
+from covins_tpu_torch.utils.synthetic import (central_5pt_scene, p3p_scene,
+                                              project_match_scene,
                                               ratio_match_scene, ray_score_scene,
                                               stacked_states)
 
@@ -917,7 +923,8 @@ def test_pcg_kernels_raise_when_the_launch_is_refused(dev, monkeypatch):
 # ------------------------------------------------------------------ K11
 @pytest.mark.parametrize("M,seg,n_seg,case", [
     (1, 2, 1, None), (37, 13, 3, None), (2048, 1024, 3, None), (100, 1500, 2, "ties"),
-    (64, 1030, 3, "ties"), (50, 40, 3, "all_masked"), (33, 300, 2, "extremes")])
+    (64, 1030, 3, "ties"), (50, 40, 3, "all_masked"), (33, 300, 2, "extremes"),
+    (6, 512, 40, None)])
 def test_hamming_ratio_match_matches_plain(dev, M, seg, n_seg, case):
     rng = np.random.default_rng(M + seg)
     t = [torch.from_numpy(x).to(dev) for x in ratio_match_scene(rng, M, seg, n_seg, case)]
@@ -997,10 +1004,52 @@ def test_ray_ransac_score_refuses_bad_inputs(dev):
         epipolar.ray_ransac_score(T, None, f.cpu(), None, f, m, 0.01)
 
 
+# the central 5-point RANSAC whole: (B, H, N, sets, case)
+K12_5PT_CASES = {"drain": (6, 50, 1024, "noise", None), "drain_idx": (6, 50, 1024, "idx", None),
+                 "ragged": (3, 7, 37, "noise", None),
+                 "degenerate": (3, 50, 1024, "noise", "degenerate"),
+                 "degenerate_idx": (3, 50, 1024, "idx", "degenerate")}
+
+
+@pytest.mark.parametrize("case", list(K12_5PT_CASES))
+def test_relpose_ransac_5pt_matches_plain(dev, case):
+    """The whole central 5-point RANSAC in one launch against its plain
+    version: every pose bit for bit (NaN where both are), its validity,
+    the counts, the best, its pose, count and inliers exactly, and the same
+    across two launches; "degenerate" has a pair with 3 rays masked in
+    (its sets take masked rays, as the stable sort does), one with none
+    (it counts nothing) and one whose rays repeat 4 distinct rays (or
+    whose given sets repeat a ray)."""
+    B, H, N, sets, kind = K12_5PT_CASES[case]
+    rng = np.random.default_rng(B * H + N)
+    fa, fb, mask, noise, idx = (None if x is None else torch.from_numpy(x).to(dev)
+                                for x in central_5pt_scene(rng, B, H, N, sets, kind))
+    n0, s0 = epipolar.relpose_ransac_5pt.launches, epipolar.ray_ransac_score.launches
+    got = epipolar.relpose_ransac_5pt(fa, fb, mask, H, 0.004, noise=noise, idx=idx)
+    again = epipolar.relpose_ransac_5pt(fa, fb, mask, H, 0.004, noise=noise, idx=idx)
+    plain = epipolar.relative_pose_ransac_central_5pt_plain(fa, fb, mask, H, 0.004,
+                                                            noise=noise, idx=idx)
+    torch.cuda.synchronize()
+    assert epipolar.relpose_ransac_5pt.launches == n0 + 2
+    assert epipolar.ray_ransac_score.launches == s0
+    assert set(got) == set(plain)
+    for k in plain:
+        assert _nan_equal(got[k], again[k]), k
+        assert _nan_equal(got[k], plain[k]), (k, int((~((got[k] == plain[k])
+                                                        | (got[k].isnan()
+                                                           & plain[k].isnan()))).sum()))
+    assert int(got["valid"].sum()) > 0
+    if kind == "degenerate":
+        assert int(got["n_inliers"][1]) == 0 and not bool(got["inliers"][1].any())
+    else:
+        assert bool((got["n_inliers"] > 0).all())
+
+
 @pytest.mark.parametrize("solver", ["5pt", "8pt"])
 def test_covinsg_verify_on_the_card_matches_the_cpu(dev, solver):
     """The whole COVINS-G verification at the path's width (rigs of 2 and
-    3 keyframes of 1024 features) on the card (K11 once, K12 four times)
+    3 keyframes of 1024 features) on the card (K11 once, K12 four times:
+    with the 5-point solver its central RANSACs whole, then three scorings)
     against the same on the CPU (plain versions), with the same draws and,
     after a first call, no host synchronisation on the card's way (sync
     debug mode): the gates, every pair's matches and central inliers, the
@@ -1047,6 +1096,7 @@ def test_covinsg_verify_on_the_card_matches_the_cpu(dev, solver):
             torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode("error")
         n11, n12 = descriptors.hamming_ratio_match.launches, epipolar.ray_ransac_score.launches
+        n5 = epipolar.relpose_ransac_5pt.launches
         try:
             out = loopverify.covinsg_verify(*(t[k] for k in keys), **params,
                                             **{k: t[k] for k in noise})
@@ -1055,7 +1105,11 @@ def test_covinsg_verify_on_the_card_matches_the_cpu(dev, solver):
         outs.append({k: v.cpu() for k, v in out.items()})
         if d.type == "cuda":
             assert descriptors.hamming_ratio_match.launches == n11 + 1
-            assert epipolar.ray_ransac_score.launches == n12 + 4
+            # the six central RANSACs: one launch of the whole 5-point
+            # RANSAC, or the 8-point solve scored by one scoring launch
+            five = int(solver == "5pt")
+            assert epipolar.relpose_ransac_5pt.launches == n5 + five
+            assert epipolar.ray_ransac_score.launches == n12 + 4 - five
     card, cpu = outs
     for k in ("ok", "pairs_ok", "n_inliers", "n_pool", "pair_n_match", "pair_n_inl"):
         assert torch.equal(card[k].to(torch.int64), cpu[k].to(torch.int64)), k
