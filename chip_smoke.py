@@ -54,7 +54,14 @@ package beside it.  Phases:
    pairs of 50 samples over 1024 rays from noise and from given sets,
    ragged, degenerate) every pose, validity, count, best and inlier mask
    bit for bit, its bound from FIVE_POINT_OPS; all the same across two
-   launches;
+   launches; K13 (the L2 word assignment over 128 float32 dimensions, at
+   a SIFT window's 12 x 1024 rows against 512 words, at 65536 x 1024,
+   ragged, ties, every row masked, zero and large vectors) and K14 (the L2
+   top-2 ratio match per segment, at the verification's 2048 x 3072 in
+   segments of 1024, ties, masked rows and columns, a segment with one
+   valid column) bit for bit, beside one float32 ``torch.matmul`` and
+   ``argmin`` or ``topk``; K5's L2 metric (float64 distances) at stage 3's
+   1024 x 1024 and stage 5's 10,070 x 1,024 exactly;
 2. the full main path at the workload of the JAX package's benchmark
    (2 agents x 128 KF over 2000 landmarks, 512-word vocabulary trained on
    the card, 1024-message windows, the default ``Config()`` with
@@ -102,25 +109,33 @@ package beside it.  Phases:
    observations differently than GBA_FACTOR times what one ulp of input
    changes on the CPU, the ATE to the agents' ground truth before and
    after;
-7. COVINS-G (``placerec_type="COVINS_G"``) on phase 2's streams: the
+7. COVINS-G (``placerec_type="COVINS_G"``, ``G_ORB``) on phase 2's
+   trajectories (2 x 128 keyframes) with the default thresholds: the
    whole ingest and drain on the card with the launch counters set to 0
-   just before it and read just after (K11 once and K12 four times a
-   verification: the central 5-point RANSACs whole, then three scorings),
-   the drain's time and the host's time per Gumbel draw,
-   upload and dispatch, with the default thresholds (or, if they close no
-   loop, those of ``tests/test_scenarios.py:141``, and it says which);
-   then the first WARM_WINDOWS windows on the card and on the CPU,
-   compared: candidates, every verification's gates, pair matches,
-   central inliers, pool and 17-point inliers, loops and merges exactly,
-   loop transforms to LOOP_TOL, covariances to COV_TOL, poses to
-   POSE_TOL; then K11 and K12 replayed on the card on the largest inputs
-   the CPU pass gave them, and the PyTorch operations of one
-   verification's dispatch on the card (at most 20,000) beside the host's
-   ms a dispatch;
+   just before it and read just after (K1 and K3 once a window, K11 once
+   and K12 four times a verification: the central 5-point RANSACs whole,
+   then three scorings; nothing of COVINS's K4-K6 or of SIFT), failed if
+   it closes no loop, the drain's time and the host's time per Gumbel
+   draw, upload and dispatch; then the first WARM_WINDOWS windows on the
+   card and on the CPU, compared: the database and every queued score,
+   candidates, every verification's gates, pair matches, central
+   inliers, pool and 17-point inliers, loops and merges exactly, loop
+   transforms to LOOP_TOL, covariances to COV_TOL, poses to POSE_TOL;
+   then K11 and K12 replayed on the card on the largest inputs the CPU
+   pass gave them, and the PyTorch operations of one verification's
+   dispatch on the card (at most 20,000) beside the host's ms a dispatch;
+SIFT. the same over SIFT descriptors (``G_SIFT``: ``feat_type="SIFT"``,
+   128 float32 dimensions, ``img_match_thres=500``, else the defaults) on
+   phase 2's trajectories, with a 512-word L2 vocabulary trained on the
+   card (k-means on K13): K13 and K3 once a window, K14 once and K12 four
+   times a verification, no kernel of binary descriptors; K13 and K14
+   replayed;
 8. one JSON line per the kernel table (K1-K7 and pgo_pcg timed on phase
    2's inputs with phase 2's launches, K8-K10 and gba_pcg on bench.py's
    GBA problem with phase 6's launches, K11 and K12 on phase 7's inputs
-   with its launches), the card line, and the result line
+   with its launches, K13 and K14 on the SIFT phase's with its launches,
+   K5's L2 metric on phase 1's stage-5 scene with the SIFT phase's launches
+   of K5, none), the card line, and the result line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -542,6 +557,104 @@ def k11_case(a, am, b, bm, seg, reps, max_dist=40.0, ratio=0.8):
     }
 
 
+def l2_library(a, b):
+    """The squared L2 distances as the JAX package forms them, with one
+    PyTorch product in full float32 (TF32 off, `covins_tpu_torch.device`):
+    a yardstick only; the port never calls it."""
+    import torch
+
+    aa = (a * a).sum(1)
+    bb = (b * b).sum(1)
+    return torch.clamp((aa[:, None] + bb) - 2.0 * (a @ b.T), min=0.0)
+
+
+def l2_bytes_ops(m, n, valid_rows, valid_cols, out_bytes):
+    """Bytes and float32 operations of one K13 / K14 call: every input row
+    and mask read once, ``out_bytes`` written; a multiply and an add per
+    dimension of each valid (row, column) pair and of each valid row's and
+    column's squares, three operations a pair for the distance (a square
+    root for K14 counted as one more)."""
+    nbytes = (m + n) * (512 + 1) + out_bytes
+    ops = 256.0 * (valid_rows * valid_cols + valid_rows + valid_cols) \
+        + 4.0 * valid_rows * valid_cols
+    return nbytes, ops
+
+
+def k13_case(a, b, mask, reps):
+    """K13 (l2_argmin) against its plain version: word ids and minima bit
+    for bit, the same across two launches, one launch a call."""
+    import torch
+
+    from covins_tpu_torch.ops import descriptors as d
+
+    def kernel():
+        return d.l2_argmin(a, b, mask)
+
+    before = d.l2_argmin.launches
+    idx, dmin = kernel()
+    check(d.l2_argmin.launches == before + 1, "K13 did not launch once per call")
+    idx2, dmin2 = kernel()
+    idx_p, dmin_p = d.l2_argmin_plain(a, b, mask)
+    torch.cuda.synchronize()
+    shape = f"{tuple(a.shape)}x{tuple(b.shape)}"
+    check(torch.equal(idx, idx_p) and torch.equal(dmin, dmin_p),
+          f"K13 disagrees with its plain version at {shape}")
+    check(torch.equal(idx, idx2) and torch.equal(dmin, dmin2),
+          f"K13 differs between two launches at {shape}")
+    m, n = a.shape[0], b.shape[0]
+    rows = m if mask is None else int(mask.sum().item())
+    nbytes, ops = l2_bytes_ops(m, n, rows, n, 8 * m)
+    bnd, by = bound(nbytes, (ops, FP32_OPS_S))
+    return {
+        "kernel_ms": cuda_ms(kernel, reps), "busy_ms": busy_ms(kernel, reps),
+        "plain_ms": cuda_ms(lambda: d.l2_argmin_plain(a, b, mask), 3),
+        "library_ms": cuda_ms(lambda: torch.argmin(l2_library(a, b), dim=1), reps),
+        "bound_ms": bnd, "bound_by": by,
+        "max_abs_err": float(max((idx - idx_p).abs().max().item(),
+                                 (dmin - dmin_p).abs().max().item())) if m else 0.0,
+    }
+
+
+def k14_case(a, am, b, bm, seg, reps, max_dist=500.0, ratio=0.8):
+    """K14 (l2_ratio_match) against its plain version: index, d1 and d2
+    bit for bit, the same across two launches, one launch a call."""
+    import torch
+
+    from covins_tpu_torch.ops import descriptors as d
+
+    def kernel():
+        return d.l2_ratio_match(a, am, b, bm, seg, max_dist, ratio)
+
+    def library():
+        x = torch.sqrt(l2_library(a, b))
+        return torch.topk(x.view(a.shape[0], -1, seg), 2, dim=-1, largest=False)
+
+    before = d.l2_ratio_match.launches
+    got = kernel()
+    check(d.l2_ratio_match.launches == before + 1, "K14 did not launch once per call")
+    again = kernel()
+    ref = d.l2_ratio_match_plain(a, am, b, bm, seg, max_dist, ratio)
+    torch.cuda.synchronize()
+    shape = f"{tuple(a.shape)}x{tuple(b.shape)} in segments of {seg}"
+    for g, x, r in zip(got, again, ref):
+        check(torch.equal(g, r), f"K14 disagrees with its plain version at {shape}")
+        check(torch.equal(g, x), f"K14 differs between two launches at {shape}")
+    m, n = a.shape[0], b.shape[0]
+    nbytes, ops = l2_bytes_ops(m, n, int(am.sum().item()), int(bm.sum().item()),
+                               12 * m * (n // seg))
+    bnd, by = bound(nbytes, (ops, FP32_OPS_S))
+    return {
+        "kernel_ms": cuda_ms(kernel, reps), "busy_ms": busy_ms(kernel, reps),
+        "plain_ms": cuda_ms(lambda: d.l2_ratio_match_plain(a, am, b, bm, seg, max_dist,
+                                                           ratio), 3),
+        "library_ms": cuda_ms(library, reps),
+        "bound_ms": bnd, "bound_by": by,
+        "max_abs_err": float(max((g.double() - r.double()).abs().max().item()
+                                 for g, r in zip(got, ref))) if m else 0.0,
+        "matches": int((got[0] >= 0).sum().item()),
+    }
+
+
 # K12's float64 operations per (valid hypothesis, masked-in ray), as the
 # maths needs them (an add, multiply, comparison, quotient, square root or
 # arccos counts one; integer and index work none).  Non-central: the
@@ -746,6 +859,29 @@ def k5_pairs(args, kwargs):
     return passing, passing * int(args[10].sum().item())
 
 
+def k5_gated_pairs(args, kwargs):
+    """The (landmark, feature) pairs inside all of K5's gates (the
+    landmark's own, free feature, pixel radius, octave): those whose
+    descriptor distance the function needs."""
+    import torch
+
+    from covins_tpu_torch.ops import projmatch as pm
+
+    cam, T_cw, p_w, _, normal, mask, rng_ = args[:7]
+    uv, ok, pred, has_rng = pm._prologue(cam, T_cw, p_w, normal, mask, rng_, args[13],
+                                         args[14], kwargs.get("check_view_angle", True))
+    kp_uv, kp_oct = args[7], args[9]
+    radius = args[11] * torch.pow(kwargs.get("scale_factor", 2.0), kp_oct)
+    rows, cols = ok.nonzero().flatten(), args[10].nonzero().flatten()
+    n = 0
+    for r0 in range(0, len(rows), 2048):
+        r = rows[r0:r0 + 2048]
+        d = torch.sqrt(((uv[r, None] - kp_uv[None, cols]) ** 2).sum(-1))
+        oct_ok = ((kp_oct[None, cols] - pred[r, None]).abs() <= 1.0) | ~has_rng[r, None]
+        n += int(((d <= radius[None, cols]) & oct_ok).sum().item())
+    return n
+
+
 def k5_work(*args, **kwargs):
     """A K5 call's size for the recorder: its pairs, then L x F."""
     return k5_pairs(args, kwargs)[1], args[2].shape[0] * args[7].shape[0]
@@ -789,8 +925,18 @@ def k5_case(args, kwargs, reps):
     passing, pairs = k5_pairs(args, kwargs)
     per_lm = 33 + 3 + 6 + 6 + 28 * (args[0].dist_model == cm.RADTAN) + 5 + 5 + 8 \
         + 13 * bool(kwargs.get("check_view_angle", True))
-    bnd, by = bound(L * (24 + 24 + 1 + 16 + 32) + F * (16 + 8 + 1 + 32) + L * 8,
-                    (pairs * 512.0, INT8_OPS_S), (pairs * 10.0 + L * per_lm, FP64_OPS_S))
+    if args[3].dtype == torch.uint8:
+        bnd, by = bound(L * (24 + 24 + 1 + 16 + 32) + F * (16 + 8 + 1 + 32) + L * 8,
+                        (pairs * 512.0, INT8_OPS_S), (pairs * 10.0 + L * per_lm, FP64_OPS_S))
+    else:
+        # the L2 metric: the gates of every passing x free pair, then 261
+        # float64 operations a pair inside them (the cross term's 256, the
+        # rounding, doubling, sum, clamp and square root), 256 a passing
+        # landmark's and a feature's squares; 512 descriptor bytes each
+        gated = k5_gated_pairs(args, kwargs)
+        bnd, by = bound(L * (24 + 24 + 1 + 16 + 512) + F * (16 + 8 + 1 + 512) + L * 12,
+                        (pairs * 10.0 + gated * 261.0 + (passing + F) * 256.0
+                         + L * per_lm, FP64_OPS_S))
     return {
         "kernel_ms": cuda_ms(kernel, reps), "busy_ms": busy_ms(kernel, reps),
         "plain_ms": cuda_ms(lambda: pm.project_match_plain(*args, **kwargs), reps),
@@ -1520,6 +1666,39 @@ def phase1(dev):
         r = k11_case(a, am, b, bm, seg, reps=20 if M > 1000 else 3)
         print(json.dumps({"phase": 1, "kernel": "hamming_ratio_match",
                           "shape": [M, seg * n_seg, seg], "case": case, **r}))
+    # K13 at a SIFT window's word assignment (12 keyframes of 1024 features
+    # against 512 words), at 65536 x 1024, and ragged: ties inside and
+    # across tiles and parts, every row masked, zero and large vectors
+    for M, N, case in ((12 * 1024, 512, None), (65536, 1024, None), (37, 13, None),
+                       (3000, 1024, "ties"), (65, 1024, "all_masked"),
+                       (50, 700, "extremes")):
+        a, am, b, _ = synthetic.l2_match_scene(rng, M, N, 1, case)
+        r = k13_case(t(a), t(b), t(am), reps=20 if M * N > 1e6 else 3)
+        print(json.dumps({"phase": 1, "kernel": "l2_argmin", "shape": [M, N, 128],
+                          "case": case, **r}))
+    # K14 at the COVINS-G verification's 2048 x 3072 in segments of 1024,
+    # with ties (ratio 1.5 lets a tie at the best pass and show its column),
+    # masked rows, masked columns, a segment with one valid column, zero and
+    # large vectors, few rows over many segments
+    for M, seg, n_seg, case, ratio in ((2048, 1024, 3, None, 0.8),
+                                       (100, 1500, 2, "ties", 1.5),
+                                       (50, 40, 3, "all_masked", 0.8),
+                                       (33, 300, 2, "one_valid", 0.8),
+                                       (20, 100, 2, "extremes", 0.8), (6, 512, 40, None, 0.8)):
+        a, am, b, bm = (t(x) for x in synthetic.l2_match_scene(rng, M, seg, n_seg, case))
+        r = k14_case(a, am, b, bm, seg, reps=20 if M > 1000 else 3, ratio=ratio)
+        print(json.dumps({"phase": 1, "kernel": "l2_ratio_match",
+                          "shape": [M, seg * n_seg, seg], "case": case, "ratio": ratio, **r}))
+    # K5's L2 metric at stage 3's 1024 x 1024 and stage 5's 10,070 x 1,024
+    # (with the view-angle gate), every landmark failing, the unified camera
+    for L, F, kw in ((1024, 1024, {}), (10070, 1024, dict(view_angle=True)),
+                     (300, 100, dict(fail=True)), (1024, 1024, dict(camera="omni"))):
+        args, kwargs = synthetic.project_match_scene(rng, L, F, dev, sift=True, **kw)
+        r = k5_case(args, kwargs, reps=10)
+        print(json.dumps({"phase": 1, "kernel": "project_match", "metric": "l2",
+                          "shape": [L, F], **{k: str(v) for k, v in kw.items()}, **r}))
+        if L == 10070:
+            sift_k5 = {**r, "shape": [L, F]}
     # K12 at the COVINS-G path's four shapes (six central RANSACs of 2000
     # poses over 1024 rays with hypothesis validity, the 17-point RANSAC's
     # 512 over 6144, its refine's 1, the covariance's 60, counts only) and
@@ -1610,7 +1789,7 @@ def phase1(dev):
             print(json.dumps({"phase": 1, "kernel": "gba_reproj_blocks", "camera": camera,
                               "huber": 2.447,
                               "shape": [n_kf, p.lms.shape[0], p.obs_kf.shape[0]], **r}))
-    return table
+    return table, sift_k5
 
 
 # -------------------------------------------------------------------- main path
@@ -1636,10 +1815,11 @@ def make_windows(streams):
     return windows
 
 
-def build_streams(n_agents, n_kf, n_landmarks, max_features=None):
+def build_streams(n_agents, n_kf, n_landmarks, max_features=None, feat_type="ORB"):
     from covins_tpu_torch.agents.synthetic_agent import SyntheticAgent, SyntheticWorld
 
-    world = SyntheticWorld.create(n_landmarks=n_landmarks, seed=SEED)
+    world = SyntheticWorld.create(n_landmarks=n_landmarks, seed=SEED, feat_type=feat_type,
+                                  desc_bytes=128 if feat_type == "SIFT" else 32)
     streams = [list(SyntheticAgent(world, cid, n_keyframes=n_kf, t0=5.0 * cid,
                                    pose_drift=0.02,
                                    max_features=max_features).messages())
@@ -1768,7 +1948,14 @@ def compare_ingest(gpu, cpu):
                 ok = np.array_equal(a, b)
             check(ok, f"map {mid} array {name} differs between card and CPU")
             n_arrays += 1
-    gdb, cdb = g_mgr.database, c_mgr.database
+    return n_arrays, compare_database(gpu, cpu)
+
+
+def compare_database(gpu, cpu):
+    """The card's retrieval database against the CPU's: rows, the matrix
+    and every queued score and common-word count exactly.  Returns the
+    queued keyframes compared."""
+    gdb, cdb = gpu["mgr"].database, cpu["mgr"].database
     check(gdb.row_ids == cdb.row_ids and np.array_equal(gdb._mask, cdb._mask),
           "database rows differ")
     check(np.array_equal(gdb.db.cpu().numpy(), cdb.db.numpy()), "database matrix differs")
@@ -1783,7 +1970,7 @@ def compare_ingest(gpu, cpu):
                   "common-word counts differ")
             check(np.array_equal(gp["scores"], cp["scores"]), "scores differ")
             n_scores += 1
-    return n_arrays, n_scores
+    return n_scores
 
 
 def refresh_size(packed, L, P, *args, **kwargs):
@@ -2079,6 +2266,8 @@ def kernel_wrappers():
             "project_match": projmatch.project_match_core,
             "p3p_ransac": pnp.absolute_pose_ransac,
             "hamming_ratio_match": descriptors.hamming_ratio_match,
+            "l2_argmin": descriptors.l2_argmin,
+            "l2_ratio_match": descriptors.l2_ratio_match,
             "ray_ransac_score": epipolar.ray_ransac_score,
             "relpose_ransac_5pt": epipolar.relpose_ransac_5pt,
             "pgo_matvec": pgo.matvec,
@@ -2645,13 +2834,6 @@ def phase6(dev, card, gpu_run, vocab, world):
 
 
 # ------------------------------------------------------------------ COVINS-G
-# the COVINS-G drain's kernels: K1-K3 at ingest and retrieval, K11 and K12
-# in every verification (K4-K6 are COVINS's)
-G_KERNELS = ("hamming_argmin", "landmark_attributes", "bow_insert_score",
-             "hamming_ratio_match", "ray_ransac_score", "relpose_ransac_5pt")
-# the thresholds the JAX package's COVINS-G scenario closes loops with
-# (tests/test_scenarios.py:141), taken if the defaults close none
-G_LOOSE = {"nc_min_inliers": 30, "nc_cov_thres": 100.0}
 # How far the card's loop covariances may differ from the CPU's, relative
 # to their largest entry: as far as one ulp of the rays' directions moves
 # the CPU's own 5-point covariance (9.9e-5) on the two-rig scene of
@@ -2665,15 +2847,17 @@ COV_TOL = 1e-4
 class HostLog:
     """While active, records every COVINS-G verification's fetched result
     and the host time of the named calls (the Gumbel draw, the upload, the
-    whole dispatch)."""
+    whole dispatch, a window's insert-and-score)."""
 
     def __init__(self):
+        from covins_tpu_torch.models.kf_database import KeyframeDatabase
         from covins_tpu_torch.models.placerec import PlaceRecognition
         from covins_tpu_torch.ops import loopverify
 
         self.targets = [(loopverify, "fetch_covinsg_verify"), (loopverify, "upload"),
                         (loopverify, "dispatch_covinsg_verify"),
-                        (PlaceRecognition, "next_covins_g_noise")]
+                        (PlaceRecognition, "next_covins_g_noise"),
+                        (KeyframeDatabase, "add_and_query_batch")]
         self.results, self.seconds, self.calls = [], {}, {}
         self.first_dispatch = None
 
@@ -2729,87 +2913,80 @@ def compare_g(gpu, cpu, g_log, c_log):
     return out, worst_loop, worst, worst_cov
 
 
-def phase7(dev, card, vocab, windows, n_kf=128):
-    """COVINS-G on the bench streams: the whole drain on the card with the
-    launch counters set to 0 just before it and read just after, then card
-    against CPU on the first WARM_WINDOWS windows, then K11 and K12
-    replayed on the largest inputs the CPU pass gave them."""
-    import torch
+@dataclasses.dataclass(frozen=True)
+class GMode:
+    """One COVINS-G cell of the smoke: its ``Config`` settings, the kernels
+    its drain launches once a window (word assignment, then K3) and once a
+    verification (descriptor matching, then the 5-point RANSAC; the scoring
+    three times), the other kernels it must launch and those it must never
+    launch, its maps' descriptor type, and the kernels replayed on the
+    largest inputs the CPU pass gave them."""
+    phase: object
+    config: dict
+    per_window: tuple
+    per_verification: tuple
+    present: tuple
+    absent: tuple
+    desc_dtype: type
+    replay: tuple
 
+
+# COVINS-G over ORB (phase 7): K1-K3 at ingest and retrieval, K11 and K12
+# in every verification; nothing of COVINS (K4-K6) or of SIFT
+G_ORB = GMode(7, {"placerec_type": "COVINS_G"},
+              ("hamming_argmin", "bow_insert_score"),
+              ("hamming_ratio_match", "relpose_ransac_5pt"), ("landmark_attributes",),
+              ("hamming_mutual_nn", "project_match", "p3p_ransac", "l2_argmin",
+               "l2_ratio_match"),
+              np.uint8, ("hamming_ratio_match", "ray_ransac_score", "relpose_ransac_5pt"))
+# COVINS-G over SIFT (phase "sift"): K13 and K3, then K14 and K12; SIFT maps
+# skip the landmark refresh, so no K2, and nothing of binary descriptors;
+# img_match_thres is the reference's SIFT setting (tests/test_sift_mode.py:
+# 40), all else default
+G_SIFT = GMode("sift", {"placerec_type": "COVINS_G", "feat_type": "SIFT",
+                        "desc_length": 128, "img_match_thres": 500.0},
+               ("l2_argmin", "bow_insert_score"),
+               ("l2_ratio_match", "relpose_ransac_5pt"), (),
+               ("hamming_argmin", "landmark_attributes", "hamming_mutual_nn",
+                "project_match", "p3p_ransac", "hamming_ratio_match"),
+               np.float32, ("l2_argmin", "l2_ratio_match"))
+
+
+def g_recorder(names):
+    """A :class:`Recorder` of the COVINS-G kernels ``names``."""
     from covins_tpu_torch.ops import descriptors, epipolar
 
-    t_phase = time.perf_counter()
-    n_agents = 2
-    wrappers = kernel_wrappers()
-    cfg_kw, thresholds = {"placerec_type": "COVINS_G"}, "default"
-    for attempt in (0, 1):
-        for k in wrappers.values():
-            k.launches = 0
-        with HostLog() as log:
-            gpu = run_slice(vocab, windows, n_agents, "cuda", **cfg_kw)
-        launches = {name: k.launches for name, k in wrappers.items()}
-        out = outcome(gpu)
-        if out["loops"] + out["merges"] > 0 or attempt:
-            break
-        cfg_kw, thresholds = {**cfg_kw, **G_LOOSE}, "tests/test_scenarios.py:141"
-    for name in G_KERNELS:
-        check(launches[name] > 0, f"the COVINS-G path never launched {name}")
-    check(out["loops"] + out["merges"] > 0, "COVINS-G closed no loop on the bench stream")
-    n_total = check_invariants(gpu, n_agents * n_kf, "COVINS-G card")
-    with_loops = [m for m in gpu["mgr"].maps.values() if m.loops]
-    check(all(lc["cov"] is not None for m in with_loops for lc in m.loops),
-          "a COVINS-G loop edge carries no covariance")
-    print(json.dumps({
-        "phase": 7, "card": card, "mode": "COVINS_G", "thresholds": thresholds,
-        "config": cfg_kw, "n_keyframes": n_total, "windows": len(windows),
-        "ingest_wall_s": gpu["ingest_s"], "drain_wall_s": gpu["flush_s"],
-        "loops": out["loops"], "merges": out["merges"], "candidates": out["candidates"],
-        "verifications_fetched": len(log.results),
-        "accepted_verifications": sum(r["ok"] for r in log.results),
-        "pgo_solves": out["pgo_solves"], "launches": launches,
-        "launches_per_candidate": {k: v / max(out["candidates"], 1)
-                                   for k, v in launches.items()},
-        "host_ms_per_call": log.per_call_ms(), "host_calls": log.calls,
-        "elapsed_s": time.perf_counter() - t_phase}))
-    print(json.dumps({"phase": 7, "accepted": out["accepted"]}))
+    def pairs(a, am, b, bm, *rest):
+        return a.shape[0] * b.shape[0]
 
-    # card against CPU on the stream's first windows
-    rec = Recorder([
-        (descriptors, "hamming_ratio_match",
-         lambda a, am, b, bm, *r: a.shape[0] * b.shape[0]),
-        (epipolar, "ray_ransac_score", k12_work,
-         lambda kw: "central" if kw.get("valid") is not None
-         else ("counts" if not kw.get("want_inliers", True) else "non-central")),
-        (epipolar, "relpose_ransac_5pt", k12_5pt_work),
-    ])
-    from torch.profiler import ProfilerActivity, profile
+    targets = {
+        "l2_argmin": (descriptors, "l2_argmin", lambda a, b, m=None: a.shape[0] * b.shape[0]),
+        "hamming_ratio_match": (descriptors, "hamming_ratio_match", pairs),
+        "l2_ratio_match": (descriptors, "l2_ratio_match", pairs),
+        "ray_ransac_score": (
+            epipolar, "ray_ransac_score", k12_work,
+            lambda kw: "central" if kw.get("valid") is not None
+            else ("counts" if not kw.get("want_inliers", True) else "non-central")),
+        "relpose_ransac_5pt": (epipolar, "relpose_ransac_5pt", k12_5pt_work),
+    }
+    return Recorder([targets[n] for n in names])
 
-    head = windows[:WARM_WINDOWS]
-    with HostLog() as g_log, profile(activities=[ProfilerActivity.CUDA]) as prof:
-        g_run = run_slice(vocab, head, n_agents, "cuda", **cfg_kw)
-    g_busy, g_top = _device_busy_ms(prof)
-    g_wall = (g_run["ingest_s"] + g_run["flush_s"]) * 1e3
-    with rec, HostLog() as c_log:
-        c_run = run_cpu(vocab, head, n_agents, **cfg_kw)
-    g_out, worst_loop, worst, worst_cov = compare_g(g_run, c_run, g_log, c_log)
-    print(json.dumps({
-        "phase": 7, "card_vs_cpu": "agree", "windows": WARM_WINDOWS,
-        "candidates": g_out["candidates"], "loops": g_out["loops"],
-        "merges": g_out["merges"], "loop_tol": LOOP_TOL, "max_loop_T_diff": worst_loop,
-        "cov_tol": COV_TOL, "max_cov_rel_diff": worst_cov, "pose_tol": POSE_TOL,
-        "max_pose_diff": worst, "card_drain_wall_s": g_run["flush_s"],
-        "card_traced_ingest_and_drain_ms": g_wall, "device_busy_ms": g_busy,
-        "device_idle_share": 1.0 - g_busy / g_wall, "device_ms_by_kernel": g_top,
-        "cpu_drain_wall_s": c_run["flush_s"], "cpu_threads": CPU_THREADS,
-        "cpu_host_ms_per_call": c_log.per_call_ms(),
-        "elapsed_s": time.perf_counter() - t_phase}))
 
-    # K11 and K12 on the card, on the largest inputs the path gave them
+def g_replay(rec, dev, tag):
+    """Each recorded COVINS-G kernel replayed on the card on the largest
+    input the CPU pass gave it, against its plain version (one row a
+    kernel; the scoring's later kinds printed beside it)."""
     table = {}
-    a, am, b, bm, seg, max_dist, ratio = rec.on("hamming_ratio_match", dev)
-    table["hamming_ratio_match"] = {
-        **k11_case(a, am, b, bm, seg, reps=50, max_dist=max_dist, ratio=ratio),
-        "shape": [a.shape[0], b.shape[0], seg]}
+    if "l2_argmin" in rec.largest:
+        a, b, mask = rec.on("l2_argmin", dev)
+        table["l2_argmin"] = {**k13_case(a, b, mask, reps=50),
+                              "shape": [a.shape[0], b.shape[0], a.shape[1]]}
+    for name, case in (("hamming_ratio_match", k11_case), ("l2_ratio_match", k14_case)):
+        if name in rec.largest:
+            a, am, b, bm, seg, max_dist, ratio = rec.on(name, dev)
+            table[name] = {**case(a, am, b, bm, seg, reps=50, max_dist=max_dist,
+                                  ratio=ratio),
+                           "shape": [a.shape[0], b.shape[0], seg]}
     for kind in ("central", "non-central", "counts"):
         key = f"ray_ransac_score {kind}"
         if key not in rec.largest:  # the 5-point solver scores its central RANSACs itself
@@ -2819,34 +2996,137 @@ def phase7(dev, card, vocab, windows, n_kf=128):
         row = {**k12_case(args, kw, reps=20), "kind": kind,
                "shape": [args[0].shape[0], args[0].shape[1], args[2].shape[1]],
                "stage_calls": rec.calls[key][0]}
-        print(json.dumps({"phase": 7, "kernel": "ray_ransac_score", **row}))
+        if "ray_ransac_score" in table:
+            print(json.dumps({"phase": tag, "kernel": "ray_ransac_score", **row}))
         table.setdefault("ray_ransac_score", row)
     if "relpose_ransac_5pt" in rec.largest:
         args = rec.on("relpose_ransac_5pt", dev)
         kw = {k: v.to(dev) if hasattr(v, "to") else v
               for k, v in rec.kwargs("relpose_ransac_5pt").items()}
-        row = {**k12_5pt_case(args, kw, reps=20),
-               "shape": [args[2].shape[0], args[3], args[2].shape[1]],
-               "stage_calls": rec.calls["relpose_ransac_5pt"][0]}
-        print(json.dumps({"phase": 7, "kernel": "relpose_ransac_5pt", **row}))
-        table["relpose_ransac_5pt"] = row
+        table["relpose_ransac_5pt"] = {
+            **k12_5pt_case(args, kw, reps=20),
+            "shape": [args[2].shape[0], args[3], args[2].shape[1]],
+            "stage_calls": rec.calls["relpose_ransac_5pt"][0]}
+    return table
+
+
+def sift_inputs(dev, n_agents=2, n_kf=128):
+    """Phase 2's trajectories (2 agents x 128 keyframes over 2000
+    landmarks, up to 1024 features) seen through the port's SIFT world
+    (128 float32 dimensions), and a 512-word L2 vocabulary trained on the
+    card by k-means on K13."""
+    import torch
+
+    from covins_tpu_torch.ops import bow
+
+    world, streams = build_streams(n_agents, n_kf, 2000, feat_type="SIFT")
+    check(world.lm_descs.dtype == np.float32, "the SIFT world has no float descriptors")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    vocab = bow.train_vocabulary_l2(torch.from_numpy(world.lm_descs).to(dev), k=512,
+                                    iters=4, generator=gen).cpu().numpy()
+    print(json.dumps({"phase": "sift", "vocabulary_words": vocab.shape[0],
+                      "vocabulary_s": time.perf_counter() - t0}))
+    return vocab, make_windows(streams)
+
+
+def phase_g(dev, card, mode, vocab, windows, n_agents=2, n_kf=128):
+    """One COVINS-G cell (``mode``, a :class:`GMode`) with the default
+    thresholds: the whole ingest and drain on the card with the launch
+    counters set to 0 just before it and read just after, checked against
+    the mode's kernels (and failed if it closes no loop); then card against
+    CPU on the first WARM_WINDOWS windows (the database and every queued
+    score exactly, then :func:`compare_g`); then the mode's kernels
+    replayed on the largest inputs the CPU pass gave them, and the PyTorch
+    operations of one verification's dispatch on the card.  Returns the
+    replayed kernels' rows, each with its launches, and the launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from covins_tpu_torch.ops import loopverify
+
+    t_phase = time.perf_counter()
+    tag = mode.phase
+    wrappers = kernel_wrappers()
+    for k in wrappers.values():
+        k.launches = 0
+    with HostLog() as log:
+        gpu = run_slice(vocab, windows, n_agents, "cuda", **mode.config)
+    launches = {name: k.launches for name, k in wrappers.items()}
+    out = outcome(gpu)
+    n_windows, n_ver = log.calls.get("add_and_query_batch", 0), out["candidates"]
+    for name in mode.present:
+        check(launches[name] > 0, f"phase {tag} never launched {name}")
+    for name in mode.absent:
+        check(launches[name] == 0, f"phase {tag} launched {name} {launches[name]} times")
+    for name in mode.per_window:
+        check(launches[name] == n_windows,
+              f"{n_windows} windows launched {name} {launches[name]} times, once each expected")
+    for name in mode.per_verification:
+        check(launches[name] == n_ver,
+              f"{n_ver} verifications launched {name} {launches[name]} times, once each expected")
+    check(n_ver > 0 and launches["ray_ransac_score"] == 3 * n_ver,
+          f"{n_ver} verifications launched the scoring {launches['ray_ransac_score']} times, "
+          "three each expected")
+    check(out["loops"] + out["merges"] > 0, f"phase {tag} closed no loop")
+    n_total = check_invariants(gpu, n_agents * n_kf, f"phase {tag} card")
+    for mp in gpu["mgr"].maps.values():
+        check(mp.descriptors.dtype == mode.desc_dtype,
+              f"a map holds {mp.descriptors.dtype} descriptors, not {mode.desc_dtype}")
+        check(all(lc["cov"] is not None for lc in mp.loops),
+              "a COVINS-G loop edge carries no covariance")
+    print(json.dumps({
+        "phase": tag, "card": card, "config": mode.config, "n_keyframes": n_total,
+        "windows": len(windows), "ingest_wall_s": gpu["ingest_s"],
+        "drain_wall_s": gpu["flush_s"], "loops": out["loops"], "merges": out["merges"],
+        "candidates": n_ver, "verifications_fetched": len(log.results),
+        "accepted_verifications": sum(r["ok"] for r in log.results),
+        "pgo_solves": out["pgo_solves"], "launches": launches,
+        "host_ms_per_call": log.per_call_ms(), "host_calls": log.calls,
+        "elapsed_s": time.perf_counter() - t_phase}))
+    print(json.dumps({"phase": tag, "accepted": out["accepted"]}))
+
+    # card against CPU on the stream's first windows
+    rec = g_recorder(mode.replay)
+    head = windows[:WARM_WINDOWS]
+    with HostLog() as g_log, profile(activities=[ProfilerActivity.CUDA]) as prof:
+        g_run = run_slice(vocab, head, n_agents, "cuda", **mode.config)
+    g_busy, g_top = _device_busy_ms(prof)
+    g_wall = (g_run["ingest_s"] + g_run["flush_s"]) * 1e3
+    with rec, HostLog() as c_log:
+        c_run = run_cpu(vocab, head, n_agents, **mode.config)
+    n_scores = compare_database(g_run, c_run)
+    g_out, worst_loop, worst, worst_cov = compare_g(g_run, c_run, g_log, c_log)
+    print(json.dumps({
+        "phase": tag, "card_vs_cpu": "agree", "windows": WARM_WINDOWS,
+        "queued_scores_equal": n_scores, "candidates": g_out["candidates"],
+        "loops": g_out["loops"], "merges": g_out["merges"], "loop_tol": LOOP_TOL,
+        "max_loop_T_diff": worst_loop, "cov_tol": COV_TOL, "max_cov_rel_diff": worst_cov,
+        "pose_tol": POSE_TOL, "max_pose_diff": worst, "card_drain_wall_s": g_run["flush_s"],
+        "card_traced_ingest_and_drain_ms": g_wall, "device_busy_ms": g_busy,
+        "device_idle_share": 1.0 - g_busy / g_wall, "device_ms_by_kernel": g_top,
+        "cpu_drain_wall_s": c_run["flush_s"], "cpu_threads": CPU_THREADS,
+        "cpu_host_ms_per_call": c_log.per_call_ms(),
+        "elapsed_s": time.perf_counter() - t_phase}))
+
+    table = g_replay(rec, dev, tag)
 
     # the PyTorch operations and copies of one verification's dispatch on
     # the card (the first of the card's pass), beside the host's time a
     # dispatch
-    from covins_tpu_torch.ops import loopverify
-
     a, kw = g_log.first_dispatch
     ops, h2d, d2h = trace_ops(lambda: loopverify.dispatch_covinsg_verify(*a, **kw))
     torch.cuda.synchronize()
-    print(json.dumps({"phase": 7, "torch_ops_per_verification": ops, "h2d": h2d, "d2h": d2h,
+    print(json.dumps({"phase": tag, "torch_ops_per_verification": ops, "h2d": h2d, "d2h": d2h,
                       "host_ms_per_dispatch": log.per_call_ms()["dispatch_covinsg_verify"],
                       "host_ms_per_dispatch_first_windows":
                           g_log.per_call_ms()["dispatch_covinsg_verify"]}))
     check(ops <= 20000, f"a COVINS-G verification issues {ops} PyTorch operations on the card")
     for name, row in table.items():
         row["launches"] = launches[name]
-    return table
+        print(json.dumps({"phase": tag, "kernel": name, **row}))
+    print(json.dumps({"phase": tag, "elapsed_s": time.perf_counter() - t_phase}))
+    return table, launches
 
 
 SOURCES = {
@@ -2888,6 +3168,15 @@ SOURCES = {
     # essential_5pt, :113 decompose_essential), loopverify.py:509-511
     "relpose_ransac_5pt": ("covins_tpu_torch/csrc/relpose_ransac.cu",
                            "covins_tpu/ops/epipolar.py:327"),
+    # with the jnp.argmin of models/kf_database.py:60-61 and ops/bow.py:89
+    "l2_argmin": ("covins_tpu_torch/csrc/l2_match.cu", "covins_tpu/ops/descriptors.py:89"),
+    # sqrt(l2_distance_sq), masked_dist, knn2 and match_ratio per block
+    # (loopverify.py:490-505)
+    "l2_ratio_match": ("covins_tpu_torch/csrc/l2_match.cu",
+                       "covins_tpu/ops/loopverify.py:491"),
+    # the metric != "hamming" branch of _project_match_impl
+    "project_match_l2": ("covins_tpu_torch/csrc/project_match.cu",
+                         "covins_tpu/ops/projmatch.py:116"),
 }
 
 
@@ -2917,7 +3206,7 @@ def main():
     check(sorted(f"covins_tpu_torch/csrc/{n}.cu" for n in logs)
           == sorted({src for src, _ in SOURCES.values()}), "a kernel source was not built")
 
-    gba_table = phase1(dev)
+    gba_table, sift_k5 = phase1(dev)
     print(json.dumps({"phase": 1, "elapsed_s": time.perf_counter() - t_start}))
     table, gpu_run, vocab, world = phase2(dev, card)
     print(json.dumps({"phase": 2, "elapsed_s": time.perf_counter() - t_start}))
@@ -2929,8 +3218,16 @@ def main():
     print(json.dumps({"phase": 5, "elapsed_s": time.perf_counter() - t_start}))
     gba_launches = phase6(dev, card, gpu_run, vocab, world)
     print(json.dumps({"phase": 6, "elapsed_s": time.perf_counter() - t_start}))
-    table.update(phase7(dev, card, vocab, make_windows(build_streams(2, 128, 2000)[1])))
+    orb_table, _ = phase_g(dev, card, G_ORB, vocab,
+                           make_windows(build_streams(2, 128, 2000)[1]))
+    table.update(orb_table)
     print(json.dumps({"phase": 7, "elapsed_s": time.perf_counter() - t_start}))
+    sift_table, sift_launches = phase_g(dev, card, G_SIFT, *sift_inputs(dev))
+    print(json.dumps({"phase": "sift", "elapsed_s": time.perf_counter() - t_start}))
+    table.update(sift_table)
+    # K5's L2 metric is off the SIFT path (COVINS-G matches no landmarks):
+    # its row carries the path's launches of K5, 0, and phase 1's timing
+    table["project_match_l2"] = {**sift_k5, "launches": sift_launches["project_match"]}
     for name, row in gba_table.items():
         row["launches"] = gba_launches[name]
     table.update(gba_table)

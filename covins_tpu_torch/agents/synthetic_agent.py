@@ -5,8 +5,10 @@ Counterpart of `covins_tpu/agents/synthetic_agent.py`, with the same
 message schema and world statistics: relative pose vs the previous
 keyframe, raw IMU samples between keyframes, per-feature landmark ids with
 track-loss semantics, per-landmark reference-frame positions.  Descriptors
-are synthesised per landmark (one random 256-bit signature, each
-observation flips a few bits).  The world's landmarks and signatures are
+are synthesised per landmark: one random 256-bit signature whose
+observations flip a few bits (ORB), or with ``feat_type="SIFT"`` a
+128-dimensional float32 vector of |N(0, 1)| entries scaled to norm 512
+whose observations add N(0, 8) noise and take the absolute value.  The world's landmarks and signatures are
 drawn with numpy here and with `jax.random` in the JAX package, so the two
 streams are not bit-equal; parity tests feed the JAX package's streams to
 both (`covins_tpu_torch.state.messages_from_reference`).
@@ -48,14 +50,18 @@ class SyntheticWorld:
     """Shared ground truth for N agents flying through one scene."""
 
     landmarks: np.ndarray  # (M, 3)
-    lm_descs: np.ndarray  # (M, B) uint8 signatures
+    lm_descs: np.ndarray  # (M, B) uint8 signatures or (M, D) float32 SIFT
     calib: msgs.VICalibration
 
     @classmethod
-    def create(cls, n_landmarks=800, desc_bytes=32, seed=0):
+    def create(cls, n_landmarks=800, desc_bytes=32, seed=0, feat_type="ORB"):
         rng = np.random.default_rng(seed)
         lms = synthetic.generate_landmarks(rng, n=n_landmarks)
-        descs = rng.integers(0, 256, (n_landmarks, desc_bytes), dtype=np.uint8)
+        if feat_type == "SIFT":
+            descs = np.abs(rng.standard_normal((n_landmarks, desc_bytes))).astype(np.float32)
+            descs *= 512.0 / np.linalg.norm(descs, axis=-1, keepdims=True)
+        else:
+            descs = rng.integers(0, 256, (n_landmarks, desc_bytes), dtype=np.uint8)
         calib = msgs.VICalibration(
             T_s_c=FORWARD_T_S_C.copy(),
             cam_model=cam_mod.PINHOLE,
@@ -146,6 +152,9 @@ class SyntheticAgent:
 
     def _noisy_desc(self, lm_idx: int) -> np.ndarray:
         d = self.world.lm_descs[lm_idx].copy()
+        if d.dtype != np.uint8:  # SIFT: additive noise, kept non-negative
+            d = d + self.rng.normal(0.0, 8.0, d.shape).astype(np.float32)
+            return np.abs(d).astype(np.float32)
         for _ in range(self.desc_bit_flips):
             bit = self.rng.integers(0, d.size * 8)
             d[bit // 8] ^= np.uint8(1 << (bit % 8))

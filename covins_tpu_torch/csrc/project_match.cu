@@ -45,7 +45,22 @@
 //   2  grid-stride over the landmarks: the conflict pass.
 // A second entry mode takes the prologue's results (uv, lm_ok, pred,
 // has_rng) from the caller, for the camera models the prologue here does
-// not cover.  The float64 arithmetic follows the plain version's
+// not cover.
+//
+// The L2 metric (the metric != "hamming" branch, :116-118, for float (SIFT)
+// descriptors) is a second instance of the kernel: (L, 128) and (F, 128)
+// float32 descriptors, each a float64 value exactly.  Phase 0 also sums
+// each feature's squares; the descriptor distance of a pair inside its
+// gates is sqrt(max((aa + bb) - 2 ab, 0)) with aa, bb and ab float64
+// running sums over the 128 dimensions in order and ab rounded to float32
+// before it is doubled in float32, as the reference's dot_general with
+// preferred_element_type=float32 makes it on float64 inputs.  Distances,
+// the sentinel 1e9, best_d and the conflict score best_d + l * 1e-7 are
+// float64 (the column minimum an atomicMin of the score's 64-bit pattern);
+// the feature side (512 descriptor bytes a feature) is read where it lies.
+// Bound (L2): per passing landmark x free feature the gates (~10 float64
+// operations), and per pair inside them 261 float64 operations for the
+// distance; 128 a landmark and a feature for aa and bb.  The float64 arithmetic follows the plain version's
 // operation order (geometry.cuh; projmatch._prologue writes every product
 // and sum as its own tensor operation), and this source is built with
 // --fmad=false, so both round alike and the outputs agree bit for bit.
@@ -54,6 +69,7 @@
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 #include "coop_launch.cuh"
 #include "geometry.cuh"
@@ -66,6 +82,7 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float kBig = 1e9f;
+constexpr int kDim = 128;  // L2 descriptor dimensions
 constexpr int kFeatureBytes = 32 + 16 + 8 + 8 + 1;  // descriptor, uv, octave, radius, free
 
 struct Args {
@@ -100,6 +117,14 @@ struct Args {
   float* best_d;     // (L,) scratch
   int32_t* match_feat;
   float* match_dist;
+  // the L2 metric: float32 descriptors, float64 distances
+  const float* lm_f;  // (L, 128)
+  const float* kp_f;  // (F, 128)
+  double max_dist64;
+  double* kp_bb;                  // (F,) scratch: each feature's squares
+  unsigned long long* col_min64;  // (F,) scratch, float64 bits
+  double* best_d64;               // (L,) scratch
+  double* match_dist64;
 };
 
 struct Landmark {
@@ -170,13 +195,47 @@ __device__ __forceinline__ float landmark_score(float best_d, int l) {
   return __fadd_rn(best_d, __fmul_rn(static_cast<float>(l), 1e-7f));
 }
 
+__device__ __forceinline__ double landmark_score(double best_d, int l) {
+  return __dadd_rn(best_d, __dmul_rn(static_cast<double>(l), 1e-7));
+}
+
+// the sum of squares of a float32 descriptor in float64, in order
+__device__ __forceinline__ double sum_squares(const float* x) {
+  double s = 0.0;
+  for (int k = 0; k < kDim; ++k) {
+    const double v = x[k];
+    s = __dadd_rn(s, __dmul_rn(v, v));
+  }
+  return s;
+}
+
+// the reference's L2 descriptor distance of a pair (float64 inputs, the
+// cross term rounded to float32 and doubled there)
+__device__ __forceinline__ double l2_distance(const float* x, const float* y, double aa,
+                                              double bb) {
+  double ab = 0.0;
+  for (int k = 0; k < kDim; ++k)
+    ab = __dadd_rn(ab, __dmul_rn(static_cast<double>(x[k]), static_cast<double>(y[k])));
+  const float two_ab = __fmul_rn(2.f, __double2float_rn(ab));
+  double d = __dsub_rn(__dadd_rn(aa, bb), static_cast<double>(two_ab));
+  d = d < 0.0 ? 0.0 : d;  // keeps NaN, as jnp.maximum
+  return __dsqrt_rn(d);
+}
+
+template <bool kL2>
 __global__ void __launch_bounds__(THREADS) project_match_kernel(Args a) {
+  typedef typename std::conditional<kL2, double, float>::type Dist;
   cg::grid_group grid = cg::this_grid();
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
   const int nthreads = gridDim.x * blockDim.x;
   // phase 0
   for (int f = tid; f < a.F; f += nthreads) {
-    a.col_min[f] = __float_as_int(kBig);
+    if (kL2) {
+      a.col_min64[f] = static_cast<unsigned long long>(__double_as_longlong(1e9));
+      a.kp_bb[f] = sum_squares(a.kp_f + (int64_t)f * kDim);
+    } else {
+      a.col_min[f] = __float_as_int(kBig);
+    }
     a.radius[f] = a.radius_px * pow(a.scale_factor, a.kp_oct[f]);
   }
   grid.sync();
@@ -184,7 +243,7 @@ __global__ void __launch_bounds__(THREADS) project_match_kernel(Args a) {
   // phase 1: the feature side, staged once per block
   extern __shared__ uint4 smem[];
   Features ft{a.kp_desc, a.kp_uv, a.kp_oct, a.radius, a.kp_free};
-  if (a.stage) {
+  if (!kL2 && a.stage) {
     uint4* s_desc = smem;
     double* s_uv = reinterpret_cast<double*>(s_desc + 2 * a.F);
     double* s_oct = s_uv + 2 * a.F;
@@ -205,20 +264,29 @@ __global__ void __launch_bounds__(THREADS) project_match_kernel(Args a) {
   const int nwarps = gridDim.x * WARPS;
   for (int l = blockIdx.x * WARPS + (threadIdx.x >> 5); l < a.L; l += nwarps) {
     const Landmark m = landmark(a, l);  // the same in every lane
-    float best = kBig;  // a landmark that fails its gates: every entry 1e9, feature 0
+    const Dist big = static_cast<Dist>(kL2 ? 1e9 : kBig);
+    Dist best = big;  // a landmark that fails its gates: every entry 1e9, feature 0
     int bf = 0;
     if (m.ok) {
-      const uint4 d0 = a.lm_desc[2 * (int64_t)l], d1 = a.lm_desc[2 * (int64_t)l + 1];
-      best = __int_as_float(0x7f800000);  // +inf: any entry replaces it
+      const uint4 d0 = kL2 ? uint4{} : a.lm_desc[2 * (int64_t)l];
+      const uint4 d1 = kL2 ? uint4{} : a.lm_desc[2 * (int64_t)l + 1];
+      const float* lf = kL2 ? a.lm_f + (int64_t)l * kDim : nullptr;
+      const double aa = kL2 ? sum_squares(lf) : 0.0;
+      best = static_cast<Dist>(__longlong_as_double(0x7ff0000000000000LL));  // +inf
       bf = a.F;
       for (int f = lane; f < a.F; f += 32) {
-        float d = kBig;
+        Dist d = big;
         if (ft.free[f]) {
           const double dx = m.u - ft.uv[2 * f];
           const double dy = m.v - ft.uv[2 * f + 1];
           const double dpx = sqrt(dx * dx + dy * dy);
           const bool oct_ok = !m.rng || fabs(ft.oct[f] - m.pred) <= 1.0;
-          if (dpx <= ft.rad[f] && oct_ok) d = static_cast<float>(popc_desc(d0, d1, ft.desc + 2 * f));
+          if (dpx <= ft.rad[f] && oct_ok) {
+            if (kL2)
+              d = static_cast<Dist>(l2_distance(lf, a.kp_f + (int64_t)f * kDim, aa, a.kp_bb[f]));
+            else
+              d = static_cast<Dist>(popc_desc(d0, d1, ft.desc + 2 * f));
+          }
         }
         if (d < best) {
           best = d;
@@ -226,7 +294,7 @@ __global__ void __launch_bounds__(THREADS) project_match_kernel(Args a) {
         }
       }
       for (int off = 16; off > 0; off >>= 1) {
-        const float ob = __shfl_down_sync(FULL, best, off);
+        const Dist ob = __shfl_down_sync(FULL, best, off);
         const int of = __shfl_down_sync(FULL, bf, off);
         if (ob < best || (ob == best && of < bf)) {
           best = ob;
@@ -236,19 +304,36 @@ __global__ void __launch_bounds__(THREADS) project_match_kernel(Args a) {
     }
     if (lane == 0) {
       a.best_f[l] = bf;
-      a.best_d[l] = best;
-      if (best <= a.max_dist) atomicMin(a.col_min + bf, __float_as_int(landmark_score(best, l)));
+      if (kL2) {
+        a.best_d64[l] = best;
+        if (best <= a.max_dist64)
+          atomicMin(a.col_min64 + bf, static_cast<unsigned long long>(__double_as_longlong(
+                                          landmark_score(static_cast<double>(best), l))));
+      } else {
+        a.best_d[l] = best;
+        if (best <= a.max_dist)
+          atomicMin(a.col_min + bf, __float_as_int(landmark_score(static_cast<float>(best), l)));
+      }
     }
   }
   grid.sync();
 
   // phase 2: the conflict pass
   for (int l = tid; l < a.L; l += nthreads) {
-    const float d = a.best_d[l];
     const int f = a.best_f[l];
-    const bool win = d <= a.max_dist && landmark_score(d, l) <= __int_as_float(a.col_min[f]);
-    a.match_feat[l] = win ? f : -1;
-    a.match_dist[l] = win ? d : kBig;
+    if (kL2) {
+      const double d = a.best_d64[l];
+      const bool win = d <= a.max_dist64 &&
+                       landmark_score(d, l) <= __longlong_as_double(
+                                                   static_cast<long long>(a.col_min64[f]));
+      a.match_feat[l] = win ? f : -1;
+      a.match_dist64[l] = win ? d : 1e9;
+    } else {
+      const float d = a.best_d[l];
+      const bool win = d <= a.max_dist && landmark_score(d, l) <= __int_as_float(a.col_min[f]);
+      a.match_feat[l] = win ? f : -1;
+      a.match_dist[l] = win ? d : kBig;
+    }
   }
 }
 
@@ -259,25 +344,28 @@ __global__ void __launch_bounds__(THREADS) project_match_kernel(Args a) {
 // bool, lm_rng (L, 2) f64, check_view_angle, img_w, img_h, log_level =
 // log 1.2; uv, lm_ok, pred, has_rng unused.  prologue 0: uv (L, 2) f64,
 // lm_ok (L,) bool, pred (L,) f64, has_rng (L,) bool, the others unused.
-// lm_desc (L, 32) u8; kp_uv (F, 2), kp_oct (F,) f64, kp_free (F,) bool,
-// kp_desc (F, 32) u8; descriptors 16-byte aligned.  scratch: 12 F + 8 L
-// bytes, 8-byte aligned.  Outputs match_feat (L,) int32, match_dist (L,)
-// f32.  Returns 0 or the CUDA error; launches nothing when L is 0.
+// l2 0: lm_desc (L, 32) u8, kp_desc (F, 32) u8, 16-byte aligned, scratch
+// 12 F + 8 L bytes, match_dist (L,) f32; l2 1: lm_desc (L, 128) and
+// kp_desc (F, 128) f32, scratch 24 F + 12 L bytes, match_dist (L,) f64.
+// kp_uv (F, 2), kp_oct (F,) f64, kp_free (F,) bool; scratch 8-byte
+// aligned.  Outputs match_feat (L,) int32 and match_dist.  Returns 0 or
+// the CUDA error; launches nothing when L is 0.
 extern "C" int covins_project_match(
     int prologue, const void* intr, const void* dist, int dist_model, const void* T_cw,
     const void* p_w, const void* lm_normal, const void* lm_mask, const void* lm_rng,
     int check_view_angle, double img_w, double img_h, double log_level, const void* uv,
     const void* lm_ok, const void* pred, const void* has_rng, const void* lm_desc, int L,
     const void* kp_uv, const void* kp_oct, const void* kp_free, const void* kp_desc, int F,
-    double radius_px, double scale_factor, float max_dist, void* scratch, void* match_feat,
-    void* match_dist, void* stream) {
+    double radius_px, double scale_factor, double max_dist, int l2, void* scratch,
+    void* match_feat, void* match_dist, void* stream) {
   if (L <= 0) return 0;
+  const void* kernel = l2 ? reinterpret_cast<const void*>(project_match_kernel<true>)
+                          : reinterpret_cast<const void*>(project_match_kernel<false>);
   int room = 0;
-  const cudaError_t err =
-      coop::smem_room(reinterpret_cast<const void*>(project_match_kernel), &room);
+  const cudaError_t err = coop::smem_room(kernel, &room);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t stage_bytes = (int64_t)F * kFeatureBytes;
-  const int stage = stage_bytes <= room;
+  const int stage = !l2 && stage_bytes <= room;
   const size_t smem = stage ? static_cast<size_t>(stage_bytes) : 0;
   char* s = static_cast<char*>(scratch);
   Args a{prologue,
@@ -306,7 +394,7 @@ extern "C" int covins_project_match(
          F,
          radius_px,
          scale_factor,
-         max_dist,
+         static_cast<float>(max_dist),
          stage,
          reinterpret_cast<double*>(s),
          reinterpret_cast<int32_t*>(s + 8 * (int64_t)F),
@@ -314,8 +402,24 @@ extern "C" int covins_project_match(
          reinterpret_cast<float*>(s + 12 * (int64_t)F + 4 * (int64_t)L),
          static_cast<int32_t*>(match_feat),
          static_cast<float*>(match_dist)};
+  if (l2) {
+    // radius (F) f64, col_min (F) u64, the squares (F) f64, best_d (L) f64,
+    // best_f (L) int32
+    a.lm_f = static_cast<const float*>(lm_desc);
+    a.kp_f = static_cast<const float*>(kp_desc);
+    a.max_dist64 = max_dist;
+    a.col_min64 = reinterpret_cast<unsigned long long*>(s + 8 * (int64_t)F);
+    a.kp_bb = reinterpret_cast<double*>(s + 16 * (int64_t)F);
+    a.best_d64 = reinterpret_cast<double*>(s + 24 * (int64_t)F);
+    a.best_f = reinterpret_cast<int32_t*>(s + 24 * (int64_t)F + 8 * (int64_t)L);
+    a.match_dist64 = static_cast<double*>(match_dist);
+  }
   void* args[] = {&a};
   // one warp per landmark
-  return coop::launch(project_match_kernel, THREADS, smem, 32LL * L, 1 << 30,
-                      coop::Slots::kRefuse, args, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (l2)
+    return coop::launch(project_match_kernel<true>, THREADS, smem, 32LL * L, 1 << 30,
+                        coop::Slots::kRefuse, args, st);
+  return coop::launch(project_match_kernel<false>, THREADS, smem, 32LL * L, 1 << 30,
+                      coop::Slots::kRefuse, args, st);
 }

@@ -45,6 +45,10 @@ SIGNATURES = {
     "hamming_ratio_match": {
         "covins_hamming_ratio_match": [_P, _P, _I, _P, _P, _I, _I, _F, _F, _P, _P, _P],
     },
+    "l2_match": {
+        "covins_l2_argmin": [_P, _P, _I, _P, _I, _P, _P, _P, _P],
+        "covins_l2_ratio_match": [_P, _P, _I, _P, _P, _I, _I, _F, _F, _P, _P, _P],
+    },
     "relpose_ransac": {
         "covins_ray_ransac_score": [_P] * 7 + [_I, _I, _I, _D] + [_P] * 5,
         "covins_relpose_ransac_5pt": [_P] * 5 + [_I] * 4 + [_D] + [_P] * 4,
@@ -54,7 +58,7 @@ SIGNATURES = {
     },
     "project_match": {
         "covins_project_match": [_I, _P, _P, _I] + [_P] * 5 + [_I, _D, _D, _D]
-                                + [_P] * 5 + [_I] + [_P] * 4 + [_I, _D, _D, _F]
+                                + [_P] * 5 + [_I] + [_P] * 4 + [_I, _D, _D, _D, _I]
                                 + [_P] * 4,
     },
     "p3p_ransac": {
@@ -88,6 +92,7 @@ SLOT_CAP = 2048
 EXTRA_FLAGS = {
     "landmark_attributes": ["--fmad=false"],
     "bow_insert_score": ["--fmad=false"],
+    "l2_match": ["--fmad=false"],
     "project_match": ["--fmad=false"],
     "p3p_ransac": ["--fmad=false"],
     "relpose_ransac": ["--fmad=false"],

@@ -2,14 +2,16 @@
 
 Counterpart of `covins_tpu/models/kf_database.py`.  The database is one
 dense (cap, V) float32 matrix of L2-normalised term-frequency rows, kept
-on the device and grown by capacity doubling.  A window of keyframes is
-inserted and scored in one pass (:func:`insert_and_score`): its
-descriptors, feature mask and destination rows go to the device in one
-packed upload (:func:`window_layout`), then two launches: word assignment
-(K1) and the rest (K3: BoW vectors written into their rows in place, then
-cosine scores and common-word counts against the rows after the
-insertion, packed into one (W, 2, n) result).
-Only binary (ORB) vocabularies are supported by the port so far.
+on the device and grown by capacity doubling.  The vocabulary's dtype
+selects the metric: (V, 32) uint8 words are matched by Hamming distance
+(ORB), (V, 128) float32 centres by L2 distance (SIFT).  A window of
+keyframes is inserted and scored in one pass (:func:`insert_and_score`):
+its descriptors, feature mask and destination rows go to the device in
+one packed upload (:func:`window_layout`), then two launches: word
+assignment (K1 for Hamming, K13 for L2) and the rest (K3: BoW vectors
+written into their rows in place, then cosine scores and common-word
+counts against the rows after the insertion, packed into one (W, 2, n)
+result).
 """
 
 from __future__ import annotations
@@ -25,28 +27,36 @@ from covins_tpu_torch.ops import bow as bow_ops
 from covins_tpu_torch.ops import descriptors as d_ops
 
 
-def window_layout(w: int, f: int):
-    """Byte offsets of a window's packed input: the (W, F, 32) uint8
-    descriptors, the (W, F) feature mask as bytes, then from an 8-byte
-    boundary the (W,) int64 destination rows.  Returns (mask's offset,
-    destinations' offset, total bytes)."""
-    mask_at = w * f * d_ops.ORB_BYTES
+# a descriptor's bytes under each metric: 32 uint8 (ORB), 128 float32 (SIFT)
+DESC_BYTES = {"hamming": d_ops.ORB_BYTES, "l2": 4 * d_ops.SIFT_DIMS}
+
+
+def window_layout(w: int, f: int, desc_bytes: int = d_ops.ORB_BYTES):
+    """Byte offsets of a window's packed input: the (W, F) descriptors of
+    ``desc_bytes`` bytes each (32 uint8 or 128 float32), the (W, F)
+    feature mask as bytes, then from an 8-byte boundary the (W,) int64
+    destination rows.  Returns (mask's offset, destinations' offset, total
+    bytes)."""
+    mask_at = w * f * desc_bytes
     dest_at = (mask_at + w * f + 7) // 8 * 8
     return mask_at, dest_at, dest_at + 8 * w
 
 
-def window_views(buf, w: int, f: int):
+def window_views(buf, w: int, f: int, desc_bytes: int = d_ops.ORB_BYTES):
     """The three inputs as views of a packed input ``buf`` (a 1-D uint8
-    numpy array or tensor): descs (W, F, 32), feat_mask (W, F) bool and
-    dest (W,) int64."""
-    mask_at, dest_at, total = window_layout(w, f)
+    numpy array or tensor): descs (W, F, 32) uint8 or, at 512 bytes a
+    descriptor, (W, F, 128) float32; feat_mask (W, F) bool and dest (W,)
+    int64."""
+    mask_at, dest_at, total = window_layout(w, f, desc_bytes)
     if isinstance(buf, np.ndarray):
-        as_bool, as_i64 = (lambda b: b.view(np.bool_)), (lambda b: b.view(np.int64))
+        f32, b8, i64 = np.float32, np.bool_, np.int64
     else:
-        as_bool, as_i64 = (lambda b: b.view(torch.bool)), (lambda b: b.view(torch.int64))
-    return (buf[:mask_at].reshape(w, f, d_ops.ORB_BYTES),
-            as_bool(buf[mask_at:mask_at + w * f].reshape(w, f)),
-            as_i64(buf[dest_at:total]))
+        f32, b8, i64 = torch.float32, torch.bool, torch.int64
+    descs = buf[:mask_at].reshape(w, f, desc_bytes)
+    if desc_bytes == DESC_BYTES["l2"]:
+        descs = descs.view(f32)
+    return (descs, buf[mask_at:mask_at + w * f].reshape(w, f).view(b8),
+            buf[dest_at:total].view(i64))
 
 
 def insert_and_score(db: torch.Tensor, vocab: torch.Tensor,
@@ -56,28 +66,35 @@ def insert_and_score(db: torch.Tensor, vocab: torch.Tensor,
     Args:
       db: (cap, V) float32 database, UPDATED IN PLACE (the JAX version
         donates it and returns the new buffer).
-      vocab: (V, 32) uint8 words.
+      vocab: (V, 32) uint8 words (Hamming) or (V, 128) float32 centres
+        (L2).
       packed: the window's packed input on ``db``'s device
-        (:func:`window_layout`): (W, F, 32) uint8 padded descriptors, the
-        (W, F) feature mask and the (W,) int64 destination rows; entries
-        outside [0, cap) are dropped, those inside are distinct.
+        (:func:`window_layout`): (W, F) padded descriptors of the
+        vocabulary's kind, the (W, F) feature mask and the (W,) int64
+        destination rows; entries outside [0, cap) are dropped, those
+        inside are distinct.
       n: the rows [0, n) scored, after the insertion.
     Returns ``out`` (W, 2, n) float32: ``out[:, 0]`` the scores,
     ``out[:, 1]`` the common-word counts as int32 bit patterns; sequential
     query semantics are restored by the caller's ``valid`` masks.  On the
-    card: two launches (K1, K3) reading the packed input in place, and two
-    PyTorch operations (the scratch and the result).
+    card: two launches (K1 or K13, then K3) reading the packed input in
+    place, and two PyTorch operations (the scratch and the result).
     """
     cap, v = db.shape
+    metric = "hamming" if vocab.dtype == torch.uint8 else "l2"
+    desc_bytes = DESC_BYTES[metric]
     if is_cpu(packed):
-        descs, feat_mask, dest = window_views(packed, w, f)
-        words, _ = d_ops.hamming_argmin(descs.reshape(w * f, d_ops.ORB_BYTES), vocab,
-                                        feat_mask.reshape(-1))
+        descs, feat_mask, dest = window_views(packed, w, f, desc_bytes)
+        argmin = d_ops.hamming_argmin if metric == "hamming" else d_ops.l2_argmin
+        words, _ = argmin(descs.reshape(w * f, -1), vocab, feat_mask.reshape(-1))
         return bow_ops.bow_insert_score(words.reshape(w, f), dest, db, n)[1]
     dev = check_cuda("insert_and_score", db, vocab, packed)
-    mask_at, dest_at, total = window_layout(w, f)
+    mask_at, dest_at, total = window_layout(w, f, desc_bytes)
     check_tensor("insert_and_score", "packed", packed, (total,), torch.uint8)
-    check_tensor("insert_and_score", "vocab", vocab, (v, d_ops.ORB_BYTES), torch.uint8)
+    if metric == "hamming":
+        check_tensor("insert_and_score", "vocab", vocab, (v, d_ops.ORB_BYTES), torch.uint8)
+    else:
+        d_ops._check_f32("insert_and_score vocab", vocab)
     check_tensor("insert_and_score", "db", db, (cap, v), torch.float32)
     if not 0 <= n <= cap:
         raise ValueError(f"insert_and_score: {n} rows to score of {cap}")
@@ -85,13 +102,19 @@ def insert_and_score(db: torch.Tensor, vocab: torch.Tensor,
         raise ValueError(f"insert_and_score: vocabulary of {v} words does not fit "
                          "one block's shared memory")
     base = packed.data_ptr()
-    # K1's word ids and distances, then K3's vectors (int32 and float32
-    # share one allocation)
-    scratch = torch.empty(w * (2 * f + v), dtype=torch.int32, device=dev)
+    # the word ids and distances, K3's vectors (int32 and float32 share
+    # one allocation), then from an 8-byte boundary K13's scratch
+    at = (w * (2 * f + v) + 1) // 2 * 2
+    extra = (d_ops.l2_scratch_bytes(w * f) + 3) // 4 if metric == "l2" else 0
+    scratch = torch.empty(at + extra, dtype=torch.int32, device=dev)
     out = torch.empty((w, 2, n), dtype=torch.float32, device=dev)
     words = scratch.data_ptr()
-    d_ops.launch_argmin(dev, base, vocab.data_ptr(), base + mask_at, w * f, v,
-                        words, words + 4 * w * f)
+    if metric == "hamming":
+        d_ops.launch_argmin(dev, base, vocab.data_ptr(), base + mask_at, w * f, v,
+                            words, words + 4 * w * f)
+    else:
+        d_ops.launch_l2_argmin(dev, base, vocab.data_ptr(), base + mask_at, w * f, v,
+                               words, words + 4 * w * f, words + 4 * at)
     bow_ops.launch_insert_score(dev, words, base + dest_at, db.data_ptr(),
                                 words + 8 * w * f, out.data_ptr(), w, f, v, cap, n)
     return out
@@ -102,12 +125,18 @@ class KeyframeDatabase:
 
     def __init__(self, vocabulary: np.ndarray, capacity: int = 1024,
                  device: DeviceLike = None):
-        vocabulary = np.asarray(vocabulary)
-        if vocabulary.dtype != np.uint8:
-            raise NotImplementedError(
-                "covins_tpu_torch supports binary (ORB) vocabularies only; "
-                "the SIFT/L2 retrieval path belongs to the SIFT slice of the "
-                "port")
+        """``vocabulary``: (V, 32) uint8 binary words (ORB) or (V, 128)
+        float32 centres (SIFT mode, ``feat.type: SIFT``); its dtype selects
+        the metric, as the reference's does."""
+        vocabulary = np.ascontiguousarray(vocabulary)
+        if vocabulary.dtype == np.uint8:
+            self.metric = "hamming"
+        elif vocabulary.dtype == np.float32 and vocabulary.shape[1:] == (d_ops.SIFT_DIMS,):
+            self.metric = "l2"
+        else:
+            raise ValueError(f"expected a (V, {d_ops.ORB_BYTES}) uint8 or (V, "
+                             f"{d_ops.SIFT_DIMS}) float32 vocabulary, got "
+                             f"{vocabulary.shape} {vocabulary.dtype}")
         self.device = resolve_device(device)
         self.vocab = torch.tensor(vocabulary, device=self.device)
         self.k_words = vocabulary.shape[0]
@@ -143,11 +172,15 @@ class KeyframeDatabase:
             setattr(self, name, new)
 
     def bow_vector(self, descriptors: np.ndarray) -> torch.Tensor:
-        d = torch.from_numpy(np.ascontiguousarray(descriptors)).to(self.device)
-        words = bow_ops.assign_words(d, self.vocab)
+        if self.metric == "hamming":
+            d = torch.from_numpy(np.ascontiguousarray(descriptors)).to(self.device)
+            words = bow_ops.assign_words(d, self.vocab)
+        else:
+            d = torch.from_numpy(np.ascontiguousarray(descriptors, np.float32))
+            words = bow_ops.assign_words_l2(d.to(self.device), self.vocab)
         return bow_ops.bow_vector(words, self.k_words)
 
-    def add_keyframe(self, kf_id: tuple, descriptors_u8: np.ndarray) -> int:
+    def add_keyframe(self, kf_id: tuple, descriptors: np.ndarray) -> int:
         """`MapManager::AddToDatabase` (`map_be.cpp:68-107`)."""
         kf_id = tuple(int(x) for x in kf_id)
         existing = self.row_of.get(kf_id, -1)
@@ -155,7 +188,7 @@ class KeyframeDatabase:
             return existing
         row = self.n
         self._ensure(row + 1)
-        self._db[row] = self.bow_vector(descriptors_u8)
+        self._db[row] = self.bow_vector(descriptors)
         self._mask[row] = True
         self.row_ids.append(kf_id)
         self.row_of[kf_id] = row
@@ -206,11 +239,12 @@ class KeyframeDatabase:
 
         f = max(int(d.shape[0]) for d in descs_list)
         dev = self.device
-        buf = torch.empty(window_layout(w, f)[2], dtype=torch.uint8,
+        desc_bytes = DESC_BYTES[self.metric]
+        buf = torch.empty(window_layout(w, f, desc_bytes)[2], dtype=torch.uint8,
                           pin_memory=dev.type == "cuda")
         host = buf.numpy()
         host[:] = 0
-        descs, feat_mask, dest = window_views(host, w, f)
+        descs, feat_mask, dest = window_views(host, w, f, desc_bytes)
         dest[:] = cap  # cap => dropped by the insert
         for i in range(w):
             n = descs_list[i].shape[0]
@@ -247,13 +281,13 @@ class KeyframeDatabase:
                         "common": common[i], "valid": valid})
         return out
 
-    def query(self, descriptors_u8: np.ndarray,
+    def query(self, descriptors: np.ndarray,
               exclude_rows: Optional[np.ndarray] = None,
               min_common_words_frac: float = 0.8):
         """Score one query against the whole database (`DetectCandidates`,
         `kf_database.cpp:47-187`): rows sharing fewer than 0.8 * max common
         words get -1.  Returns (scores, common) as numpy over live rows."""
-        qv = self.bow_vector(descriptors_u8)
+        qv = self.bow_vector(descriptors)
         mask = torch.from_numpy(self._mask.copy())
         if exclude_rows is not None and len(exclude_rows):
             mask[torch.as_tensor(np.asarray(exclude_rows), dtype=torch.long)] = False
@@ -265,3 +299,17 @@ class KeyframeDatabase:
         scores = torch.where(keep & mask, scores, torch.full_like(scores, -1.0))
         return (scores[: self.n].cpu().numpy(),
                 common[: self.n].cpu().numpy())
+
+
+def train_vocabulary_from_maps(descriptor_batches, k: int = 512, iters: int = 6,
+                               generator: Optional[torch.Generator] = None,
+                               idx=None, device: DeviceLike = None) -> np.ndarray:
+    """Train a Hamming k-medians vocabulary from uint8 descriptor samples
+    (`kf_database.py:267`) on ``device``: the samples concatenated, then
+    `bow.train_vocabulary` from the initial words ``idx`` (drawn with
+    ``generator`` when None)."""
+    width = np.asarray(descriptor_batches[0]).shape[-1]
+    descs = np.concatenate([np.asarray(d).reshape(-1, width) for d in descriptor_batches])
+    dev = resolve_device(device)
+    return bow_ops.train_vocabulary(torch.from_numpy(descs).to(dev), k=k, iters=iters,
+                                    generator=generator, idx=idx).cpu().numpy()

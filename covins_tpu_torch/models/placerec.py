@@ -14,8 +14,9 @@ verifications before it fetches any.
 The RANSAC draws come from one CPU `torch.Generator` per agent, seeded as
 the reference seeds its key (``rng_seed + 1000 * client_id``), so the
 card's run and the CPU's draw the same minimal sets.  SIFT descriptors
-(`feat_type="SIFT"`, L2 matching) belong to the SIFT slice of the port and
-raise.
+(`feat_type="SIFT"`, 128 float32 dimensions) run in COVINS-G, with L2
+retrieval and L2 ratio matching, as in the reference; COVINS over SIFT is
+refused, since the reference cannot run it either.
 
 Pose convention: a loop result carries ``T_12 = T_sq_sc``, mapping
 candidate-body coordinates into query-body coordinates.
@@ -36,10 +37,11 @@ from covins_tpu_torch.utils import cameras as cam_mod
 from covins_tpu_torch.utils import npgeo
 from covins_tpu_torch.utils.config import Config
 
-SIFT_NOT_PORTED = (
-    "SIFT descriptors (feat_type='SIFT', L2 matching and retrieval) belong "
-    "to the SIFT slice of covins_tpu_torch and are not ported yet; use ORB "
-    "descriptors or placerec_active=False")
+SIFT_NEEDS_COVINS_G = (
+    "SIFT descriptors (feat_type='SIFT') run in COVINS-G only "
+    "(placerec_type='COVINS_G'), as in the reference, whose COVINS "
+    "verification matches binary descriptors; use ORB descriptors, COVINS-G "
+    "or placerec_active=False")
 
 
 @dataclasses.dataclass
@@ -55,8 +57,8 @@ class LoopResult:
 
 
 def check_supported(cfg: Config) -> None:
-    if cfg.placerec_active and cfg.feat_type == "SIFT":
-        raise NotImplementedError(SIFT_NOT_PORTED)
+    if cfg.placerec_active and cfg.feat_type == "SIFT" and cfg.placerec_type != "COVINS_G":
+        raise NotImplementedError(SIFT_NEEDS_COVINS_G)
 
 
 def _temporal_neighbors(mp, row: int, k: int = 10) -> np.ndarray:
@@ -281,7 +283,8 @@ class PlaceRecognition:
         `RelNonCentralPosSolver`): rig assembly on the host (the query and
         its predecessor, the candidate and its two predecessors; the
         pose-estimation `_add` features when present), then the queued
-        device work of `loopverify.covinsg_verify` (no host sync).  Returns
+        device work of `loopverify.covinsg_verify` (no host sync), with the
+        L2 metric for float (SIFT) descriptors.  Returns
         an opaque job for :meth:`finalize_covins_g`, or None when a rig
         has too few features."""
         cfg = self.cfg
@@ -301,8 +304,6 @@ class PlaceRecognition:
             uv, desc, mask, T = [], [], [], []
             for r in rows:
                 kp, dsc, n = mp.match_features(r)
-                if dsc.dtype != np.uint8:
-                    raise NotImplementedError(SIFT_NOT_PORTED)
                 uv.append(np.asarray(kp, np.float64))
                 desc.append(dsc)
                 mask.append(np.arange(F) < n)
@@ -333,7 +334,9 @@ class PlaceRecognition:
             nc_cov_thres=float(cfg.nc_cov_thres),
             nq_rig=len(q_rig), nc_rig=len(c_rig), Fq=mp_q.max_features,
             Fc=mp_c.max_features, n_hyp5=n_hyp5, n_hyp17=min(cfg.nc_max_iters, 512),
-            n_cov=2 * cfg.nc_cov_iters, solver=cfg.rel_minimal_solver)
+            n_cov=2 * cfg.nc_cov_iters, solver=cfg.rel_minimal_solver,
+            # SIFT mode (`feat.type: SIFT`): L2 matching, thresholds linear L2
+            metric="hamming" if rq["desc"].dtype == np.uint8 else "l2")
         noise = self.next_covins_g_noise(len(q_rig) * len(c_rig), n_hyp5,
                                          mp_q.max_features, params["n_hyp17"],
                                          params["n_cov"])

@@ -12,7 +12,8 @@ landmark batch has arrived: when the NEXT keyframe arrives or on
 detects on the host, verifies every candidate on the device, applies loops
 and merges in keyframe order and runs one pose-graph solve per affected
 map — inline, or deferred to :meth:`AgentSession.drain_placerec` with
-``placerec_defer``.  SIFT descriptors are refused at construction.
+``placerec_defer``.  COVINS over SIFT descriptors is refused at
+construction (the reference runs SIFT in COVINS-G only).
 """
 
 from __future__ import annotations

@@ -1,10 +1,12 @@
-"""Place-recognition retrieval: binary vocabulary + BoW vectors + scoring.
+"""Place-recognition retrieval: vocabulary + BoW vectors + scoring.
 
-Counterpart of `covins_tpu/ops/bow.py`: a flat vocabulary of K binary word
-centres (Hamming k-medians), word assignment as a Hamming argmin (the K1
-kernel, `ops/descriptors.hamming_argmin`), L2-normalised term-frequency
-vectors, cosine scores as one product against the database matrix, and a
-binarised product for the common-words gate.
+Counterpart of `covins_tpu/ops/bow.py`: a flat vocabulary of K word
+centres, binary for ORB (Hamming k-medians, word assignment as a Hamming
+argmin, the K1 kernel `ops/descriptors.hamming_argmin`) or float32 for
+SIFT (k-means, word assignment as an L2 argmin, the K13 kernel
+`ops/descriptors.l2_argmin`), L2-normalised term-frequency vectors, cosine
+scores as one product against the database matrix, and a binarised
+product for the common-words gate.
 
 :func:`bow_insert_score` is the K3 kernel (`csrc/bow_insert_score.cu`): a
 window's BoW vectors, written into their database rows in place, and each
@@ -24,22 +26,26 @@ from covins_tpu_torch.ops import descriptors as desc
 from covins_tpu_torch.ops import linalg
 
 
+def _initial_centres(n: int, k: int, generator, idx, dev) -> torch.Tensor:
+    if idx is not None:
+        return torch.as_tensor(idx, device=dev).long()
+    if n >= k:
+        return torch.randperm(n, generator=generator, device=dev)[:k]
+    return torch.randint(0, n, (k,), generator=generator, device=dev)
+
+
 def train_vocabulary(descs_u8: torch.Tensor, k: int = 1024, iters: int = 8,
-                     generator: Optional[torch.Generator] = None
-                     ) -> torch.Tensor:
+                     generator: Optional[torch.Generator] = None,
+                     idx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Hamming k-medians over (n, B) uint8 descriptors -> (k, B) words.
 
     The centre update is a bitwise majority vote; empty clusters keep their
-    old centre.  The initial centres are drawn with ``generator`` (on the
-    descriptors' device); the draws differ from the JAX package's, so tests
-    hand the reference's vocabulary in instead of comparing draws.
+    old centre.  The initial centres are ``descs_u8[idx]``, drawn with
+    ``generator`` (on the descriptors' device) when ``idx`` is None; the
+    draws differ from the JAX package's, so tests hand its draw in as
+    ``idx`` or its vocabulary instead.
     """
-    n = descs_u8.shape[0]
-    dev = descs_u8.device
-    if n >= k:
-        init = torch.randperm(n, generator=generator, device=dev)[:k]
-    else:
-        init = torch.randint(0, n, (k,), generator=generator, device=dev)
+    init = _initial_centres(descs_u8.shape[0], k, generator, idx, descs_u8.device)
     return kmedians(descs_u8, descs_u8[init], iters)
 
 
@@ -70,6 +76,45 @@ def assign_words(descs_u8: torch.Tensor, vocab_u8: torch.Tensor,
     """(N, B) descriptors -> (N,) int32 word ids; masked rows get -1."""
     words, _ = desc.hamming_argmin(descs_u8.contiguous(), vocab_u8, mask)
     return words
+
+
+def train_vocabulary_l2(descs: torch.Tensor, k: int = 1024, iters: int = 8,
+                        generator: Optional[torch.Generator] = None,
+                        idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """k-means over (n, 128) float32 (SIFT) descriptors -> (k, 128) words
+    (`bow.py:68`, feat.type SIFT).  Each step assigns every descriptor to
+    its nearest centre (K13 on a card), then a centre becomes the mean of
+    its descriptors, summed as the reference sums them (``one_hot.T @
+    descs``, no atomics); an empty cluster keeps its centre.  The initial
+    centres are ``descs[idx]``, drawn with ``generator`` when ``idx`` is
+    None (without replacement when n >= k); the draws differ from the JAX
+    package's, so tests hand its draw in as ``idx``."""
+    descs = descs.contiguous()
+    init = _initial_centres(descs.shape[0], k, generator, idx, descs.device)
+    centers = descs[init].contiguous()
+    for _ in range(iters):
+        assign, _ = desc.l2_argmin(descs, centers)
+        one_hot = torch.nn.functional.one_hot(assign.long(), k).to(descs.dtype)
+        counts = one_hot.sum(0)
+        new = (one_hot.t() @ descs) / torch.clamp(counts[:, None], min=1.0)
+        centers = torch.where(counts[:, None] > 0, new, centers).contiguous()
+    return centers
+
+
+def assign_words_l2(descs: torch.Tensor, vocab: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(N, 128) float32 descriptors -> (N,) int32 word ids by L2 argmin
+    (K13); masked rows get -1."""
+    words, _ = desc.l2_argmin(descs.contiguous(), vocab, mask)
+    return words
+
+
+def compute_idf(db_bow_binary: torch.Tensor, db_mask: torch.Tensor) -> torch.Tensor:
+    """idf weights from the database: log(N / (1 + df) + 1), N the live
+    rows (at least 1) and df each word's live rows (`bow.py:114`)."""
+    n = torch.clamp(db_mask.sum().to(db_bow_binary.dtype), min=1.0)
+    df = (db_bow_binary * db_mask[:, None]).sum(0)
+    return torch.log(n / (1.0 + df) + 1.0)
 
 
 def bow_vector(word_ids: torch.Tensor, k: int,

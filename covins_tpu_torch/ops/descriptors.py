@@ -1,4 +1,5 @@
-"""Binary-descriptor Hamming distances and the fused Hamming argmin.
+"""Descriptor distances and the matching kernels: Hamming (ORB) and L2
+(SIFT).
 
 Counterpart of `covins_tpu/ops/descriptors.py`.  The JAX package computes
 Hamming distance as an unpack-to-±1 matmul (`hamming_distance`), exact
@@ -11,7 +12,14 @@ loop verification's stage 1, :func:`hamming_mutual_nn` (K4,
 COVINS-G verification per column segment, :func:`hamming_ratio_match`
 (K11, `csrc/hamming_ratio_match.cu`).  The matchers on a distance matrix
 (`knn2`, `match_ratio`, `match_mutual_nn`, `match_mutual_nn_ratio`) are
-the reference's.  The L2 distance of SIFT descriptors is not ported.
+the reference's.
+
+For 128-dimensional float32 (SIFT) descriptors, :func:`l2_distance_sq`
+writes the reference's squared L2 distance in one summation order, and two
+CUDA kernels share that arithmetic: the word assignment's row argmin,
+:func:`l2_argmin` (K13), and the COVINS-G verification's masked top-2
+ratio match per column segment, :func:`l2_ratio_match` (K14), both in
+`csrc/l2_match.cu`.
 """
 
 from __future__ import annotations
@@ -22,8 +30,10 @@ import torch
 
 from covins_tpu_torch import cuda_build
 from covins_tpu_torch.device import check_cuda, is_cpu
+from covins_tpu_torch.ops import linalg
 
 ORB_BYTES = 32  # 256-bit ORB/BRIEF descriptors (config: feat.desc_length)
+SIFT_DIMS = 128  # float32 SIFT descriptors (config: feat.desc_length)
 
 _POPCOUNT8 = torch.tensor([bin(i).count("1") for i in range(256)],
                           dtype=torch.int32)
@@ -320,3 +330,174 @@ def hamming_ratio_match(a_u8: torch.Tensor, a_mask: torch.Tensor,
 
 
 hamming_ratio_match.launches = 0
+
+
+# ---------------------------------------------------------------- L2 (SIFT)
+# (rows x columns) of the plain product held at once: small enough on the
+# CPU to stay in its caches, large on a card to keep the launches few
+_L2_BLOCK = {"cpu": 1 << 18, "cuda": 1 << 24}
+
+
+def sum_squares(x: torch.Tensor) -> torch.Tensor:
+    """Each row's sum of squares, a running sum over the columns in order
+    (the kernels' order), every product and sum rounded on its own."""
+    acc = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+    for k in range(x.shape[1]):
+        acc = acc + x[:, k] * x[:, k]
+    return acc
+
+
+def l2_distance_sq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(M, D) x (N, D) float -> (M, N) squared L2 distance, the
+    reference's ``max((aa + bb) - 2 ab, 0)`` (`descriptors.py:89`) in the
+    arithmetic of K13 and K14: ``aa``, ``bb`` and ``ab`` each a running sum
+    over the D dimensions in order, every product and sum rounded on its
+    own, in the inputs' dtype; the clamp keeps NaN.  The plain version of
+    both kernels; the reference's product sums in XLA's order, so the two
+    agree within rounding."""
+    m, n, d = a.shape[0], b.shape[0], a.shape[1]
+    aa, bb = sum_squares(a), sum_squares(b)
+    bt = b.t().contiguous()
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    step = max(1, _L2_BLOCK[a.device.type] // max(n, 1))
+    for r0 in range(0, m, step):
+        ar = a[r0:r0 + step]
+        ab = torch.zeros((ar.shape[0], n), dtype=a.dtype, device=a.device)
+        for k in range(d):
+            ab += ar[:, k, None] * bt[k]
+        out[r0:r0 + step] = torch.clamp((aa[r0:r0 + step, None] + bb) - 2.0 * ab, min=0.0)
+    return out
+
+
+def l2_argmin_plain(a: torch.Tensor, b: torch.Tensor,
+                    row_mask: Optional[torch.Tensor] = None):
+    """Plain version of :func:`l2_argmin` (any device)."""
+    dmin, idx = torch.min(l2_distance_sq(a, b), dim=1)  # first minimum
+    idx = idx.to(torch.int32)
+    if row_mask is not None:
+        idx = torch.where(row_mask, idx, torch.full_like(idx, -1))
+    return idx, dmin
+
+
+def _check_f32(name: str, t: torch.Tensor) -> None:
+    if t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != SIFT_DIMS:
+        raise ValueError(f"{name}: expected (N, {SIFT_DIMS}) float32, got "
+                         f"{tuple(t.shape)} {t.dtype}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name}: needs a contiguous 16-byte aligned tensor")
+
+
+L2_MAX_PARTS = 8  # column parts a segment at most (csrc/l2_match.cu)
+
+
+def l2_scratch_bytes(m: int, s: int = 1) -> int:
+    """Scratch of one K13 / K14 launch over m rows and s segments: two
+    64-bit keys per (row, segment, part), then a counter per (segment,
+    64-row tile)."""
+    return 16 * L2_MAX_PARTS * m * s + 4 * s * -(-m // 64)
+
+
+def l2_argmin(a: torch.Tensor, b: torch.Tensor,
+              row_mask: Optional[torch.Tensor] = None):
+    """Row argmin of the squared L2 distance between (M, 128) and (N, 128)
+    float32 descriptors (:func:`l2_distance_sq`).  Returns ``idx (M,)
+    int32`` (the first minimum, as ``jnp.argmin``; -1 where ``row_mask`` is
+    False) and ``dmin (M,) float32``.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel (K13) or raise."""
+    if is_cpu(a) and is_cpu(b) and (row_mask is None or is_cpu(row_mask)):
+        return l2_argmin_plain(a, b, row_mask)
+    dev = check_cuda("l2_argmin", a, b, row_mask)
+    _check_f32("l2_argmin a", a)
+    _check_f32("l2_argmin b", b)
+    m, n = a.shape[0], b.shape[0]
+    if n == 0 or m >= 2**30 or n >= 2**31:
+        raise ValueError(f"l2_argmin: {m} rows against {n} columns")
+    if row_mask is not None:
+        _check_mask("l2_argmin", row_mask, m)
+    # idx and dmin, then from an 8-byte boundary the kernel's scratch
+    out = torch.empty(2 * m + (l2_scratch_bytes(m) + 3) // 4, dtype=torch.int32,
+                      device=dev)
+    launch_l2_argmin(dev, a.data_ptr(), b.data_ptr(),
+                     None if row_mask is None else row_mask.data_ptr(), m, n,
+                     out.data_ptr(), out.data_ptr() + 4 * m,
+                     out.data_ptr() + 8 * m)
+    return out[:m], out[m:2 * m].view(torch.float32)
+
+
+def launch_l2_argmin(dev: torch.device, a: int, b: int, row_mask: Optional[int],
+                     m: int, n: int, idx: int, dmin: int, scratch: int) -> None:
+    """Launch K13 on device addresses, counted on :func:`l2_argmin`: ``a``
+    (m, 128) and ``b`` (n, 128) float32 (16-byte aligned), ``row_mask``
+    (m,) bool or None, outputs ``idx`` (m,) int32 and ``dmin`` (m,)
+    float32, ``scratch`` :func:`l2_scratch_bytes` (m) bytes, 8-byte
+    aligned.  For callers that hold their inputs in a packed buffer; the
+    checks of :func:`l2_argmin` are theirs to make."""
+    lib = cuda_build.library("l2_match")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.covins_l2_argmin(a, row_mask, m, b, n, idx, dmin, scratch, stream)
+    cuda_build.check(rc, "l2_argmin")
+    l2_argmin.launches += 1
+
+
+l2_argmin.launches = 0
+
+
+def l2_ratio_match_plain(a, a_mask, b, b_mask, seg: int, max_dist: float,
+                         ratio: float):
+    """Plain version of :func:`l2_ratio_match` (any device): the square
+    root of :func:`l2_distance_sq`, masked entries 2^30, then :func:`knn2`
+    and the gates of :func:`match_ratio` on each segment of ``seg``
+    columns."""
+    dist = masked_dist(linalg.sqrt_rn(l2_distance_sq(a, b)), a_mask, b_mask)
+    out = []
+    for j in range(b.shape[0] // seg):
+        idx, d1, d2 = knn2(dist[:, j * seg:(j + 1) * seg])
+        out.append((torch.where(_ratio_gate(d1, d2, max_dist, ratio), idx, -1),
+                    d1, d2))
+    return tuple(torch.stack(x, dim=1) for x in zip(*out))
+
+
+def l2_ratio_match(a: torch.Tensor, a_mask: torch.Tensor, b: torch.Tensor,
+                   b_mask: torch.Tensor, seg: int, max_dist: float, ratio: float):
+    """COVINS-G image matching of (M, 128) float32 (SIFT) descriptors
+    ``a`` against each of the ``N / seg`` segments of ``seg`` columns of
+    ``b``, as :func:`hamming_ratio_match` does for ORB: per row and
+    segment the nearest and second-nearest valid column by L2 distance
+    (the square root of :func:`l2_distance_sq`; ties to the lowest column;
+    a masked row or column counts as distance 2^30) and the match where
+    ``d1 < max_dist`` and ``d1 < ratio * d2``, both in float32.  Returns
+    ``(idx (M, N / seg) int32, -1 = no match; d1, d2 (M, N / seg)
+    float32)``.  CPU tensors take the plain version; CUDA tensors launch
+    the kernel (K14: the two smallest keys per row and segment in
+    registers, no distance matrix) or raise."""
+    if all(is_cpu(t) for t in (a, a_mask, b, b_mask)):
+        return l2_ratio_match_plain(a, a_mask, b, b_mask, seg, max_dist, ratio)
+    dev = check_cuda("l2_ratio_match", a, a_mask, b, b_mask)
+    _check_f32("l2_ratio_match a", a)
+    _check_f32("l2_ratio_match b", b)
+    m, n = a.shape[0], b.shape[0]
+    _check_mask("l2_ratio_match a", a_mask, m)
+    _check_mask("l2_ratio_match b", b_mask, n)
+    if seg < 2 or n % seg or n >= 2**31 or m >= 2**30:
+        raise ValueError(f"l2_ratio_match: {n} columns in segments of {seg} "
+                         "(a top 2 needs two columns a segment)")
+    S = n // seg
+    # the outputs (index, d1 and d2 bits), then from an 8-byte boundary the
+    # kernel's scratch
+    at = (3 * m * S + 1) // 2 * 2
+    buf = torch.empty(at + (l2_scratch_bytes(m, S) + 3) // 4, dtype=torch.int32,
+                      device=dev)
+    out = buf[:3 * m * S].view(3, m, S)
+    lib = cuda_build.library("l2_match")
+    with torch.cuda.device(dev):
+        rc = lib.covins_l2_ratio_match(
+            a.data_ptr(), a_mask.data_ptr(), m, b.data_ptr(), b_mask.data_ptr(), n, seg,
+            float(max_dist), float(ratio), buf.data_ptr(), buf.data_ptr() + 4 * at,
+            torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(rc, "l2_ratio_match")
+    l2_ratio_match.launches += 1
+    return out[0], out[1].view(torch.float32), out[2].view(torch.float32)
+
+
+l2_ratio_match.launches = 0

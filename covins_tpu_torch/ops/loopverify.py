@@ -27,8 +27,9 @@ stability and is dropped.  Row order of every list is kept: ties in stage
 
 COVINS-G (:func:`covinsg_verify`, `_covinsg_verify_impl`): ratio matching
 of every (query keyframe, candidate keyframe) pair of the two rigs in one
-launch (K11), the pairs' central 5-point (or 8-point) prefilters solved
-as one batch and scored in one launch (K12), the pooled 17-point
+launch (K11 for ORB descriptors, K14 for SIFT), the pairs' central
+5-point (or 8-point) prefilters solved as one batch and scored in one
+launch (K12), the pooled 17-point
 non-central RANSAC, its weighted re-solve and the sampling covariance
 (each scored by K12), every gate on the device, and one packed fetch
 (:func:`dispatch_covinsg_verify` / :func:`fetch_covinsg_verify`).
@@ -340,21 +341,22 @@ def covinsg_verify(
     thr17, nc_min_inliers, thr_cov_rad, nc_cov_thres,
     nq_rig: int, nc_rig: int, Fq: int, Fc: int, n_hyp5: int, n_hyp17: int,
     n_cov: int, solver: str = "5pt", noise5=None, noise17=None, noise_cov=None,
-    idx5=None, idx17=None, idx_cov=None,
+    idx5=None, idx17=None, idx_cov=None, metric: str = "hamming",
 ):
     """The COVINS-G verification (`_covinsg_verify_impl`,
     `placerec_gen_be.cpp:82-167` + `RelNonCentralPosSolver.cpp:61-296`) on
     the rigs' rays (nq_rig * Fq, 3) / (nc_rig * Fc, 3) in the query
-    anchor frame, their (.., 32) uint8 descriptors, validity masks and
-    camera-frame bearings.  The minimal sets come from Gumbel noise
+    anchor frame, their descriptors (``metric`` "hamming": (.., 32) uint8,
+    matched by K11; "l2": (.., 128) float32 SIFT, matched by K14), validity
+    masks and camera-frame bearings.  The minimal sets come from Gumbel noise
     (``noise5`` (n_pairs, n_hyp5, Fq), ``noise17`` (n_hyp17, n_pairs *
     Fq), ``noise_cov`` (n_cov, n_pairs * Fq)) or from index sets
     (``idx5`` (n_pairs, H, k), ``idx17``, ``idx_cov``).  Nothing waits
     for the card; every gate is a device tensor."""
     n_pairs = nq_rig * nc_rig
     dev = qo.device
-    midx, _, _ = d_ops.hamming_ratio_match(q_desc, qmask, c_desc, cmask, Fc,
-                                           img_match_thres, ratio_thres)
+    ratio_match = d_ops.hamming_ratio_match if metric == "hamming" else d_ops.l2_ratio_match
+    midx, _, _ = ratio_match(q_desc, qmask, c_desc, cmask, Fc, img_match_thres, ratio_thres)
     # pair k = iq * nc_rig + jc: rows of query keyframe iq, segment jc
     midx = midx.view(nq_rig, Fq, nc_rig).permute(0, 2, 1).reshape(n_pairs, Fq)
     matched = midx >= 0
@@ -406,8 +408,8 @@ def dispatch_covinsg_verify(rig_q: dict, rig_c: dict, cam_q: cam_mod.Camera,
     """Upload the two rigs and the Gumbel noise (one pinned copy per dtype
     on a card) and queue :func:`covinsg_verify`; no host sync.  A rig is
     ``uv`` (R * F, 2) float64 distorted pixels, ``T`` (R, 7) the keyframe
-    cameras' poses in the anchor frame, ``desc`` (R * F, 32) uint8 and
-    ``mask`` (R * F,) bool; ``params`` the scalar thresholds and the sizes
+    cameras' poses in the anchor frame, ``desc`` (R * F, 32) uint8 or
+    (R * F, 128) float32 and ``mask`` (R * F,) bool; ``params`` the scalar thresholds and the sizes
     of :func:`covinsg_verify`; ``noise`` its ``noise5``, ``noise17`` and
     ``noise_cov`` (numpy).  Returns the job for
     :func:`fetch_covinsg_verify`."""

@@ -2,10 +2,12 @@
 `SearchBySE3` matching, `feature_matcher_be.cpp:168-501`).
 
 Counterpart of `covins_tpu/ops/projmatch.py`.  :func:`project_match_core`
-is the whole of `_project_match_impl` for ORB descriptors: the per-
-landmark prologue (projection, depth / image / view-angle / distance-
-invariance gates, the predicted pyramid level), the per-feature radius,
-the gated Hamming row argmin and the scatter-min feature-conflict pass.
+is the whole of `_project_match_impl`: the per-landmark prologue
+(projection, depth / image / view-angle / distance-invariance gates, the
+predicted pyramid level), the per-feature radius, the gated descriptor
+row argmin and the scatter-min feature-conflict pass, with the Hamming
+metric for uint8 (ORB) descriptors and the L2 metric for float32 (SIFT)
+ones (:func:`l2_desc_distance`, float64 distances).
 On the card it is one kernel launch (K5, `csrc/project_match.cu`); CPU
 tensors take its plain version, :func:`project_match_plain`.  For a
 camera model the kernel's prologue does not cover (anything but a pinhole
@@ -19,8 +21,9 @@ into a fused multiply-add or sum in another order on the card, and the
 kernel is held to the plain version bit for bit.
 
 Reference quirks kept: the predicted level uses log 1.2 while the radius
-scales with 2^octave; two landmarks whose float32 conflict scores round
-equal both keep the feature.
+scales with 2^octave; two landmarks whose conflict scores (float32 with
+the Hamming metric, float64 with L2) round equal both keep the feature;
+the L2 metric's cross term is rounded to float32.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from covins_tpu_torch.ops import descriptors as d_ops
 from covins_tpu_torch.ops import linalg
 from covins_tpu_torch.utils import cameras as cam_mod
 
-BIG = 1e9  # gated distances (float32), as the reference
+BIG = 1e9  # gated distances (float32; float64 with the L2 metric), as the reference
 LOG_LEVEL = math.log(1.2)  # the predicted level's log base, as the reference
 _ROW_CHUNK = 2048  # rows of the plain (L, F) matrices held at once
 
@@ -91,18 +94,40 @@ def _prologue(cam, T_cw, p_w, lm_normal, lm_mask, lm_dist_rng, img_w, img_h,
     return uv, lm_ok, pred, has_rng
 
 
+def l2_desc_distance(lm_f32: torch.Tensor, kp_f32: torch.Tensor) -> torch.Tensor:
+    """(L, 128) x (F, 128) float32 -> (L, F) float64: the reference's
+    descriptor distance of the L2 metric, ``sqrt(max(l2_distance_sq(a, b),
+    0))`` on float64 casts (`projmatch.py:116-118`), whose ``dot_general``
+    with ``preferred_element_type=float32`` rounds the cross term to
+    float32 and doubles it there.  Here ``aa``, ``bb`` and ``ab`` are
+    float64 running sums over the dimensions in K5's order, ``ab`` then
+    rounded to float32; the rest in float64, the clamp keeping NaN."""
+    a, b = lm_f32.to(torch.float64), kp_f32.to(torch.float64)
+    aa, bb = d_ops.sum_squares(a), d_ops.sum_squares(b)
+    bt = b.t().contiguous()
+    ab = torch.zeros((a.shape[0], b.shape[0]), dtype=torch.float64, device=a.device)
+    for k in range(a.shape[1]):
+        ab += a[:, k, None] * bt[k]
+    two_ab = (2.0 * ab.to(torch.float32)).to(torch.float64)
+    return linalg.sqrt_rn(torch.clamp((aa[:, None] + bb) - two_ab, min=0.0))
+
+
 def gated_match_plain(uv, lm_ok, pred, has_rng, lm_desc, kp_uv, kp_oct,
                       radius, kp_free, kp_desc, max_dist: float):
     """The O(L*F) part of project-and-match after the prologue.  Entries
     of a landmark that failed its own gates, or of a feature that is not
     free, are 1e9 whatever else holds, so the (L, F) matrices are built
     only over the passing rows and free columns, in row chunks; a row
-    whose entries are all 1e9 takes feature 0, as `argmin` does."""
+    whose entries are all 1e9 takes feature 0, as `argmin` does.  uint8
+    descriptors take the Hamming metric in float32, float32 ones the L2
+    metric in float64 (:func:`l2_desc_distance`)."""
     L, F = uv.shape[0], kp_uv.shape[0]
     dev = uv.device
-    big = torch.tensor(BIG, dtype=torch.float32, device=dev)
+    l2 = lm_desc.dtype != torch.uint8
+    fdt = torch.float64 if l2 else torch.float32
+    big = torch.tensor(BIG, dtype=fdt, device=dev)
     best_f = torch.zeros(L, dtype=torch.int64, device=dev)
-    best_d = torch.full((L,), BIG, dtype=torch.float32, device=dev)
+    best_d = torch.full((L,), BIG, dtype=fdt, device=dev)
     rows = torch.nonzero(lm_ok).flatten()
     cols = torch.nonzero(kp_free).flatten()
     if len(rows) and len(cols):
@@ -116,15 +141,16 @@ def gated_match_plain(uv, lm_ok, pred, has_rng, lm_desc, kp_uv, kp_oct,
             oct_ok = (torch.abs(k_oct[None, :] - pred[r, None]) <= 1.0) \
                 | ~has_rng[r, None]
             in_radius = (d_px <= k_rad[None, :]) & oct_ok
-            desc = d_ops.hamming_distance(lm_desc[r], k_desc).to(torch.float32)
+            desc = (l2_desc_distance(lm_desc[r], k_desc) if l2
+                    else d_ops.hamming_distance(lm_desc[r], k_desc).to(torch.float32))
             d, f = torch.min(torch.where(in_radius, desc, big), dim=1)
             best_f[r] = torch.where(d < big, cols[f], 0)
             best_d[r] = d
     valid = best_d <= max_dist
-    lrows = torch.arange(L, dtype=torch.float32, device=dev)
-    score = best_d + lrows * torch.tensor(1e-7, dtype=torch.float32, device=dev)
+    lrows = torch.arange(L, dtype=fdt, device=dev)
+    score = best_d + lrows * torch.tensor(1e-7, dtype=fdt, device=dev)
     score = torch.where(valid, score, big)
-    col_min = torch.full((F,), BIG, dtype=torch.float32, device=dev)
+    col_min = torch.full((F,), BIG, dtype=fdt, device=dev)
     col_min = col_min.scatter_reduce(0, best_f, score, reduce="amin")
     winner = valid & (score <= col_min[best_f])
     return (torch.where(winner, best_f, -1).to(torch.int32),
@@ -154,14 +180,17 @@ def project_match_core(cam, T_cw, p_w, lm_desc, lm_normal, lm_mask,
                        radius_px: float, max_dist: float, img_w: float,
                        img_h: float, check_view_angle: bool = True,
                        scale_factor: float = 2.0):
-    """`_project_match_impl` for uint8 (ORB) descriptors (K5).
+    """`_project_match_impl` (K5), with the Hamming metric for uint8 (ORB)
+    descriptors and the L2 metric for float32 (SIFT) ones.
 
     Landmark side: T_cw (7,) world -> camera, p_w (L, 3), lm_normal (L, 3),
-    lm_dist_rng (L, 2) float64, lm_mask (L,) bool, lm_desc (L, 32) uint8.
-    Feature side: kp_uv (F, 2), kp_octave (F,) float64, kp_free (F,) bool,
-    kp_desc (F, 32) uint8.  Returns ``(match_feat (L,) int32, -1 = none;
-    dist (L,) float32, 1e9 = none)``.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel, one launch per call, or raise."""
+    lm_dist_rng (L, 2) float64, lm_mask (L,) bool, lm_desc (L, 32) uint8
+    or (L, 128) float32.  Feature side: kp_uv (F, 2), kp_octave (F,)
+    float64, kp_free (F,) bool, kp_desc (F, 32) uint8 or (F, 128) float32.
+    Returns ``(match_feat (L,) int32, -1 = none; dist (L,), 1e9 = none)``,
+    dist float32 (Hamming) or float64 (L2).  CPU tensors take the plain
+    version; CUDA tensors launch the kernel, one launch per call, or
+    raise."""
     ts = (T_cw, p_w, lm_desc, lm_normal, lm_mask, lm_dist_rng, kp_uv, kp_desc,
           kp_octave, kp_free, cam.intrinsics, cam.dist)
     if all(is_cpu(t) for t in ts):
@@ -172,8 +201,10 @@ def project_match_core(cam, T_cw, p_w, lm_desc, lm_normal, lm_mask,
     dev = check_cuda("project_match_core", *ts)
     L, F = p_w.shape[0], kp_uv.shape[0]
     f64, b8 = torch.float64, torch.bool
-    d_ops._check_desc("project_match_core lm_desc", lm_desc, 2)
-    d_ops._check_desc("project_match_core kp_desc", kp_desc, 2)
+    l2 = lm_desc.dtype != torch.uint8
+    check_desc = d_ops._check_f32 if l2 else (lambda name, t: d_ops._check_desc(name, t, 2))
+    check_desc("project_match_core lm_desc", lm_desc)
+    check_desc("project_match_core kp_desc", kp_desc)
     if lm_desc.shape[0] != L or kp_desc.shape[0] != F or F == 0:
         raise ValueError("project_match_core: descriptor rows do not match")
     ptrs = [_checked(*a) for a in (
@@ -195,18 +226,21 @@ def project_match_core(cam, T_cw, p_w, lm_desc, lm_normal, lm_mask,
                                            ((L, 2), (L,), (L,), (L,)), (f64, b8, f64, b8))]
         inputs = [0] * 7
     match_feat = torch.empty(L, dtype=torch.int32, device=dev)
-    match_dist = torch.empty(L, dtype=torch.float32, device=dev)
+    match_dist = torch.empty(L, dtype=f64 if l2 else torch.float32, device=dev)
     if L == 0:
         return match_feat, match_dist
-    # scratch: radius (F,) f64, col_min (F,) int32, best_f, best_d (L,)
-    scratch = torch.empty(12 * F + 8 * L, dtype=torch.uint8, device=dev)
+    # scratch: radius (F,) f64, col_min (F,), [each feature's squares (F,)
+    # f64,] best_d and best_f (L,)
+    scratch = torch.empty(24 * F + 12 * L if l2 else 12 * F + 8 * L, dtype=torch.uint8,
+                          device=dev)
     lib = cuda_build.library("project_match")
     with torch.cuda.device(dev):
         rc = lib.covins_project_match(
             int(fused), *inputs[:2], int(cam.dist_model) if fused else 0, *inputs[2:],
             int(bool(check_view_angle)), float(img_w), float(img_h), LOG_LEVEL, *given,
             lm_desc.data_ptr(), L, ptrs[0], ptrs[1], ptrs[2], kp_desc.data_ptr(), F,
-            float(radius_px), float(scale_factor), float(max_dist), scratch.data_ptr(),
+            float(radius_px), float(scale_factor), float(max_dist), int(l2),
+            scratch.data_ptr(),
             match_feat.data_ptr(), match_dist.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, "project_match_core")
@@ -220,12 +254,10 @@ project_match_core.launches = 0
 def project_match(cam, T_cw, p_w, lm_desc, lm_normal, lm_mask, kp_uv,
                   kp_desc, kp_octave, kp_free, radius_px, max_dist, img_w,
                   img_h, check_view_angle=True, lm_dist_rng=None):
-    """SearchByProjection: match landmarks to a keyframe's free features.
-    Returns (match_feat (L,) int32 with -1 = no match, best_dist (L,))."""
-    if lm_desc.dtype != torch.uint8:
-        raise NotImplementedError(
-            "covins_tpu_torch matches binary (ORB) descriptors only; the "
-            "SIFT/L2 path belongs to the SIFT slice of the port")
+    """SearchByProjection: match landmarks to a keyframe's free features,
+    by Hamming distance for uint8 descriptors and by L2 distance for
+    float32 ones (SIFT, as the maps store them).  Returns (match_feat (L,)
+    int32 with -1 = no match, best_dist (L,))."""
     f64 = dict(dtype=torch.float64, device=p_w.device)
     if lm_dist_rng is None:
         lm_dist_rng = torch.zeros((p_w.shape[0], 2), **f64)

@@ -4,7 +4,8 @@ Every function here takes plain numpy arrays or objects that only look
 like the JAX package's (matched by class name and fields), so the port
 imports nothing of that package:
 
-* :func:`vocabulary_from_reference` — a (V, 32) uint8 vocabulary;
+* :func:`vocabulary_from_reference` — a (V, 32) uint8 vocabulary (ORB)
+  or (V, 128) float32 centres (SIFT);
 * :func:`database_from_reference` — a `KeyframeDatabase` from the
   reference database's matrix, row ids and mask;
 * :func:`messages_from_reference` — a reference message dataclass into the
@@ -39,11 +40,13 @@ _MESSAGE_TYPES = {cls.__name__: cls for cls in (
 
 
 def vocabulary_from_reference(vocab) -> np.ndarray:
-    """(V, 32) uint8 words, contiguous; raises on anything else."""
+    """(V, 32) uint8 words or (V, 128) float32 centres, contiguous; raises
+    on anything else."""
     vocab = np.ascontiguousarray(np.asarray(vocab))
-    if vocab.dtype != np.uint8 or vocab.ndim != 2 or vocab.shape[1] != 32:
-        raise ValueError(f"expected a (V, 32) uint8 vocabulary, got "
-                         f"{vocab.shape} {vocab.dtype}")
+    if vocab.ndim != 2 or (vocab.dtype, vocab.shape[1]) not in (
+            (np.dtype(np.uint8), 32), (np.dtype(np.float32), 128)):
+        raise ValueError(f"expected a (V, 32) uint8 or (V, 128) float32 vocabulary, "
+                         f"got {vocab.shape} {vocab.dtype}")
     return vocab
 
 

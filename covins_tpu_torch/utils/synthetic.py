@@ -296,7 +296,7 @@ SCENE_CAMERAS = {
 
 
 def project_match_scene(rng: np.random.Generator, L, F, device, camera="radtan",
-                        view_angle=False, fail=False):
+                        view_angle=False, fail=False, sift=False):
     """(args, kwargs) of `ops.projmatch.project_match_core` for a random
     scene of L landmarks and F features seen by a EuRoC-like camera (752 x
     480): landmarks in front of and behind it, features near some
@@ -305,7 +305,10 @@ def project_match_scene(rng: np.random.Generator, L, F, device, camera="radtan",
     ranges, some zero (their gates skipped).  ``camera``: "pinhole" (no
     distortion) and "radtan", whose prologue K5 computes, or "omni" (the
     unified model) and "equidistant", whose prologue the wrapper computes
-    in PyTorch and hands to the kernel; ``fail`` masks every landmark."""
+    in PyTorch and hands to the kernel; ``fail`` masks every landmark;
+    ``sift`` gives (128) float32 descriptors (:func:`sift_descriptors`, a
+    feature's with N(0, 8) added and the absolute value taken) and an L2
+    gate of 150 in place of 50 bits."""
     from covins_tpu_torch.utils import cameras as cam
     from covins_tpu_torch.utils import geometry as geo
 
@@ -321,9 +324,14 @@ def project_match_scene(rng: np.random.Generator, L, F, device, camera="radtan",
     uv_l = cam.project3(c, torch.where(p_c[:, 2:] > 0.1, p_c, 1.0))[0].numpy()
     src = rng.choice(L, F)
     kp_uv = uv_l[src] + rng.normal(scale=3.0, size=(F, 2))
-    lm_desc = rng.integers(0, 256, (L, 32), dtype=np.uint8)
-    kp_desc = lm_desc[src].copy()
-    kp_desc[np.arange(F), rng.integers(0, 32, F)] ^= rng.integers(0, 256, F).astype(np.uint8)
+    if sift:
+        lm_desc = sift_descriptors(rng, L)
+        kp_desc = np.abs(lm_desc[src] + rng.normal(0.0, 8.0, (F, 128))).astype(np.float32)
+    else:
+        lm_desc = rng.integers(0, 256, (L, 32), dtype=np.uint8)
+        kp_desc = lm_desc[src].copy()
+        kp_desc[np.arange(F), rng.integers(0, 32, F)] ^= rng.integers(0, 256, F).astype(
+            np.uint8)
     kp_desc[1::7] = kp_desc[0::7][: len(kp_desc[1::7])]
     kp_uv[1::7] = kp_uv[0::7][: len(kp_uv[1::7])]
     lm_desc[1::11] = lm_desc[0::11][: len(lm_desc[1::11])]
@@ -338,7 +346,7 @@ def project_match_scene(rng: np.random.Generator, L, F, device, camera="radtan",
                    dist_model)
     args = [c, t(T_cw), t(p_w), t(lm_desc), t(normals), t(lm_mask), t(lm_rng), t(kp_uv),
             t(kp_desc), t(rng.integers(0, 4, F).astype(np.float64)), t(rng.random(F) > 0.1),
-            6.0, 50.0, 752.0, 480.0]
+            6.0, 150.0 if sift else 50.0, 752.0, 480.0]
     return args, {"check_view_angle": view_angle}
 
 
@@ -408,28 +416,39 @@ def refresh_scene(rng: np.random.Generator, L, P):
     return pos, centers, octaves, d, mask
 
 
+def sift_descriptors(rng: np.random.Generator, n: int) -> np.ndarray:
+    """(n, 128) float32 SIFT-like descriptors, the synthetic agent's: |N(0,
+    1)| entries scaled to norm 512."""
+    d = np.abs(rng.standard_normal((n, 128))).astype(np.float32)
+    return d * (512.0 / np.linalg.norm(d, axis=-1, keepdims=True))
+
+
 def covins_g_scene(rng: np.random.Generator, F, nq_rig=2, nc_rig=3, n_points=100,
                    n_inliers=70, n_outliers=20, bit_flips=4, pixel_noise=0.1, spacing=0.6,
-                   intrinsics=(458.0, 458.0, 376.0, 240.0), size=(752.0, 480.0)):
+                   intrinsics=(458.0, 458.0, 376.0, 240.0), size=(752.0, 480.0),
+                   sift=False):
     """numpy inputs of `ops.loopverify.covinsg_verify` for two rigs that
     see one scene: ``n_points`` points in front of the query anchor with
     random descriptors; each of the query rig's ``nq_rig`` and the
     candidate rig's ``nc_rig`` keyframe cameras (pinhole, no distortion,
     the candidate rig's anchor at ``T_true`` in the query anchor's frame,
-    keyframes ``spacing`` metres apart) keeps ``n_inliers`` of its visible points
-    (pixels with ``pixel_noise``, descriptors with ``bit_flips`` bits
-    flipped) and ``n_outliers`` random features, of ``F`` slots (the rest
-    masked).  Returns a dict with the rays ``qo, qd, co, cd`` in their
-    anchor frames, descriptors ``q_desc, c_desc``, masks ``qmask,
-    cmask``, camera-frame bearings ``qbear, cbear``, the keyframe cameras'
-    poses ``q_T, c_T`` (R, 7) in their anchor frames, distorted pixels
-    ``q_uv, c_uv`` and ``T_true`` (7,)."""
+    keyframes ``spacing`` metres apart) keeps ``n_inliers`` of its visible
+    points (pixels with ``pixel_noise``, descriptors with ``bit_flips`` bits
+    flipped; with ``sift`` (128) float32 descriptors with N(0, 8) added and
+    the absolute value taken, as the synthetic agent observes them) and
+    ``n_outliers`` random features, of ``F`` slots (the rest masked).
+    Returns a dict with the rays ``qo, qd, co, cd`` in their anchor frames,
+    descriptors ``q_desc, c_desc``, masks ``qmask, cmask``, camera-frame
+    bearings ``qbear, cbear``, the keyframe cameras' poses ``q_T, c_T`` (R,
+    7) in their anchor frames, distorted pixels ``q_uv, c_uv`` and
+    ``T_true`` (7,)."""
     from covins_tpu_torch.utils import npgeo
 
     fx, fy, cx, cy = intrinsics
     pts = np.stack([rng.uniform(-4, 4, n_points), rng.uniform(-3, 3, n_points),
                     rng.uniform(5, 12, n_points)], 1)
-    pdesc = rng.integers(0, 256, (n_points, 32), dtype=np.uint8)
+    pdesc = (sift_descriptors(rng, n_points) if sift
+             else rng.integers(0, 256, (n_points, 32), dtype=np.uint8))
     w = rng.normal(size=3) * 0.1
     q = np.concatenate([[np.cos(np.linalg.norm(w) / 2)],
                         np.sin(np.linalg.norm(w) / 2) * w / np.linalg.norm(w)])
@@ -449,14 +468,17 @@ def covins_g_scene(rng: np.random.Generator, F, nq_rig=2, nc_rig=3, n_points=100
             n_in = len(keep)
             n_feat = min(F, n_in + n_outliers)
             kp = np.zeros((F, 2))
-            desc = np.zeros((F, 32), np.uint8)
+            desc = np.zeros((F,) + pdesc.shape[1:], pdesc.dtype)
             kp[:n_in] = uv[keep] + pixel_noise * rng.normal(size=(n_in, 2))
             desc[:n_in] = pdesc[keep]
-            for r in range(n_in):  # flip some bits of each true descriptor
+            if sift:
+                desc[:n_in] = np.abs(desc[:n_in] + rng.normal(0.0, 8.0, (n_in, 128)))
+            for r in range(0 if sift else n_in):  # flip some bits of each true descriptor
                 bits = rng.choice(256, bit_flips, replace=False)
                 desc[r, bits // 8] ^= (1 << (bits % 8)).astype(np.uint8)
             kp[n_in:n_feat] = rng.uniform([0, 0], size, (n_feat - n_in, 2))
-            desc[n_in:n_feat] = rng.integers(0, 256, (n_feat - n_in, 32), dtype=np.uint8)
+            desc[n_in:n_feat] = (sift_descriptors(rng, n_feat - n_in) if sift else
+                                 rng.integers(0, 256, (n_feat - n_in, 32), dtype=np.uint8))
             perm = rng.permutation(n_feat)
             kp[:n_feat], desc[:n_feat] = kp[perm], desc[perm]
             bear = np.stack([(kp[:, 0] - cx) / fx, (kp[:, 1] - cy) / fy, np.ones(F)], 1)
@@ -604,3 +626,47 @@ def ray_score_scene(rng: np.random.Generator, B, H, N, central=False, n_valid=No
     mask = np.arange(N)[None, :] < np.asarray(n_valid)[:, None]
     valid = rng.random((B, H)) > 0.3 if with_valid else None
     return (T, None if central else va, fa, None if central else vb, fb, mask, valid)
+
+
+def l2_match_scene(rng: np.random.Generator, M, seg, n_seg, case=None):
+    """numpy inputs ``(a, a_mask, b, b_mask)`` of `ops.descriptors.l2_argmin`
+    (``a``, ``b``, ``a_mask``) and `l2_ratio_match`: M query and ``seg *
+    n_seg`` candidate (128) float32 SIFT descriptors (:func:`sift_descriptors`),
+    half of the queries an observation of a candidate (N(0, 8) added, the
+    absolute value taken), a tenth of rows and columns masked.  ``case``:
+    "ties", a column repeated later in its segment, past a 64-column tile,
+    past a 256-column part and in the next segment, and query rows near it
+    (N(0, 4) added: equal distances to every copy, near 45); "all_masked",
+    every row masked; "one_valid", one valid column in the first segment;
+    "extremes", zero vectors and vectors of 1e4 (distances 0 and near
+    1.6e10)."""
+    N = seg * n_seg
+    b = sift_descriptors(rng, N)
+    a = sift_descriptors(rng, M)
+    src = rng.integers(0, N, M // 2)
+    a[: M // 2] = np.abs(b[src] + rng.normal(0.0, 8.0, (M // 2, 128)))
+    a_mask = rng.random(M) > 0.1
+    b_mask = rng.random(N) > 0.1
+    if case == "ties":
+        c = 3 % N
+        for c2 in (seg - 1, c + 70, c + 300, c + seg):
+            if c2 < N:
+                b[c2] = b[c]
+                b_mask[c2] = True
+        b_mask[c] = True
+        k = min(M, 8)
+        a[:k] = np.abs(b[c] + rng.normal(0.0, 4.0, (k, 128)))
+        a_mask[:k] = True
+    elif case == "all_masked":
+        a_mask[:] = False
+    elif case == "one_valid":
+        b_mask[:seg] = False
+        b_mask[seg // 2] = True
+    elif case == "extremes":
+        b[0] = 0.0
+        a[0] = 0.0
+        b[min(1, N - 1)] = 1e4
+        a[min(1, M - 1)] = 1e4
+        a_mask[:2] = True
+        b_mask[:2] = True
+    return a.astype(np.float32), a_mask, b.astype(np.float32), b_mask

@@ -60,7 +60,15 @@ different ray counts; K12's central 5-point RANSAC whole (one launch)
 every pose bit for bit, its validity, the counts, the best pose, count
 and inliers exactly, at the drain's 6 x 50 samples over 1024 rays from
 noise and from given sets, ragged, and with degenerate pairs; all the
-same across two launches.
+same across two launches.  K13 (the L2 word assignment) and K14 (the L2
+top-2 ratio match per column segment) bit for bit with their plain
+versions (one written float32 summation order, no FMA contraction): the
+word ids, the minima, the indices and both distances, with ties inside
+and across 64-column tiles, 256-column parts and segments, masked rows,
+masked columns, a segment with one valid column, zero and large vectors,
+row counts that are not a multiple of a tile and a vocabulary of 1024;
+K5's L2 metric (float32 SIFT descriptors, float64 distances) its matches
+and distances exactly, as its Hamming metric.
 """
 
 import numpy as np
@@ -69,8 +77,8 @@ import torch
 
 from covins_tpu_torch.ops import (bow, descriptors, epipolar, landmark_ops, pgo, pnp,
                                   projmatch)
-from covins_tpu_torch.utils.synthetic import (central_5pt_scene, p3p_scene,
-                                              project_match_scene,
+from covins_tpu_torch.utils.synthetic import (central_5pt_scene, l2_match_scene,
+                                              p3p_scene, project_match_scene,
                                               ratio_match_scene, ray_score_scene,
                                               stacked_states)
 
@@ -386,7 +394,11 @@ def test_hamming_mutual_nn_edge_cases_match_plain(dev, case):
 # wrapper computes in PyTorch (the unified model, equidistant distortion)
 K5_CASES = {"pinhole": dict(camera="pinhole"), "radtan_view_angle": dict(view_angle=True),
             "all_fail": dict(fail=True), "omni_given": dict(camera="omni"),
-            "equidistant_given": dict(camera="equidistant")}
+            "equidistant_given": dict(camera="equidistant"),
+            # the L2 metric over float32 (SIFT) descriptors
+            "sift": dict(sift=True), "sift_view_angle": dict(sift=True, view_angle=True),
+            "sift_all_fail": dict(sift=True, fail=True),
+            "sift_omni_given": dict(sift=True, camera="omni")}
 
 
 @pytest.mark.parametrize("case", list(K5_CASES))
@@ -404,7 +416,7 @@ def test_project_match_kernel_matches_plain(dev, L, F, case):
     assert torch.equal(dist, rdist)
     again = projmatch.project_match_core(*args, **kw)
     assert torch.equal(again[0], feat) and torch.equal(again[1], dist)
-    if case == "all_fail":
+    if case.endswith("all_fail"):
         assert not bool((feat >= 0).any())
     elif L >= 37 and F >= 70:
         assert int((feat >= 0).sum()) > 0
@@ -1126,3 +1138,120 @@ def test_covinsg_verify_on_the_card_matches_the_cpu(dev, solver):
                 spread[k] = max(spread[k], rel(moved, k))
     for k in spread:
         assert rel(card, k) <= spread[k], (k, rel(card, k), spread)
+
+
+# ------------------------------------------------------------------ K13, K14
+@pytest.mark.parametrize("M,N,case", [
+    (1, 1, None), (37, 13, None), (130, 512, "ties"), (700, 1000, None),
+    (12 * 1024, 512, None), (3000, 1024, "ties"), (65, 1024, "all_masked"),
+    (50, 700, "extremes"), (6, 1024, "no_mask")])
+def test_l2_argmin_matches_plain(dev, M, N, case):
+    """K13 against its plain version: word ids and minima bit for bit, the
+    same across two launches, one launch a call; ties to the lower word."""
+    rng = np.random.default_rng(M + N)
+    a, am, b, _ = l2_match_scene(rng, M, N, 1, None if case == "no_mask" else case)
+    ta, tb = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+    tm = None if case == "no_mask" else torch.from_numpy(am).to(dev)
+    n0 = descriptors.l2_argmin.launches
+    idx, dmin = descriptors.l2_argmin(ta, tb, tm)
+    idx2, dmin2 = descriptors.l2_argmin(ta, tb, tm)
+    ridx, rdmin = descriptors.l2_argmin_plain(ta, tb, tm)
+    torch.cuda.synchronize()
+    assert descriptors.l2_argmin.launches == n0 + 2
+    assert idx.dtype == torch.int32 and dmin.dtype == torch.float32
+    assert torch.equal(idx, ridx) and torch.equal(dmin, rdmin)
+    assert torch.equal(idx, idx2) and torch.equal(dmin, dmin2)
+    if case == "ties":
+        assert (idx[:8] == 3).all() and (dmin[:8] > 0).all()
+    if case == "all_masked":
+        assert (idx == -1).all()
+
+
+def test_l2_argmin_refuses_bad_inputs(dev):
+    a = torch.zeros((8, 128), dtype=torch.float32, device=dev)
+    shifted = torch.zeros(8 * 128 + 1, dtype=torch.float32, device=dev)[1:]
+    with pytest.raises(ValueError):
+        descriptors.l2_argmin(a[:, :64].contiguous(), a)  # not 128 dimensions
+    with pytest.raises(ValueError):
+        descriptors.l2_argmin(a.double(), a)
+    with pytest.raises(ValueError):
+        descriptors.l2_argmin(shifted.view(8, 128), a)  # not 16-byte aligned
+    with pytest.raises(ValueError):
+        descriptors.l2_argmin(a, a, torch.ones(8, device=dev))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        descriptors.l2_argmin(a, a.cpu())
+
+
+@pytest.mark.parametrize("M,seg,n_seg,case,ratio", [
+    (1, 2, 1, None, 0.8), (37, 13, 3, None, 0.8), (2048, 1024, 3, None, 0.8),
+    (100, 1500, 2, "ties", 0.8), (100, 1500, 2, "ties", 1.5), (64, 1030, 3, "ties", 1.5),
+    (50, 40, 3, "all_masked", 0.8), (33, 300, 2, "one_valid", 0.8),
+    (20, 100, 2, "extremes", 0.8), (6, 512, 40, None, 0.8)])
+def test_l2_ratio_match_matches_plain(dev, M, seg, n_seg, case, ratio):
+    """K14 against its plain version: indices, d1 and d2 bit for bit, the
+    same across two launches, one launch a call.  A tie at the best
+    distance (d1 = d2) fails a ratio gate below 1, so the tie cases also
+    run with ratio 1.5, where the lower column's index shows."""
+    rng = np.random.default_rng(M + seg)
+    t = [torch.from_numpy(x).to(dev) for x in l2_match_scene(rng, M, seg, n_seg, case)]
+    max_dist = 500.0
+    n0 = descriptors.l2_ratio_match.launches
+    got = descriptors.l2_ratio_match(*t, seg, max_dist, ratio)
+    again = descriptors.l2_ratio_match(*t, seg, max_dist, ratio)
+    plain = descriptors.l2_ratio_match_plain(*t, seg, max_dist, ratio)
+    torch.cuda.synchronize()
+    assert descriptors.l2_ratio_match.launches == n0 + 2
+    assert got[0].dtype == torch.int32 and got[1].dtype == got[2].dtype == torch.float32
+    for g, a, p in zip(got, again, plain):
+        assert torch.equal(g, p) and torch.equal(g, a)
+    if case == "ties":
+        assert (got[1][:8, 0] == got[2][:8, 0]).all() and (got[1][:8, 0] > 0).all()
+        assert (got[0][:8, 0] == (3 if ratio > 1 else -1)).all()
+    if case == "all_masked":
+        assert (got[0] == -1).all() and (got[1] == 2**30).all()
+    if case == "one_valid":
+        assert (got[2][:, 0] == 2**30).all()
+    if M > 10 and case != "all_masked":
+        assert int((got[0] >= 0).sum()) > 0
+
+
+def test_l2_ratio_match_refuses_bad_inputs(dev):
+    a = torch.zeros((4, 128), dtype=torch.float32, device=dev)
+    m = torch.ones(4, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="segments"):
+        descriptors.l2_ratio_match(a, m, a[:3], m[:3], 2, 500.0, 0.8)
+    with pytest.raises(ValueError, match="two columns"):
+        descriptors.l2_ratio_match(a, m, a, m, 1, 500.0, 0.8)
+    with pytest.raises(ValueError):
+        descriptors.l2_ratio_match(a[:, :64].contiguous(), m, a, m, 2, 500.0, 0.8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        descriptors.l2_ratio_match(a, m, a.cpu(), m.cpu(), 2, 500.0, 0.8)
+
+
+def test_insert_and_score_l2_matches_the_cpu(dev):
+    """A SIFT window's insert-and-score on the card (K13, then K3, reading
+    one packed upload) against the CPU's plain versions: the database rows
+    and the (W, 2, n) result bit for bit."""
+    from covins_tpu_torch.models.kf_database import KeyframeDatabase
+    from covins_tpu_torch.utils.synthetic import sift_descriptors
+
+    rng = np.random.default_rng(9)
+    vocab = sift_descriptors(rng, 512)
+    kfs = [np.abs(vocab[rng.integers(0, 512, n)] + rng.normal(0.0, 30.0, (n, 128))
+                  ).astype(np.float32) for n in (1024, 700, 1, 1024)]
+    ids = [(i, 0) for i in range(len(kfs))]
+    out = []
+    for d in (dev, "cpu"):
+        db = KeyframeDatabase(vocab, capacity=4, device=d)
+        n13, n3 = descriptors.l2_argmin.launches, bow.bow_insert_score.launches
+        res = db.add_and_query_batch(ids, kfs)
+        res += db.add_and_query_batch([(9, 1)], kfs[:1])
+        if d is dev:
+            assert descriptors.l2_argmin.launches == n13 + 2
+            assert bow.bow_insert_score.launches == n3 + 2
+        out.append((db.db.cpu(), res))
+    (g_db, g_res), (c_db, c_res) = out
+    assert torch.equal(g_db, c_db)
+    for g, c in zip(g_res, c_res):
+        assert np.array_equal(g["scores"], c["scores"]) and np.array_equal(g["common"],
+                                                                            c["common"])

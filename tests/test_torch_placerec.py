@@ -121,14 +121,23 @@ def test_slice_matches_reference(world_vocab, scenario):
 
 
 def test_covins_g_is_refused(world_vocab):
-    """COVINS-G runs (test_covins_g_slice_matches_reference); SIFT
-    descriptors, in either mode, are still refused."""
+    """COVINS-G runs over ORB (test_covins_g_slice_matches_reference) and
+    over SIFT descriptors (tests/test_torch_sift.py): both construct.  Only
+    COVINS over SIFT is refused, which the reference cannot run either (its
+    COVINS verification matches binary descriptors)."""
     _, vocab = world_vocab
-    cfg = Config(placerec_type="COVINS_G", feat_type="SIFT")
+    sift = dict(feat_type="SIFT", desc_length=128)
+    cfg = Config(placerec_type="COVINS", **sift)
     mgr = MapManager(vocab, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="SIFT"):
+    with pytest.raises(NotImplementedError, match="COVINS-G"):
         AgentSession(0, mgr, cfg)
     AgentSession(0, mgr, Config(placerec_type="COVINS_G"))
+    sift_vocab = np.abs(np.random.default_rng(0).normal(size=(16, 128))).astype(np.float32)
+    g_cfg = Config(placerec_type="COVINS_G", **sift)
+    g_mgr = MapManager(sift_vocab, g_cfg, device="cpu")
+    AgentSession(0, g_mgr, g_cfg)
+    assert g_mgr.database.metric == "l2"
+    assert g_mgr.map_of(0).descriptors.dtype == np.float32
 
 
 def test_process_keyframe_matches_reference(world_vocab):

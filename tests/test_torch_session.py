@@ -183,13 +183,18 @@ def test_reference_checkpoint_loads_into_port(runs, tmp_path):
 
 
 def test_placerec_active_is_refused(streams):
-    """Place recognition over SIFT descriptors is refused (COVINS-G over
-    ORB runs); the message names the way out."""
+    """Place recognition over SIFT descriptors in the default COVINS mode is
+    refused, as the reference runs SIFT in COVINS-G only; the message names
+    the ways out, and both construct: COVINS-G over SIFT, and SIFT with
+    place recognition off."""
     _, _, vocab = streams
-    cfg = Config(placerec_active=True, feat_type="SIFT")
+    cfg = Config(placerec_active=True, feat_type="SIFT", desc_length=128)
     mgr = MapManager(vocab, cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="placerec_active=False"):
         AgentSession(0, mgr, cfg)
+    for ok in (Config(placerec_type="COVINS_G", feat_type="SIFT", desc_length=128),
+               Config(placerec_active=False, feat_type="SIFT", desc_length=128)):
+        AgentSession(0, MapManager(vocab, ok, device="cpu"), ok)
 
 
 def test_trajectory_writers_match_reference(runs, tmp_path):
