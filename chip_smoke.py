@@ -56,11 +56,17 @@ package beside it.  Phases:
    bit for bit, its bound from FIVE_POINT_OPS; all the same across two
    launches; K13 (the L2 word assignment over 128 float32 dimensions, at
    a SIFT window's 12 x 1024 rows against 512 words, at 65536 x 1024,
-   ragged, ties, every row masked, zero and large vectors) and K14 (the L2
-   top-2 ratio match per segment, at the verification's 2048 x 3072 in
-   segments of 1024, ties, masked rows and columns, a segment with one
-   valid column) bit for bit, beside one float32 ``torch.matmul`` and
-   ``argmin`` or ``topk``; K5's L2 metric (float64 distances) at stage 3's
+   ragged, ties, every row masked, zero and large vectors, more
+   near-equidistant words than a row keeps candidates, distances one ulp
+   apart) and K14 (the L2 top-2 ratio match per segment, at the
+   verification's 2048 x 3072 in segments of 1024, ties, masked rows and
+   columns, a segment with one valid column, the same two scenes, a
+   masked row tile and segments of 0, 1 and 2 valid columns) bit for bit,
+   beside one float32 ``torch.matmul`` and ``argmin`` or ``topk``, with
+   their tensor-core filter's candidates a row, rescanned rows and error
+   (:func:`l2_filter_error`: within its bound on every pair, the
+   product's share at most C_TC / 8; also on the SIFT phase's replayed
+   inputs); K5's L2 metric (float64 distances) at stage 3's
    1024 x 1024 and stage 5's 10,070 x 1,024 exactly;
 2. the full main path at the workload of the JAX package's benchmark
    (2 agents x 128 KF over 2000 landmarks, 512-word vocabulary trained on
@@ -148,10 +154,11 @@ import time
 
 import numpy as np
 
-# published peaks of one H100 SXM (dense): HBM bytes/s, int8 tensor ops/s,
-# float32 and float64 ops/s outside the tensor cores
+# published peaks of one H100 SXM (dense): HBM bytes/s, int8 and TF32
+# tensor ops/s, float32 and float64 ops/s outside the tensor cores
 HBM_BYTES_S = 3.35e12
 INT8_OPS_S = 1979e12
+TF32_OPS_S = 495e12
 FP32_OPS_S = 67e12
 FP64_OPS_S = 34e12
 
@@ -580,9 +587,59 @@ def l2_bytes_ops(m, n, valid_rows, valid_cols, out_bytes):
     return nbytes, ops
 
 
+def l2_filter_error(a, b):
+    """The tensor-core filter of K13 and K14 on the card against its bound,
+    over every pair of ``a`` and ``b``, from the real kernel's filter
+    distance (`descriptors.l2_filter_values`): within
+    ``l2_filter_threshold`` of the plain distance everywhere, and the
+    product's share of the error, (|d~ - d| - 4u (aa + bb)) / (2 sqrt(aa
+    bb)) (the two subtractions' rounding taken off), at most C_TC / 8.
+    Returns the largest |d~ - d| / sqrt(aa bb) and that share, each over
+    C_TC."""
+    import torch
+
+    from covins_tpu_torch.ops import descriptors as d
+
+    aa, bb = d.sum_squares(a).double(), d.sum_squares(b).double()
+    raw = product = 0.0
+    for r0 in range(0, a.shape[0], 8192):
+        rows = slice(r0, r0 + 8192)
+        err = (d.l2_filter_values(a[rows], b).double()
+               - d.l2_distance_sq(a[rows], b).double()).abs()
+        check(bool((err <= d.l2_filter_threshold(aa[rows], bb)).all()),
+              f"the L2 filter leaves its bound T at {tuple(a.shape)}x{tuple(b.shape)}")
+        scale = torch.sqrt(aa[rows, None] * bb[None, :])
+        safe = torch.where(scale > 0, scale, 1.0)
+        rounding = 2.0 ** -22 * (aa[rows, None] + bb[None, :])
+        raw = max(raw, float(torch.where(scale > 0, err / safe, 0.0).max().item()))
+        share = torch.where(scale > 0, (err - rounding).clamp(min=0.0) / (2 * safe), 0.0)
+        product = max(product, float(share.max().item()))
+    raw, product = raw / d.L2_FILTER_REL_ERR, product / d.L2_FILTER_REL_ERR
+    check(product <= 1 / 8, f"the L2 filter's product error is {product} C_TC "
+                            "(at most 1/8 allowed)")
+    return raw, product
+
+
+def l2_filter_row(counts, nbytes, ops, pairs_tc, seg, errs):
+    """The filter's readings of one K13 / K14 call (the kernel's counters
+    after it) and this design's own floor: three TF32 products a computed
+    pair, then 256 float32 operations a candidate and, for a rescanned
+    row, a pair of its at most ``seg`` columns, beside the float32 work the
+    exact answer needs (``ops``)."""
+    lists, cands, most, over = (int(x) for x in counts.tolist())
+    exact = 256.0 * (cands + over * seg)
+    tc, by = bound(nbytes, (6.0 * 128 * pairs_tc, TF32_OPS_S), (ops - 256.0 * pairs_tc + exact,
+                                                              FP32_OPS_S))
+    return {"candidates_mean": cands / max(lists - over, 1), "candidates_max": most,
+            "overflow_rows": over, "filtered_rows": lists, "filter_err_over_c_tc": errs[0],
+            "filter_product_err_over_c_tc": errs[1], "design_bound_ms": tc,
+            "design_bound_by": by}
+
+
 def k13_case(a, b, mask, reps):
     """K13 (l2_argmin) against its plain version: word ids and minima bit
-    for bit, the same across two launches, one launch a call."""
+    for bit, the same across two launches, one launch a call; its filter's
+    candidates and error (:func:`l2_filter_row`)."""
     import torch
 
     from covins_tpu_torch.ops import descriptors as d
@@ -590,9 +647,12 @@ def k13_case(a, b, mask, reps):
     def kernel():
         return d.l2_argmin(a, b, mask)
 
+    counts = d.l2_filter_counts(a.device)
+    counts.zero_()
     before = d.l2_argmin.launches
     idx, dmin = kernel()
     check(d.l2_argmin.launches == before + 1, "K13 did not launch once per call")
+    counts = counts.clone()
     idx2, dmin2 = kernel()
     idx_p, dmin_p = d.l2_argmin_plain(a, b, mask)
     torch.cuda.synchronize()
@@ -605,7 +665,11 @@ def k13_case(a, b, mask, reps):
     rows = m if mask is None else int(mask.sum().item())
     nbytes, ops = l2_bytes_ops(m, n, rows, n, 8 * m)
     bnd, by = bound(nbytes, (ops, FP32_OPS_S))
+    # the kernel computes masked rows too
+    filt = l2_filter_row(counts, nbytes, l2_bytes_ops(m, n, m, n, 8 * m)[1], m * n, n,
+                         l2_filter_error(a, b))
     return {
+        **filt,
         "kernel_ms": cuda_ms(kernel, reps), "busy_ms": busy_ms(kernel, reps),
         "plain_ms": cuda_ms(lambda: d.l2_argmin_plain(a, b, mask), 3),
         "library_ms": cuda_ms(lambda: torch.argmin(l2_library(a, b), dim=1), reps),
@@ -629,9 +693,12 @@ def k14_case(a, am, b, bm, seg, reps, max_dist=500.0, ratio=0.8):
         x = torch.sqrt(l2_library(a, b))
         return torch.topk(x.view(a.shape[0], -1, seg), 2, dim=-1, largest=False)
 
+    counts = d.l2_filter_counts(a.device)
+    counts.zero_()
     before = d.l2_ratio_match.launches
     got = kernel()
     check(d.l2_ratio_match.launches == before + 1, "K14 did not launch once per call")
+    counts = counts.clone()
     again = kernel()
     ref = d.l2_ratio_match_plain(a, am, b, bm, seg, max_dist, ratio)
     torch.cuda.synchronize()
@@ -640,10 +707,13 @@ def k14_case(a, am, b, bm, seg, reps, max_dist=500.0, ratio=0.8):
         check(torch.equal(g, r), f"K14 disagrees with its plain version at {shape}")
         check(torch.equal(g, x), f"K14 differs between two launches at {shape}")
     m, n = a.shape[0], b.shape[0]
-    nbytes, ops = l2_bytes_ops(m, n, int(am.sum().item()), int(bm.sum().item()),
-                               12 * m * (n // seg))
+    valid_rows, valid_cols = int(am.sum().item()), int(bm.sum().item())
+    nbytes, ops = l2_bytes_ops(m, n, valid_rows, valid_cols, 12 * m * (n // seg))
     bnd, by = bound(nbytes, (ops, FP32_OPS_S))
+    filt = l2_filter_row(counts, nbytes, ops, valid_rows * valid_cols, seg,
+                         l2_filter_error(a, b))
     return {
+        **filt,
         "kernel_ms": cuda_ms(kernel, reps), "busy_ms": busy_ms(kernel, reps),
         "plain_ms": cuda_ms(lambda: d.l2_ratio_match_plain(a, am, b, bm, seg, max_dist,
                                                            ratio), 3),
@@ -1668,10 +1738,13 @@ def phase1(dev):
                           "shape": [M, seg * n_seg, seg], "case": case, **r}))
     # K13 at a SIFT window's word assignment (12 keyframes of 1024 features
     # against 512 words), at 65536 x 1024, and ragged: ties inside and
-    # across tiles and parts, every row masked, zero and large vectors
+    # across tiles and parts, every row masked, zero and large vectors,
+    # more near-equidistant words than a row's candidates, distances one
+    # ulp apart
     for M, N, case in ((12 * 1024, 512, None), (65536, 1024, None), (37, 13, None),
                        (3000, 1024, "ties"), (65, 1024, "all_masked"),
-                       (50, 700, "extremes")):
+                       (50, 700, "extremes"), (3000, 1024, "overflow"),
+                       (500, 1024, "ulp")):
         a, am, b, _ = synthetic.l2_match_scene(rng, M, N, 1, case)
         r = k13_case(t(a), t(b), t(am), reps=20 if M * N > 1e6 else 3)
         print(json.dumps({"phase": 1, "kernel": "l2_argmin", "shape": [M, N, 128],
@@ -1679,12 +1752,17 @@ def phase1(dev):
     # K14 at the COVINS-G verification's 2048 x 3072 in segments of 1024,
     # with ties (ratio 1.5 lets a tie at the best pass and show its column),
     # masked rows, masked columns, a segment with one valid column, zero and
-    # large vectors, few rows over many segments
+    # large vectors, few rows over many segments, near-equidistant columns
+    # past a row's candidates, distances one ulp apart, a masked row tile
+    # and segments of 0, 1 and 2 valid columns
     for M, seg, n_seg, case, ratio in ((2048, 1024, 3, None, 0.8),
                                        (100, 1500, 2, "ties", 1.5),
                                        (50, 40, 3, "all_masked", 0.8),
                                        (33, 300, 2, "one_valid", 0.8),
-                                       (20, 100, 2, "extremes", 0.8), (6, 512, 40, None, 0.8)):
+                                       (20, 100, 2, "extremes", 0.8), (6, 512, 40, None, 0.8),
+                                       (100, 1500, 2, "overflow", 1.5),
+                                       (64, 1030, 3, "ulp", 1.5),
+                                       (300, 600, 4, "mask_patterns", 0.8)):
         a, am, b, bm = (t(x) for x in synthetic.l2_match_scene(rng, M, seg, n_seg, case))
         r = k14_case(a, am, b, bm, seg, reps=20 if M > 1000 else 3, ratio=ratio)
         print(json.dumps({"phase": 1, "kernel": "l2_ratio_match",
@@ -3246,7 +3324,10 @@ def main():
                                    "map_refresh_wall_ms", "window_ops_lazy", "window_ops",
                                    "window_h2d_lazy", "window_h2d", "window_d2h_lazy",
                                    "window_d2h", "window_ms_lazy", "window_ms",
-                                   "window_busy_ms_lazy",
+                                   "window_busy_ms_lazy", "candidates_mean",
+                                   "candidates_max", "overflow_rows", "filter_err_over_c_tc",
+                                   "filter_product_err_over_c_tc",
+                                   "design_bound_ms", "design_bound_by",
                                    "profiler_ms", "profiler_intervals", "ops_per_call",
                                    "cost_s1_ms", "cost_s1_busy_ms", "cost_s1_bound_ms",
                                    "cost_s7_ms", "cost_s7_busy_ms", "cost_s7_bound_ms",

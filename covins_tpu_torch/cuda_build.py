@@ -46,8 +46,9 @@ SIGNATURES = {
         "covins_hamming_ratio_match": [_P, _P, _I, _P, _P, _I, _I, _F, _F, _P, _P, _P],
     },
     "l2_match": {
-        "covins_l2_argmin": [_P, _P, _I, _P, _I, _P, _P, _P, _P],
-        "covins_l2_ratio_match": [_P, _P, _I, _P, _P, _I, _I, _F, _F, _P, _P, _P],
+        "covins_l2_argmin": [_P, _P, _I, _P, _I, _F, _P, _P, _P, _P, _P],
+        "covins_l2_ratio_match": [_P, _P, _I, _P, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P],
+        "covins_l2_filter_debug": [_P, _I, _P, _I, _P, _P],
     },
     "relpose_ransac": {
         "covins_ray_ransac_score": [_P] * 7 + [_I, _I, _I, _D] + [_P] * 5,

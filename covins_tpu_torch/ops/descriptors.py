@@ -16,10 +16,13 @@ the reference's.
 
 For 128-dimensional float32 (SIFT) descriptors, :func:`l2_distance_sq`
 writes the reference's squared L2 distance in one summation order, and two
-CUDA kernels share that arithmetic: the word assignment's row argmin,
-:func:`l2_argmin` (K13), and the COVINS-G verification's masked top-2
-ratio match per column segment, :func:`l2_ratio_match` (K14), both in
-`csrc/l2_match.cu`.
+CUDA kernels give that arithmetic's answers: the word assignment's row
+argmin, :func:`l2_argmin` (K13), and the COVINS-G verification's masked
+top-2 ratio match per column segment, :func:`l2_ratio_match` (K14), both
+in `csrc/l2_match.cu`.  They filter on the tensor cores (3xTF32 products,
+within :func:`l2_filter_threshold` of the plain distance) and recompute
+the few columns that can still be the answer in the plain order, so they
+agree with the plain versions bit for bit.
 """
 
 from __future__ import annotations
@@ -388,6 +391,58 @@ def _check_f32(name: str, t: torch.Tensor) -> None:
 
 
 L2_MAX_PARTS = 8  # column parts a segment at most (csrc/l2_match.cu)
+# The relative error C_TC allowed to the kernels' tensor-core product ab~
+# (3xTF32): |ab~ - a.b| <= C_TC |a| |b|.  `csrc/l2_match.cu` derives a
+# quarter of it from the split and an assumed 16 ulps a tensor-core step;
+# chip_smoke.py checks an eighth of it on the card.
+L2_FILTER_REL_ERR = 2.0 ** -14
+L2_FILTER_CANDIDATES = 8  # candidates a list: a row, column part and half (csrc/l2_match.cu)
+
+
+def l2_filter_threshold(aa: torch.Tensor, bb: torch.Tensor) -> torch.Tensor:
+    """The kernels' bound T on |d~ - d| between the filter's distance and
+    :func:`l2_distance_sq`'s, from the rows' ``aa`` (M,) and the columns'
+    ``bb`` (N,) (:func:`sum_squares`): ``2 (C_TC + g128) sqrt(aa bb) + 4u
+    (aa + bb)``, u = 2^-24, g128 = 128u / (1 - 128u), as (M, N) float64
+    (the kernels round it up in float32)."""
+    u = 2.0 ** -24
+    g128 = 128 * u / (1 - 128 * u)
+    aa, bb = aa.double()[:, None], bb.double()[None, :]
+    return 2 * (L2_FILTER_REL_ERR + g128) * torch.sqrt(aa * bb) + 4 * u * (aa + bb)
+
+
+_l2_counts = {}
+
+
+def l2_filter_counts(dev: torch.device) -> torch.Tensor:
+    """The (4,) int64 counters that every K13 and K14 launch on ``dev`` adds
+    to: (row, column part) lists filtered, their candidates, the most
+    candidates of one, and those rescanned exactly for having more than
+    :data:`L2_FILTER_CANDIDATES`.  Zero it to start a count."""
+    dev = torch.device(dev)
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    if dev not in _l2_counts:
+        _l2_counts[dev] = torch.zeros(4, dtype=torch.int64, device=dev)
+    return _l2_counts[dev]
+
+
+def l2_filter_values(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The filter's distance d~ (M, N) float32 of (M, 128) and (N, 128)
+    float32 CUDA tensors, from the same tile products as K13 and K14, for
+    checking :func:`l2_filter_threshold` on the card.  Not a main-path
+    kernel: it writes the (M, N) matrix and counts no launch."""
+    dev = check_cuda("l2_filter_values", a, b)
+    _check_f32("l2_filter_values a", a)
+    _check_f32("l2_filter_values b", b)
+    out = torch.empty((a.shape[0], b.shape[0]), dtype=torch.float32, device=dev)
+    lib = cuda_build.library("l2_match")
+    with torch.cuda.device(dev):
+        rc = lib.covins_l2_filter_debug(a.data_ptr(), a.shape[0], b.data_ptr(), b.shape[0],
+                                        out.data_ptr(),
+                                        torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(rc, "l2_filter_values")
+    return out
 
 
 def l2_scratch_bytes(m: int, s: int = 1) -> int:
@@ -403,7 +458,9 @@ def l2_argmin(a: torch.Tensor, b: torch.Tensor,
     float32 descriptors (:func:`l2_distance_sq`).  Returns ``idx (M,)
     int32`` (the first minimum, as ``jnp.argmin``; -1 where ``row_mask`` is
     False) and ``dmin (M,) float32``.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel (K13) or raise."""
+    CUDA tensors launch the kernel (K13: the tensor-core filter, then its
+    candidates in the plain arithmetic; counted on
+    :func:`l2_filter_counts`) or raise."""
     if is_cpu(a) and is_cpu(b) and (row_mask is None or is_cpu(row_mask)):
         return l2_argmin_plain(a, b, row_mask)
     dev = check_cuda("l2_argmin", a, b, row_mask)
@@ -433,9 +490,11 @@ def launch_l2_argmin(dev: torch.device, a: int, b: int, row_mask: Optional[int],
     aligned.  For callers that hold their inputs in a packed buffer; the
     checks of :func:`l2_argmin` are theirs to make."""
     lib = cuda_build.library("l2_match")
+    counts = l2_filter_counts(dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.covins_l2_argmin(a, row_mask, m, b, n, idx, dmin, scratch, stream)
+        rc = lib.covins_l2_argmin(a, row_mask, m, b, n, L2_FILTER_REL_ERR, idx, dmin, scratch,
+                                  counts.data_ptr(), stream)
     cuda_build.check(rc, "l2_argmin")
     l2_argmin.launches += 1
 
@@ -469,8 +528,8 @@ def l2_ratio_match(a: torch.Tensor, a_mask: torch.Tensor, b: torch.Tensor,
     ``d1 < max_dist`` and ``d1 < ratio * d2``, both in float32.  Returns
     ``(idx (M, N / seg) int32, -1 = no match; d1, d2 (M, N / seg)
     float32)``.  CPU tensors take the plain version; CUDA tensors launch
-    the kernel (K14: the two smallest keys per row and segment in
-    registers, no distance matrix) or raise."""
+    the kernel (K14: K13's filter over valid pairs only, a top 2 of exact
+    keys per row and segment, no distance matrix) or raise."""
     if all(is_cpu(t) for t in (a, a_mask, b, b_mask)):
         return l2_ratio_match_plain(a, a_mask, b, b_mask, seg, max_dist, ratio)
     dev = check_cuda("l2_ratio_match", a, a_mask, b, b_mask)
@@ -490,10 +549,12 @@ def l2_ratio_match(a: torch.Tensor, a_mask: torch.Tensor, b: torch.Tensor,
                       device=dev)
     out = buf[:3 * m * S].view(3, m, S)
     lib = cuda_build.library("l2_match")
+    counts = l2_filter_counts(dev)
     with torch.cuda.device(dev):
         rc = lib.covins_l2_ratio_match(
             a.data_ptr(), a_mask.data_ptr(), m, b.data_ptr(), b_mask.data_ptr(), n, seg,
-            float(max_dist), float(ratio), buf.data_ptr(), buf.data_ptr() + 4 * at,
+            float(max_dist), float(ratio), L2_FILTER_REL_ERR, buf.data_ptr(),
+            buf.data_ptr() + 4 * at, counts.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, "l2_ratio_match")
     l2_ratio_match.launches += 1

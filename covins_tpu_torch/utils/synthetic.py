@@ -628,6 +628,48 @@ def ray_score_scene(rng: np.random.Generator, B, H, N, central=False, n_valid=No
     return (T, None if central else va, fa, None if central else vb, fb, mask, valid)
 
 
+def l2_plain_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """`ops.descriptors.l2_distance_sq` in numpy float32 (running sums in
+    order, every product and sum rounded on its own): (M, 128) x (N, 128)
+    -> (M, N)."""
+    a, b = a.astype(np.float32), b.astype(np.float32)
+    aa = np.zeros(a.shape[0], np.float32)
+    bb = np.zeros(b.shape[0], np.float32)
+    ab = np.zeros((a.shape[0], b.shape[0]), np.float32)
+    for k in range(a.shape[1]):
+        aa = aa + a[:, k] * a[:, k]
+        bb = bb + b[:, k] * b[:, k]
+        ab = ab + a[:, k, None] * b[None, :, k]
+    return np.maximum((aa[:, None] + bb[None, :]) - np.float32(2.0) * ab, np.float32(0.0))
+
+
+def _ulp_words(rng: np.random.Generator, n: int):
+    """A query q (norm 200, mostly on dimensions 0-63) and words whose
+    plain distances to it are n consecutive float32 values, the nearest
+    first: one word, then copies with dimension 64 nudged until the
+    distance is 1, 2, ... ulps larger (q . b is small, so the distance's
+    grid is its own ulp)."""
+    q = np.zeros(128, np.float32)
+    q[:64] = np.abs(rng.normal(size=64))
+    q[:64] *= 200.0 / np.linalg.norm(q[:64])
+    q[64:] = 0.1 * np.abs(rng.normal(size=64))
+    w = np.zeros(128, np.float32)
+    w[64:] = np.abs(rng.normal(size=64)) + 0.5
+    d0 = l2_plain_np(q[None], w[None])[0, 0]
+    step = np.spacing(d0) / (8.0 * w[64])
+    tries = np.repeat(w[None], 4096, 0)
+    tries[:, 64] = w[64] + step * np.arange(1, 4097, dtype=np.float32)
+    d = l2_plain_np(q[None], tries)[0]
+    words, want = [w], d0
+    for _ in range(n - 1):
+        want = np.nextafter(want, np.float32(np.inf))
+        hit = np.flatnonzero(d == want)
+        if hit.size == 0:
+            raise RuntimeError("no word at the next float32 distance")
+        words.append(tries[hit[0]])
+    return q, np.stack(words)
+
+
 def l2_match_scene(rng: np.random.Generator, M, seg, n_seg, case=None):
     """numpy inputs ``(a, a_mask, b, b_mask)`` of `ops.descriptors.l2_argmin`
     (``a``, ``b``, ``a_mask``) and `l2_ratio_match`: M query and ``seg *
@@ -639,7 +681,13 @@ def l2_match_scene(rng: np.random.Generator, M, seg, n_seg, case=None):
     (N(0, 4) added: equal distances to every copy, near 45); "all_masked",
     every row masked; "one_valid", one valid column in the first segment;
     "extremes", zero vectors and vectors of 1e4 (distances 0 and near
-    1.6e10)."""
+    1.6e10); "overflow", 12 permutations of one word at columns 2-13 and
+    query rows all equal to 40 (equidistant but for rounding, more
+    candidates than the kernels keep a row); "ulp", 4 words at
+    distances d, d + 1, d + 2 and d + 3 float32 ulps from the first 8 query
+    rows (:func:`_ulp_words`), the farther at the lower columns 2, 70, 300
+    and 600 of the first segment; "mask_patterns" (n_seg >= 3), the first
+    64 rows masked and segments 0, 1, 2 with 0, 1 and 2 valid columns."""
     N = seg * n_seg
     b = sift_descriptors(rng, N)
     a = sift_descriptors(rng, M)
@@ -669,4 +717,28 @@ def l2_match_scene(rng: np.random.Generator, M, seg, n_seg, case=None):
         a[min(1, M - 1)] = 1e4
         a_mask[:2] = True
         b_mask[:2] = True
+    elif case == "overflow":
+        word = np.abs(40.0 + rng.normal(0.0, 3.0, 128))
+        for c in range(2, 14):
+            if c < seg:
+                b[c] = rng.permutation(word)
+                b_mask[c] = True
+        k = min(M, 8)
+        a[:k] = 40.0
+        a_mask[:k] = True
+    elif case == "ulp":
+        q, words = _ulp_words(rng, 4)
+        for c, w in zip((600, 300, 70, 2), words):
+            if c < seg:
+                b[c] = w
+                b_mask[c] = True
+        k = min(M, 8)
+        a[:k] = q
+        a_mask[:k] = True
+    elif case == "mask_patterns":
+        a_mask[:64] = False
+        b_mask[:seg] = False
+        b_mask[seg:3 * seg] = False
+        b_mask[seg + seg // 2] = True
+        b_mask[2 * seg + 1] = b_mask[3 * seg - 1] = True
     return a.astype(np.float32), a_mask, b.astype(np.float32), b_mask

@@ -66,7 +66,11 @@ versions (one written float32 summation order, no FMA contraction): the
 word ids, the minima, the indices and both distances, with ties inside
 and across 64-column tiles, 256-column parts and segments, masked rows,
 masked columns, a segment with one valid column, zero and large vectors,
-row counts that are not a multiple of a tile and a vocabulary of 1024;
+row counts that are not a multiple of a tile and a vocabulary of 1024,
+more near-equidistant columns than a row keeps candidates (the row
+rescanned, and counted), distances one float32 ulp apart, a masked row
+tile and segments of 0, 1 and 2 valid columns; their tensor-core filter
+within its error bound on every pair;
 K5's L2 metric (float32 SIFT descriptors, float64 distances) its matches
 and distances exactly, as its Hamming metric.
 """
@@ -1144,16 +1148,22 @@ def test_covinsg_verify_on_the_card_matches_the_cpu(dev, solver):
 @pytest.mark.parametrize("M,N,case", [
     (1, 1, None), (37, 13, None), (130, 512, "ties"), (700, 1000, None),
     (12 * 1024, 512, None), (3000, 1024, "ties"), (65, 1024, "all_masked"),
-    (50, 700, "extremes"), (6, 1024, "no_mask")])
+    (50, 700, "extremes"), (6, 1024, "no_mask"), (3000, 1024, "overflow"),
+    (70, 300, "overflow"), (500, 1024, "ulp")])
 def test_l2_argmin_matches_plain(dev, M, N, case):
     """K13 against its plain version: word ids and minima bit for bit, the
-    same across two launches, one launch a call; ties to the lower word."""
+    same across two launches, one launch a call; ties to the lower word;
+    more near-equidistant words than a row's candidates (rescanned, and
+    counted); distances one ulp apart."""
     rng = np.random.default_rng(M + N)
     a, am, b, _ = l2_match_scene(rng, M, N, 1, None if case == "no_mask" else case)
     ta, tb = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
     tm = None if case == "no_mask" else torch.from_numpy(am).to(dev)
+    counts = descriptors.l2_filter_counts(dev)
+    counts.zero_()
     n0 = descriptors.l2_argmin.launches
     idx, dmin = descriptors.l2_argmin(ta, tb, tm)
+    lists, cands, most, over = counts.tolist()
     idx2, dmin2 = descriptors.l2_argmin(ta, tb, tm)
     ridx, rdmin = descriptors.l2_argmin_plain(ta, tb, tm)
     torch.cuda.synchronize()
@@ -1165,6 +1175,13 @@ def test_l2_argmin_matches_plain(dev, M, N, case):
         assert (idx[:8] == 3).all() and (dmin[:8] > 0).all()
     if case == "all_masked":
         assert (idx == -1).all()
+    assert lists >= M and most <= descriptors.L2_FILTER_CANDIDATES
+    if case == "overflow":
+        assert over >= 8  # the 8 query rows equidistant to 12 words
+    elif case in (None, "no_mask", "ulp"):
+        assert over == 0 and cands >= lists
+    if case == "ulp":
+        assert (idx[:8] == 600).all()  # the nearest, at the highest column
 
 
 def test_l2_argmin_refuses_bad_inputs(dev):
@@ -1186,17 +1203,26 @@ def test_l2_argmin_refuses_bad_inputs(dev):
     (1, 2, 1, None, 0.8), (37, 13, 3, None, 0.8), (2048, 1024, 3, None, 0.8),
     (100, 1500, 2, "ties", 0.8), (100, 1500, 2, "ties", 1.5), (64, 1030, 3, "ties", 1.5),
     (50, 40, 3, "all_masked", 0.8), (33, 300, 2, "one_valid", 0.8),
-    (20, 100, 2, "extremes", 0.8), (6, 512, 40, None, 0.8)])
+    (20, 100, 2, "extremes", 0.8), (6, 512, 40, None, 0.8),
+    (100, 1500, 2, "overflow", 1.5), (100, 1500, 2, "overflow", 0.8),
+    (64, 1030, 3, "ulp", 1.5), (150, 100, 4, "mask_patterns", 0.8),
+    (300, 600, 4, "mask_patterns", 0.8), (2048, 1024, 3, "mask_patterns", 0.8)])
 def test_l2_ratio_match_matches_plain(dev, M, seg, n_seg, case, ratio):
     """K14 against its plain version: indices, d1 and d2 bit for bit, the
     same across two launches, one launch a call.  A tie at the best
     distance (d1 = d2) fails a ratio gate below 1, so the tie cases also
-    run with ratio 1.5, where the lower column's index shows."""
+    run with ratio 1.5, where the lower column's index shows.  Also more
+    near-equidistant columns than a row's candidates, distances one ulp
+    apart, and masks: a whole row tile masked, valid rows not a multiple of
+    64, segments of 0, 1 and 2 valid columns."""
     rng = np.random.default_rng(M + seg)
     t = [torch.from_numpy(x).to(dev) for x in l2_match_scene(rng, M, seg, n_seg, case)]
     max_dist = 500.0
+    counts = descriptors.l2_filter_counts(dev)
+    counts.zero_()
     n0 = descriptors.l2_ratio_match.launches
     got = descriptors.l2_ratio_match(*t, seg, max_dist, ratio)
+    lists, cands, most, over = counts.tolist()
     again = descriptors.l2_ratio_match(*t, seg, max_dist, ratio)
     plain = descriptors.l2_ratio_match_plain(*t, seg, max_dist, ratio)
     torch.cuda.synchronize()
@@ -1213,6 +1239,41 @@ def test_l2_ratio_match_matches_plain(dev, M, seg, n_seg, case, ratio):
         assert (got[2][:, 0] == 2**30).all()
     if M > 10 and case != "all_masked":
         assert int((got[0] >= 0).sum()) > 0
+    assert most <= descriptors.L2_FILTER_CANDIDATES
+    if case == "overflow":
+        assert over > 0
+    elif case in (None, "ulp", "mask_patterns"):
+        assert over == 0
+    if case == "mask_patterns":
+        assert (got[0][:64] == -1).all() and (got[1][:64] == 2**30).all()
+        assert (got[1][:, 0] == 2**30).all() and (got[2][:, 1] == 2**30).all()
+        assert (got[1][:, 2] < 2**30).any() and (got[2][:, 2] < 2**30).any()
+
+
+@pytest.mark.parametrize("M,N,case", [(2048, 3072, None), (500, 1024, "ulp"),
+                                      (3000, 1024, "overflow"), (50, 700, "extremes")])
+def test_l2_filter_stays_within_its_bound(dev, M, N, case):
+    """The tensor-core filter's distance (the kernels' own tile products,
+    `l2_filter_values`) within `l2_filter_threshold` of the plain distance
+    for every pair, and the product's share of the error, |d~ - d| less
+    the two subtractions' rounding 4u (aa + bb), within C_TC / 8 of 2
+    sqrt(aa bb).  (Where aa >> bb, as for the extremes scene's 1e4 row
+    against norm-512 words, the rounding of aa + bb alone is most of
+    |d~ - d|.)"""
+    rng = np.random.default_rng(M + N)
+    a, _, b, _ = (torch.from_numpy(x).to(dev) for x in l2_match_scene(rng, M, N, 1, case))
+    dt = descriptors.l2_filter_values(a, b).double()
+    dp = descriptors.l2_distance_sq(a, b).double()
+    aa, bb = descriptors.sum_squares(a).double(), descriptors.sum_squares(b).double()
+    err = (dt - dp).abs()
+    assert bool((err <= descriptors.l2_filter_threshold(aa, bb)).all())
+    scale = torch.sqrt(aa[:, None] * bb[None, :])
+    raw = float((err / scale.clamp(min=1e-30))[scale > 0].max())
+    share = ((err - 2.0**-22 * (aa[:, None] + bb[None, :])).clamp(min=0.0)
+             / (2 * scale.clamp(min=1e-30)))[scale > 0].max()
+    c = descriptors.L2_FILTER_REL_ERR
+    print(f"{case}: filter error {raw / c:.4g} C_TC, the product's {float(share) / c:.4g}")
+    assert float(share) <= c / 8
 
 
 def test_l2_ratio_match_refuses_bad_inputs(dev):
