@@ -93,6 +93,28 @@ package beside it.  Phases:
    ``add_and_query_batch``, lazy and not, and its copies);
 3. a five-agent deployment (5 x 32 KF) with place recognition on, card
    only, and K2 replayed at its largest refresh cohort;
+server. the agent-facing product on the card with phase 3's streams and
+   vocabulary: (a) a `CovinsServer` on the card (every kernel built before
+   it listens) takes the five agents from five `AgentClient`s streaming
+   concurrently over TCP (the launch counters set to 0 just before and
+   read after the last finish: K1-K6 and pgo_pcg, no K11-K14); stats shows
+   160 keyframes, each agent's trajectory file 32 lines, at least one loop
+   and one merge; (b) the admin verbs over the socket on the merged map
+   (stats, pgo, gba, gba visual-only with a time budget, prunemap down to
+   the live keyframes less 8, snapshot, savemap), each answering ok, with
+   their wall times and launches (K8-K10, gba_pcg, K15), prunemap removing
+   keyframes and stats showing the count fall by as many (culling may
+   leave a 2 s pred-succ gap, SERVER_CULL_GAP: the default 1 s blocks
+   every keyframe of a stream 0.5 s apart); K15 replayed on prunemap's
+   input, bit for bit with its plain version on the card and on the CPU;
+   (c) agents 0 and 1 saved by savemap from a server with place
+   recognition off, then loadmap of both into a fresh server on the card,
+   the second with placerec replay and PGO, against the same replay on
+   the CPU: loops, merges and accepted pairs exactly, loop transforms to
+   LOOP_TOL, poses to POSE_TOL; (d) `python -m covins_tpu_torch server`
+   on the card in a subprocess, one CLI agent of 8 keyframes and `admin
+   stats` showing them, the startup line naming the card.  The worker's
+   caught exceptions (`CovinsServer.errors`) fail the phase;
 4. the ingest-only path (``placerec_active=False``) on the benchmark
    workload, card against CPU, every map array, database row and queued
    score compared (database rows, scores and counts exactly);
@@ -116,7 +138,8 @@ package beside it.  Phases:
    changes on the CPU, the ATE to the agents' ground truth before and
    after;
 7. COVINS-G (``placerec_type="COVINS_G"``, ``G_ORB``) on phase 2's
-   trajectories (2 x 128 keyframes) with the default thresholds: the
+   trajectories cut to 2 x 64 keyframes (PHASE7_KF, to make room for the
+   server phase; widths unchanged) with the default thresholds: the
    whole ingest and drain on the card with the launch counters set to 0
    just before it and read just after (K1 and K3 once a window, K11 once
    and K12 four times a verification: the central 5-point RANSACs whole,
@@ -141,7 +164,8 @@ SIFT. the same over SIFT descriptors (``G_SIFT``: ``feat_type="SIFT"``,
    GBA problem with phase 6's launches, K11 and K12 on phase 7's inputs
    with its launches, K13 and K14 on the SIFT phase's with its launches,
    K5's L2 metric on phase 1's stage-5 scene with the SIFT phase's launches
-   of K5, none), the card line, and the result line
+   of K5, none; K15 on the server phase's prunemap input with its
+   launches), the card line, and the result line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -167,6 +191,9 @@ WINDOW = 1024
 # the warm-up's share of the bench stream: its first windows' drain already
 # closes loops, merges the two agents' maps and solves a pose graph
 WARM_WINDOWS = 4
+# phase 7's keyframes an agent: cut from the bench's 128 to make room for
+# the server phase within the smoke's time (the SIFT phase keeps 128)
+PHASE7_KF = 64
 # How far the card's run of the full path may differ from the CPU's.  Both
 # take the same RANSAC draws (one seeded CPU generator per agent) and the
 # same algorithms; they differ only where the card's transcendental
@@ -2334,8 +2361,8 @@ def trace_slice(vocab, windows, card):
 
 
 def kernel_wrappers():
-    from covins_tpu_torch.ops import (bow, descriptors, epipolar, gba, imu, landmark_ops, pgo,
-                                      pnp, projmatch)
+    from covins_tpu_torch.ops import (bow, covisibility, descriptors, epipolar, gba, imu,
+                                      landmark_ops, pgo, pnp, projmatch)
 
     return {"hamming_argmin": descriptors.hamming_argmin,
             "landmark_attributes": landmark_ops.landmark_attributes,
@@ -2353,7 +2380,8 @@ def kernel_wrappers():
             "gba_reproj_blocks": gba.reproj_blocks,
             "gba_reduced_matvec": gba.reduced_matvec,
             "gba_pcg": gba.pcg,
-            "imu_preintegrate": imu.preintegrate}
+            "imu_preintegrate": imu.preintegrate,
+            "redundancy_values": covisibility.redundancy_values}
 
 
 # the kernels of the ingest and place-recognition drain (phase 2) and of GBA;
@@ -2563,7 +2591,354 @@ def phase3(dev, card, n_kf):
         "maps": len(run["mgr"].maps), "stream_build_s": t_streams,
         "launches": launches,
     }))
-    return out
+    return streams, vocab
+
+
+# the server phase's culling gap: the agents' keyframes are 0.5 s apart, so
+# the default kf_culling_max_time_dist of 1 s (a pred-succ gap must stay
+# below it) blocks every keyframe; 2 s lets prunemap erase every other one
+SERVER_CULL_GAP = 2.0
+SERVER_WAIT_S = 600.0  # a deadline for each wait on the server
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def wait_for(cond, what, deadline_s=SERVER_WAIT_S, period=0.05):
+    t_end = time.perf_counter() + deadline_s
+    while time.perf_counter() < t_end:
+        out = cond()
+        if out:
+            return out
+        time.sleep(period)
+    raise RuntimeError(f"timed out after {deadline_s} s waiting for {what}")
+
+
+def check_server(srv, what):
+    """The server's worker caught no exception: a kernel that fails inside
+    it fails the run."""
+    caught = "; ".join(f"{w}: {tb.strip().splitlines()[-1]}" for w, tb in srv.errors)
+    check(not srv.errors, f"{what}: the server's worker caught {caught}")
+
+
+def k15_case(kf, lm, mask, n_kf, n_lm, reps):
+    """K15 (`covisibility.redundancy_values`) against its plain version, on
+    the card and on the CPU, bit for bit; one launch a call, bit for bit
+    across two launches; beside one `index_add_` of the observations'
+    scores into the keyframes (the library yardstick)."""
+    import torch
+
+    from covins_tpu_torch.ops import covisibility as cov
+
+    def kernel():
+        return cov.redundancy_values(kf, lm, mask, n_kf, n_lm)
+
+    before = cov.redundancy_values.launches
+    out = kernel()
+    check(cov.redundancy_values.launches == before + 1, "K15 did not launch once per call")
+    again = kernel()
+    plain = cov.redundancy_values_plain(kf, lm, mask, n_kf, n_lm)
+    cpu = cov.redundancy_values_plain(kf.cpu(), lm.cpu(), mask.cpu(), n_kf, n_lm)
+    torch.cuda.synchronize()
+    bits = out.view(torch.int32)
+    check(torch.equal(bits, again.view(torch.int32)), "K15 differs between two launches")
+    check(torch.equal(bits, plain.view(torch.int32))
+          and torch.equal(bits.cpu(), cpu.view(torch.int32)),
+          f"K15 differs from its plain version at {n_kf} x {kf.numel()}")
+    scores = torch.rand(kf.numel(), device=kf.device)
+    kf_long = kf.long()
+    acc = torch.zeros(n_kf, device=kf.device)
+    O = kf.numel()
+    # each observation's keyframe, landmark and mask read once, the values
+    # written once; a count, a table read, a product and two sums an
+    # observation, a division a keyframe
+    bnd, by = bound(12 * O + 4 * n_kf, (4.0 * O + n_kf, FP32_OPS_S))
+    return {"kernel_ms": cuda_ms(kernel, reps), "busy_ms": busy_ms(kernel, reps),
+            "plain_ms": cuda_ms(lambda: cov.redundancy_values_plain(kf, lm, mask, n_kf, n_lm),
+                                max(1, reps // 10)),
+            "library_ms": cuda_ms(lambda: acc.index_add_(0, kf_long, scores), reps),
+            "library_busy_ms": busy_ms(lambda: acc.index_add_(0, kf_long, scores), reps),
+            "bound_ms": bnd, "bound_by": by, "max_abs_err": 0.0,
+            "shape": [n_kf, n_lm, O]}
+
+
+def stream_agents(port, streams):
+    """The agents' streams over TCP, one client each, concurrently: the
+    clients connect in order (so client i gets id i, the id its messages
+    carry), then stream in threads and finish.  Returns per agent the
+    frames' bytes, and the times of the first send and the last."""
+    import threading
+
+    from covins_tpu_torch.comm import wire
+    from covins_tpu_torch.comm.client import AgentClient
+
+    clients = []
+    for cid in range(len(streams)):
+        c = AgentClient("127.0.0.1", port, timeout=SERVER_WAIT_S)
+        check(c.client_id == cid, f"agent {cid} got client id {c.client_id}")
+        clients.append(c)
+    sent = {}
+
+    def run(cid):
+        n_bytes, t0 = 0, time.perf_counter()
+        for m in streams[cid]:
+            blob = wire.encode_message(m)
+            clients[cid].sock.sendall(blob)
+            n_bytes += len(blob)
+        sent[cid] = (n_bytes, t0, time.perf_counter())
+        clients[cid].finish()
+
+    threads = [threading.Thread(target=run, args=(cid,)) for cid in range(len(streams))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(SERVER_WAIT_S)
+        check(not t.is_alive(), "an agent did not finish sending")
+    check(len(sent) == len(streams), "an agent's stream failed")
+    return sent
+
+
+def phase_server(dev, card, streams, vocab):
+    """The agent-facing product on the card: phase 3's five agents over TCP
+    into a `CovinsServer`, its admin verbs on the merged map, `loadmap`
+    with place-recognition replay card against CPU, and the CLI."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from covins_tpu_torch.comm.client import AgentClient
+    from covins_tpu_torch.comm.server import CovinsServer
+    from covins_tpu_torch.models.map_manager import MapManager
+    from covins_tpu_torch.models.map_store import Map
+    from covins_tpu_torch.ops import covisibility
+    from covins_tpu_torch.utils.config import Config
+
+    t_phase = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_server_")
+    n_agents = len(streams)
+    n_kf = sum(type(m).__name__ == "MsgKeyframe" for m in streams[0])
+    wrappers = kernel_wrappers()
+
+    # (a) the deployment through the product
+    cfg = Config(placerec_defer=True, kf_culling_max_time_dist=SERVER_CULL_GAP)
+    port = free_port()
+    srv = CovinsServer(vocab, cfg, host="127.0.0.1", port=port,
+                       output_dir=os.path.join(out_dir, "a"), device=dev)
+    t0 = time.perf_counter()
+    srv.start_background()
+    t_start = time.perf_counter() - t0
+    check(srv._server is not None, "the server did not start")
+    admin = None
+    try:
+        for k in wrappers.values():
+            k.launches = 0
+        sent = stream_agents(port, streams)
+        t_first = min(t for _, t, _ in sent.values())
+        t_last_sent = max(t for _, _, t in sent.values())
+        wait_for(lambda: sum(s.stats["keyframes"] for s in list(srv.sessions.values()))
+                 == n_agents * n_kf, "every keyframe ingested", period=0.01)
+        t_ingested = time.perf_counter()
+        wait_for(lambda: len(srv.finished) == n_agents, "every agent's finish")
+        t_finished = max(srv.finished.values())
+        launches = {name: k.launches for name, k in wrappers.items()}
+        check_server(srv, "phase server (a)")
+        admin = AgentClient("127.0.0.1", port, timeout=SERVER_WAIT_S)
+        stats = admin.admin("stats")["result"]
+        n_total = sum(m["n_kf"] for m in stats["maps"].values())
+        check(n_total == n_agents * n_kf, f"stats shows {n_total} keyframes")
+        for cid in range(n_agents):
+            with open(os.path.join(out_dir, "a", f"KF_{cid}_ftum.csv")) as fh:
+                lines = len(fh.read().strip().splitlines())
+            check(lines == n_kf, f"agent {cid}'s trajectory has {lines} lines")
+        check(stats["n_loops"] >= 1 and stats["n_merges"] >= 1,
+              f"the deployment closed {stats['n_loops']} loops, {stats['n_merges']} merges")
+        for name in DRAIN_KERNELS:
+            check(launches[name] > 0, f"the server never launched {name}")
+        for name in ("hamming_ratio_match", "ray_ransac_score", "relpose_ransac_5pt",
+                     "l2_argmin", "l2_ratio_match"):
+            check(launches[name] == 0, f"the server launched {name} {launches[name]} times")
+        print(json.dumps({
+            "phase": "server", "part": "a", "card": card, "n_agents": n_agents,
+            "n_keyframes": n_total, "wire_bytes_sent": sum(b for b, _, _ in sent.values()),
+            "server_start_s": t_start, "ingest_kf_per_s": n_total / (t_ingested - t_first),
+            "send_s": t_last_sent - t_first,
+            "last_send_to_last_finish_s": t_finished - t_last_sent,
+            "loops": stats["n_loops"], "merges": stats["n_merges"],
+            "maps": len(stats["maps"]), "launches": launches}))
+
+        # (b) the admin verbs over the socket, on the merged map
+        mid = min(int(m) for m in stats["maps"])
+        live = stats["maps"][str(mid)]["n_kf"]
+        verbs = [("stats", {}), ("pgo", {}), ("gba", {}),
+                 ("gba", {"visual_only": True, "time_budget_s": 30.0}),
+                 ("prunemap", {"max_num_kfs": live - 8}),
+                 ("snapshot", {"path": os.path.join(out_dir, "snapshot.json")}),
+                 ("savemap", {"path": os.path.join(out_dir, "merged.npz")})]
+        for k in wrappers.values():
+            k.launches = 0
+        replies, walls = [], []
+        with Recorder([(covisibility, "redundancy_values", lambda kf, *a, **kw: kf.numel())]) \
+                as rec:
+            for verb, kw in verbs:
+                t0 = time.perf_counter()
+                reply = admin.admin(verb, **kw)
+                walls.append(time.perf_counter() - t0)
+                check(reply.get("result", {}).get("ok"), f"admin {verb} {kw} answered {reply}")
+                replies.append(reply["result"])
+        launches_b = {name: k.launches for name, k in wrappers.items()}
+        check_server(srv, "phase server (b)")
+        for name in GBA_KERNELS + ("redundancy_values",):
+            check(launches_b[name] > 0, f"the admin verbs never launched {name}")
+        removed = replies[4]["removed"]
+        after = admin.admin("stats")["result"]["maps"][str(mid)]["n_kf"]
+        check(removed >= 1 and after == live - removed,
+              f"prunemap removed {removed} keyframes, live {live} -> {after}")
+        print(json.dumps({
+            "phase": "server", "part": "b", "card": card, "map_id": mid,
+            "verbs": [{"verb": v, **kw, "wall_s": w,
+                       **{k: r[k] for k in ("n_pruned", "time_budget_hit", "final_cost",
+                                            "removed") if k in r}}
+                      for (v, kw), w, r in zip(verbs, walls, replies)],
+            "live_keyframes": [live, after], "launches": launches_b}))
+        kf, lm, mask = rec.on("redundancy_values", dev)
+        sizes = rec.kwargs("redundancy_values")
+        k15 = k15_case(kf, lm, mask, sizes["n_kf"], sizes["n_lm"], reps=50)
+        k15["launches"] = launches_b["redundancy_values"]
+        print(json.dumps({"phase": "server", "kernel": "redundancy_values", **k15}))
+    finally:
+        if admin is not None:
+            admin.finish()
+        srv.stop()
+
+    # (c) loadmap with placerec replay, card against CPU: agents 0 and 1
+    # (trajectories overlapping from 5 s to 16 s), built with place
+    # recognition off and saved with savemap
+    t_c = time.perf_counter()
+    off = CovinsServer(vocab, Config(placerec_active=False), host="127.0.0.1",
+                       port=free_port(), output_dir=os.path.join(out_dir, "c"), device=dev)
+    off.start_background()
+    paths = [os.path.join(out_dir, f"single{cid}.npz") for cid in (0, 1)]
+    try:
+        stream_agents(off.port, streams[:2])
+        wait_for(lambda: len(off.finished) == 2, "both single-agent maps")
+        admin = AgentClient("127.0.0.1", off.port, timeout=SERVER_WAIT_S)
+        for mid, path in enumerate(paths):
+            check(admin.admin("savemap", map_id=mid, path=path)["result"]["ok"],
+                  f"savemap of map {mid}")
+        admin.finish()
+    finally:
+        off.stop()
+    check_server(off, "phase server (c) build")
+    rcfg = Config(placerec_defer=True)
+    fresh = CovinsServer(vocab, rcfg, host="127.0.0.1", port=free_port(),
+                         output_dir=os.path.join(out_dir, "c2"), device=dev)
+    fresh.start_background()
+    try:
+        admin = AgentClient("127.0.0.1", fresh.port, timeout=SERVER_WAIT_S)
+        first = admin.admin("loadmap", path=paths[0])["result"]
+        t0 = time.perf_counter()
+        second = admin.admin("loadmap", path=paths[1], placerec_replay=True,
+                             run_pgo=True)["result"]
+        card_s = time.perf_counter() - t0
+        admin.finish()
+    finally:
+        fresh.stop()
+    check_server(fresh, "phase server (c) replay")
+    check(first["ok"] and second["ok"], f"loadmap answered {first}, {second}")
+    check(second["replay"]["merges"] >= 1, f"the replay did not merge: {second['replay']}")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(CPU_THREADS)
+    try:
+        cpu = MapManager(vocab, Config(placerec_defer=True), device="cpu")
+        for path in paths:
+            cpu.register_map(Map.load(path, device="cpu"))
+        t0 = time.perf_counter()
+        cpu_replay = cpu.replay_placerec(cpu.maps[1], perform_pgo=True)
+        cpu_s = time.perf_counter() - t0
+    finally:
+        torch.set_num_threads(threads)
+    check(cpu_replay == second["replay"],
+          f"card and CPU replays differ: {second['replay']} vs {cpu_replay}")
+    g_mgr, c_mgr = fresh.manager, cpu
+    check(sorted(g_mgr.maps) == sorted(c_mgr.maps), "the replays left different maps")
+    worst_loop = worst = 0.0
+    pairs = []
+    for mid, gm in g_mgr.maps.items():
+        cm = c_mgr.maps[mid]
+        got = [[list(map(int, gm.kf_ids[lc[k]])) for k in ("kf1", "kf2")] for lc in gm.loops]
+        check(got == [[list(map(int, cm.kf_ids[lc[k]])) for k in ("kf1", "kf2")]
+                      for lc in cm.loops], f"map {mid}'s accepted pairs differ")
+        pairs += got
+        for gl, cl in zip(gm.loops, cm.loops):
+            worst_loop = max(worst_loop, float(np.abs(gl["T_12"] - cl["T_12"]).max()))
+        for name in ("kf_pose", "lm_pos"):
+            worst = max(worst, float(np.abs(getattr(gm, name) - getattr(cm, name)).max()))
+    check(worst_loop <= LOOP_TOL, f"replayed loop transforms differ by {worst_loop}")
+    check(worst <= POSE_TOL, f"replayed poses differ by {worst}")
+    print(json.dumps({
+        "phase": "server", "part": "c", "card": card, "replay": second["replay"],
+        "accepted_pairs": pairs, "card_replay_s": card_s, "cpu_replay_s": cpu_s,
+        "loop_tol": LOOP_TOL, "max_loop_T_diff": worst_loop, "pose_tol": POSE_TOL,
+        "max_pose_diff": worst, "elapsed_s": time.perf_counter() - t_c}))
+
+    # (d) the entry point itself
+    t_d = time.perf_counter()
+    vocab_path = os.path.join(out_dir, "vocab.npz")
+    np.savez(vocab_path, vocab=vocab)
+    port = free_port()
+    cli = [sys.executable, "-m", "covins_tpu_torch"]
+    root = os.path.dirname(os.path.abspath(__file__))
+    server = subprocess.Popen(
+        cli + ["server", "--device", dev.type, "--vocab", vocab_path, "--port", str(port),
+               "--output-dir", os.path.join(out_dir, "d")],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        def listening():
+            import socket
+
+            check(server.poll() is None, "the CLI server exited")
+            try:
+                socket.create_connection(("127.0.0.1", port), timeout=1).close()
+                return True
+            except OSError:
+                return False
+        wait_for(listening, "the CLI server", deadline_s=300.0, period=0.5)
+        t_listening = time.perf_counter() - t_d
+        agent = subprocess.run(cli + ["agent", "--keyframes", "8", "--port", str(port)],
+                               cwd=root, capture_output=True, text=True, timeout=300)
+        check(agent.returncode == 0, f"the CLI agent failed: {agent.stderr}")
+        t_agent = time.perf_counter() - t_d
+
+        def eight():
+            out = subprocess.run(cli + ["admin", "stats", "--port", str(port)],
+                                 cwd=root, capture_output=True, text=True, timeout=300)
+            check(out.returncode == 0, f"the CLI admin failed: {out.stderr}")
+            maps = json.loads(out.stdout)["result"]["maps"]
+            return sum(m["n_kf"] for m in maps.values()) == 8
+        # each admin call is a process of its own (a few seconds to start)
+        wait_for(eight, "8 keyframes through the CLI", deadline_s=300.0, period=1.0)
+    finally:
+        server.terminate()
+        try:
+            log, _ = server.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            server.kill()
+            log, _ = server.communicate()
+    startup = next((line for line in log.splitlines() if "listening" in line), "")
+    check(torch.cuda.get_device_name(0) in startup,
+          f"the CLI server's startup line does not name the card: {log[-2000:]!r}")
+    print(json.dumps({"phase": "server", "part": "d", "startup_line": startup,
+                      "keyframes": 8, "listening_s": t_listening, "agent_done_s": t_agent,
+                      "elapsed_s": time.perf_counter() - t_d}))
+    print(json.dumps({"phase": "server", "elapsed_s": time.perf_counter() - t_phase}))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return {"redundancy_values": k15}
 
 
 def phase4(dev, card):
@@ -3255,6 +3630,9 @@ SOURCES = {
     # the metric != "hamming" branch of _project_match_impl
     "project_match_l2": ("covins_tpu_torch/csrc/project_match.cu",
                          "covins_tpu/ops/projmatch.py:116"),
+    # with _RED_TABLE (:52); prunemap's culling loop, map_store.py:665
+    "redundancy_values": ("covins_tpu_torch/csrc/redundancy_values.cu",
+                          "covins_tpu/ops/covisibility.py:58"),
 }
 
 
@@ -3288,8 +3666,10 @@ def main():
     print(json.dumps({"phase": 1, "elapsed_s": time.perf_counter() - t_start}))
     table, gpu_run, vocab, world = phase2(dev, card)
     print(json.dumps({"phase": 2, "elapsed_s": time.perf_counter() - t_start}))
-    phase3(dev, card, n_kf=32)
+    streams3, vocab3 = phase3(dev, card, n_kf=32)
     print(json.dumps({"phase": 3, "elapsed_s": time.perf_counter() - t_start}))
+    server_table = phase_server(dev, card, streams3, vocab3)
+    print(json.dumps({"phase": "server", "elapsed_s": time.perf_counter() - t_start}))
     phase4(dev, card)
     print(json.dumps({"phase": 4, "elapsed_s": time.perf_counter() - t_start}))
     phase5(dev, card)
@@ -3297,7 +3677,8 @@ def main():
     gba_launches = phase6(dev, card, gpu_run, vocab, world)
     print(json.dumps({"phase": 6, "elapsed_s": time.perf_counter() - t_start}))
     orb_table, _ = phase_g(dev, card, G_ORB, vocab,
-                           make_windows(build_streams(2, 128, 2000)[1]))
+                           make_windows(build_streams(2, PHASE7_KF, 2000)[1]),
+                           n_kf=PHASE7_KF)
     table.update(orb_table)
     print(json.dumps({"phase": 7, "elapsed_s": time.perf_counter() - t_start}))
     sift_table, sift_launches = phase_g(dev, card, G_SIFT, *sift_inputs(dev))
@@ -3309,6 +3690,7 @@ def main():
     for name, row in gba_table.items():
         row["launches"] = gba_launches[name]
     table.update(gba_table)
+    table.update(server_table)
 
     kernels = []
     for name, row in table.items():

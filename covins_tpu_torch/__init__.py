@@ -6,9 +6,12 @@ the CUDA card unless an entry point is given ``device="cpu"``.  The
 hand-written kernels live in `csrc/` and are built on first use
 (`cuda_build.py`).
 
-Ported so far: keyframe ingest with the batched landmark-attribute refresh
-and the batched BoW insert + score into the device-resident retrieval
-database (`models/session.py` with ``placerec_active=False``).
+Ported: the agent-facing server (`comm/server.py`, with the wire and
+cereal codecs and `python -m covins_tpu_torch`), keyframe ingest with the
+batched landmark-attribute refresh and the batched BoW insert + score,
+place recognition (COVINS and COVINS-G, ORB or SIFT), loop correction,
+map merging, the pose graph, global bundle adjustment and keyframe
+culling.
 """
 
 from covins_tpu_torch import device  # noqa: F401  (sets the TF32 policy)

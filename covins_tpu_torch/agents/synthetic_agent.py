@@ -87,11 +87,17 @@ class SyntheticAgent:
         desc_bit_flips: int = 4,
         pose_drift: float = 0.0,
         seed: Optional[int] = None,
+        send_updates: bool = False,
+        update_window_size: int = 3,
         max_features: Optional[int] = None,
     ):
         """``max_features`` caps the features per keyframe as a front-end's
         extractor does (ORB-SLAM3's ``ORBextractor.nFeatures``); None keeps
-        every visible landmark, as the JAX package's agent does."""
+        every visible landmark, as the JAX package's agent does.  With
+        ``send_updates``, after each new keyframe the previous
+        ``update_window_size`` keyframes are re-sent as pose updates and
+        their landmarks as position updates (the `comm.send_updates`
+        plane)."""
         self.world = world
         self.client_id = client_id
         self.px_noise = px_noise
@@ -111,6 +117,12 @@ class SyntheticAgent:
         self._lm_last_seen: dict[int, int] = {}
         self.lm_world_idx: dict[int, int] = {}  # client lm id -> world idx
         self._next_lm_id = 0
+        # agent-side update stream: the reference's `sent_once_` path
+        # (`orb_slam3/src/comm/communicator.cpp:54-81`; window:
+        # `config_comm.yaml:20` update_window_size)
+        self.send_updates = send_updates
+        self.update_window_size = update_window_size
+        self._lm_first_kf: dict[int, list[int]] = {}  # kf -> client lm ids
         # drifted "VIO" poses: what the front-end believes
         self._vio_poses = self._make_vio_poses()
         calib = world.calib
@@ -220,15 +232,39 @@ class SyntheticAgent:
             # newly minted landmarks: pos_ref is the GT BODY-RELATIVE
             # position, so the server's world placement inherits the anchor
             # keyframe's drift (loop closure then has drift to correct)
-            if not new_world_idx:
-                continue
-            pos_ref = npgeo.pose_apply(
-                npgeo.pose_inverse(traj.poses[k])[None],
-                self.world.landmarks[[wi for _, wi in new_world_idx]])
-            for (j, _), p in zip(new_world_idx, pos_ref):
-                yield msgs.MsgLandmark(
-                    id=(int(lm_ids[j]), self.client_id),
-                    id_reference=(k, self.client_id),
-                    pos_ref=p,
-                    observations={(k, self.client_id): int(j)},
+            if new_world_idx:
+                pos_ref = npgeo.pose_apply(
+                    npgeo.pose_inverse(traj.poses[k])[None],
+                    self.world.landmarks[[wi for _, wi in new_world_idx]])
+                for (j, _), p in zip(new_world_idx, pos_ref):
+                    yield msgs.MsgLandmark(
+                        id=(int(lm_ids[j]), self.client_id),
+                        id_reference=(k, self.client_id),
+                        pos_ref=p,
+                        observations={(k, self.client_id): int(j)},
+                    )
+            self._lm_first_kf[k] = [int(lm_ids[j]) for j, _ in new_world_idx]
+            if self.send_updates and k > 0:
+                yield from self._updates(k)
+
+    def _updates(self, k: int) -> Iterator[object]:
+        """The keyframes before ``k`` in the update window as pose updates
+        relative to KF0 (`ConvertToMsg` update layout, `KeyFrame.cc:45+`),
+        each followed by its landmarks' position updates."""
+        for u in range(max(0, k - self.update_window_size), k):
+            yield msgs.MsgKeyframeUpdate(
+                id=(u, self.client_id),
+                id_reference=(0, self.client_id),
+                T_sref_s=npgeo.pose_relative(self._vio_poses[0], self._vio_poses[u]),
+                velocity=np.asarray(self.traj.vels[u]),
+                bias_gyro=np.zeros(3),
+                bias_acc=np.zeros(3),
+            )
+            for lid in self._lm_first_kf.get(u, []):
+                yield msgs.MsgLandmarkUpdate(
+                    id=(lid, self.client_id),
+                    id_reference=(u, self.client_id),
+                    pos_ref=npgeo.pose_apply(
+                        npgeo.pose_inverse(self.traj.poses[u]),
+                        self.world.landmarks[self.lm_world_idx[lid]]),
                 )

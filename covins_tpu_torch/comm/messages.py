@@ -9,7 +9,7 @@ keyframe's frame), same update-vs-full split.  Storage is flat numpy —
 records batch directly into device arrays at ingest.
 
 A copy of the JAX package's `comm/messages.py`; this module is
-transport-neutral (the wire codec is not part of the port yet).
+transport-neutral (the wire encoding lives in `comm/wire.py`).
 """
 
 from __future__ import annotations

@@ -84,6 +84,9 @@ SIGNATURES = {
     "imu_preintegrate": {
         "covins_imu_preintegrate": [_P] * 6 + [_I, _I, _D, _D] + [_P] * 7,
     },
+    "redundancy_values": {
+        "covins_redundancy_values": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
+    },
 }
 # the most blocks a PCG kernel's grid may have: the size of the block slots
 # its wrapper allocates for the dot products' partial sums

@@ -7,8 +7,9 @@ resolution across maps; an accepted loop inside one map fuses duplicated
 landmarks, records the constraint and seeds the pose-graph solve with the
 loop-corrected poses; a loop across maps merges the query's map into the
 candidate's; :meth:`MapManager.run_gba` runs global visual-inertial
-bundle adjustment on one map.  Host bookkeeping is numpy; the solves run
-on the map's device (`ops/pgo.py`, `ops/gba.py`).
+bundle adjustment on one map, and :meth:`MapManager.replay_placerec` runs
+a loaded map's keyframes through place recognition.  Host bookkeeping is
+numpy; the solves run on the map's device (`ops/pgo.py`, `ops/gba.py`).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import numpy as np
 from covins_tpu_torch.device import DeviceLike, resolve_device
 from covins_tpu_torch.models.kf_database import KeyframeDatabase
 from covins_tpu_torch.models.map_store import Map
-from covins_tpu_torch.models.placerec import LoopResult
+from covins_tpu_torch.models.placerec import LoopResult, PlaceRecognition
 from covins_tpu_torch.ops import gba as gba_mod
 from covins_tpu_torch.ops import pgo as pgo_mod
 from covins_tpu_torch.utils import npgeo
@@ -46,6 +47,7 @@ class MapManager:
         self.output_dir = output_dir
 
     def _attach(self, mp: Map):
+        mp.database = self.database
         if self.output_dir:
             mp.traj_dir = self.output_dir
             mp.traj_fmt = self.cfg.trajectory_format
@@ -217,6 +219,37 @@ class MapManager:
                 self.pending_pgo[mp_c.id] = None
             else:
                 self.run_pgo(mp_c)
+
+    def replay_placerec(self, mp: Map, perform_pgo: bool = True) -> dict:
+        """Replay a LOADED map's keyframes through place recognition
+        (`CallbackLoadMap` optional placerec pass, `backend.cpp:247-283`):
+        keyframes sorted by stamp (newest first, as the reference does),
+        each queried against the full database — loops found against
+        previously loaded maps trigger merges, intra-map loops add
+        constraints; with ``perform_pgo`` each loop is followed by PGO.  Returns
+        ``{"loops", "merges"}`` added by the replay."""
+        client = min(mp.associated_clients) if mp.associated_clients else -1
+        pr = PlaceRecognition(client, self.database, self.resolve, self.cfg)
+        rows = mp.live_kf_rows()
+        rows = rows[np.argsort(-mp.kf_stamp[rows])]
+        kf_ids = [tuple(mp.kf_ids[r]) for r in rows]
+        n_loops0, n_merges0 = self.n_loops, self.n_merges
+        # the replay's PGO choice comes from the service action code, not
+        # the config (`backend.cpp:214-237` action semantics)
+        pgo_flag = self.cfg.perform_pgo
+        self.cfg.perform_pgo = perform_pgo
+        try:
+            for kid in kf_ids:
+                cur, row = self.resolve(kid)
+                if cur is None:
+                    continue
+                loop = pr.process_keyframe(cur, row)
+                if loop is not None:
+                    self.handle_loop(loop)
+        finally:
+            self.cfg.perform_pgo = pgo_flag
+        return {"loops": self.n_loops - n_loops0,
+                "merges": self.n_merges - n_merges0}
 
     # ------------------------------------------------------------------ PGO
     def run_pgo(self, mp: Map, poses_init: Optional[np.ndarray] = None):

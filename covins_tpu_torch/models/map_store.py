@@ -11,9 +11,9 @@ landmark-attribute refresh runs on the device in one launch
 
 The GBA snapshot (:meth:`Map.to_gba_problem`) re-propagates each stored
 IMU window on the map's device (kernel K10) and hands the problem to
-`ops/gba.py`.  Keyframe culling (`erase_keyframe`,
-`remove_redundant_keyframes`) belongs to a later part of the port and is
-not here yet.
+`ops/gba.py`.  Keyframe culling (:meth:`Map.remove_redundant_keyframes`)
+scores the keyframes on the map's device (`ops/covisibility.py`, kernel
+K15) and erases them on the host (:meth:`Map.erase_keyframe`).
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import torch
 
 from covins_tpu_torch.comm import messages as msgs
 from covins_tpu_torch.device import DeviceLike, resolve_device
+from covins_tpu_torch.ops import covisibility as cov_ops
 from covins_tpu_torch.ops import gba as gba_mod
 from covins_tpu_torch.ops import imu as imu_mod
 from covins_tpu_torch.ops import landmark_ops
@@ -60,6 +61,9 @@ class Map:
         self.id = map_id
         # device of the batched landmark-attribute refresh
         self.device = resolve_device(device)
+        # the retrieval database culled keyframes are erased from; set by
+        # the MapManager that registers the map
+        self.database = None
         self.associated_clients: set[int] = set()
         # lazily-dispatched landmark-attribute cohorts (see
         # update_landmark_attributes(lazy=True) / commit_landmark_attributes)
@@ -596,6 +600,86 @@ class Map:
         if non_moved < 2:
             self.erase_landmark(tofuse)
         return True
+
+    def erase_keyframe(self, row: int):
+        """Erase a KF, splicing pred<->succ and merging its IMU window into
+        the successor (`FusePreintegration`, `keyframe_be.cpp:413-440`)."""
+        pred, succ = self.kf_pred[row], self.kf_succ[row]
+        if succ >= 0:
+            # successor's window absorbs this KF's samples (prepend)
+            n1, n2 = int(self.imu_n[row]), int(self.imu_n[succ])
+            tot = min(n1 + n2, self.imu_max_samples)
+            acc = np.concatenate([self.imu_acc[row, :n1], self.imu_acc[succ, :n2]])[:tot]
+            gyr = np.concatenate([self.imu_gyro[row, :n1], self.imu_gyro[succ, :n2]])[:tot]
+            dts = np.concatenate([self.imu_dts[row, :n1], self.imu_dts[succ, :n2]])[:tot]
+            self.imu_acc[succ, :tot] = acc
+            self.imu_gyro[succ, :tot] = gyr
+            self.imu_dts[succ, :tot] = dts
+            self.imu_n[succ] = tot
+        if pred >= 0:
+            self.kf_succ[pred] = succ if succ >= 0 else -1
+        if succ >= 0:
+            self.kf_pred[succ] = pred if pred >= 0 else -1
+        self.kf_mask[row] = False
+        sel = self.obs_kf[: self.n_obs] == row
+        self.obs_mask[: self.n_obs][sel] = False
+        # re-anchor landmarks referencing this KF to their first live observer
+        for lrow in np.unique(self.obs_lm[: self.n_obs][sel]):
+            if self.lm_ref[lrow] == row:
+                obs_of = self.obs_kf[: self.n_obs][
+                    (self.obs_lm[: self.n_obs] == lrow) & self.obs_mask[: self.n_obs]
+                ]
+                self.lm_ref[lrow] = obs_of[0] if len(obs_of) else -1
+        key = tuple(self.kf_ids[row])
+        self._kf_index.pop(key, None)
+        if self.database is not None:
+            self.database.erase_id(key)
+
+    def remove_redundant_keyframes(
+        self,
+        threshold: float = 0.95,
+        max_time_dist: float = 1.0,
+        target_kf_count: Optional[int] = None,
+    ) -> int:
+        """Keyframe culling by redundancy value (`Map::RemoveRedundantData`,
+        `map_be.cpp:745-811`): iteratively erase the most redundant KF,
+        skipping loop-KFs and KFs whose removal would leave a pred-succ
+        time gap >= `max_time_dist`.  Two modes: threshold, or prune down
+        to `target_kf_count`.  Each iteration scores every keyframe on the
+        map's device (one K15 launch on a card) from the current
+        observation mask and fetches the (n_kf,) values once; the
+        observation rows do not change while keyframes are erased, so they
+        are uploaded once."""
+        o, dev = self.n_obs, self.device
+        obs_kf = torch.from_numpy(self.obs_kf[:o].copy()).to(dev)
+        obs_lm = torch.from_numpy(self.obs_lm[:o].copy()).to(dev)
+        removed = 0
+        while True:
+            n_live = int(self.kf_mask[: self.n_kf].sum())
+            if target_kf_count is not None and n_live <= target_kf_count:
+                break
+            mask = torch.from_numpy(self.obs_mask[:o].astype(np.float32)).to(dev)
+            red = cov_ops.redundancy_values(obs_kf, obs_lm, mask, n_kf=self.n_kf,
+                                            n_lm=max(self.n_lm, 1)).cpu().numpy()
+            order = np.argsort(-red)
+            found = -1
+            for r in order:
+                if not self.kf_mask[r] or self.kf_is_loop[r]:
+                    continue
+                if target_kf_count is None and red[r] < threshold:
+                    break
+                pred, succ = self.kf_pred[r], self.kf_succ[r]
+                if pred < 0 or succ < 0:
+                    continue
+                if self.kf_stamp[succ] - self.kf_stamp[pred] >= max_time_dist:
+                    continue
+                found = r
+                break
+            if found < 0:
+                break
+            self.erase_keyframe(found)
+            removed += 1
+        return removed
 
     # ------------------------------------------------------------------ merge
     def merge_from(self, other: "Map", T_wtarget_wtofuse: np.ndarray):

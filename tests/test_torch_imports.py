@@ -26,7 +26,9 @@ def test_port_modules_import_without_jax():
                  "ops.loopverify", "ops.projmatch", "ops.pnp", "ops.pgo",
                  "ops.relpose", "ops.residuals", "ops.polynomial", "ops.ransac",
                  "ops.linalg", "ops.gba", "ops.imu", "utils.geometry",
-                 "utils.cameras", "utils.synthetic"):
+                 "utils.cameras", "utils.synthetic", "comm.wire", "comm.native_codec",
+                 "comm.cereal_bridge", "comm.client", "comm.server", "ops.covisibility",
+                 "io.export", "cli", "__main__"):
         assert f"covins_tpu_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"

@@ -1316,3 +1316,65 @@ def test_insert_and_score_l2_matches_the_cpu(dev):
     for g, c in zip(g_res, c_res):
         assert np.array_equal(g["scores"], c["scores"]) and np.array_equal(g["common"],
                                                                             c["common"])
+
+
+# K15: (n_kf, n_lm, O, case) — ragged; no live observation; a keyframe
+# with none; landmarks seen far more than six times; one observation; the
+# five-agent map's order of size; observations sorted by keyframe (the
+# others are unsorted); more keyframes than a block's shared sums hold
+K15_CASES = [(37, 3001, 12345, "ragged"), (9, 40, 700, "no_live_obs"),
+             (12, 200, 800, "kf_without_obs"), (6, 3, 500, "many_obs_per_lm"),
+             (4, 7, 1, "one_obs"), (160, 40_000, 200_000, "large"),
+             (25, 1200, 5000, "sorted"), (1_000_000, 10_000, 50_000, "many_kfs"),
+             (5, 9, 0, "no_obs")]
+
+
+def _k15_inputs(n_kf, n_lm, O, case):
+    rng = np.random.default_rng(O + n_kf)
+    kf = rng.integers(0, n_kf, O).astype(np.int32)
+    if case == "kf_without_obs":
+        kf[kf == 5] = 6
+    if case == "sorted":
+        kf = np.sort(kf)
+    lm = rng.integers(0, n_lm, O).astype(np.int32)
+    mask = (rng.random(O) < 0.8).astype(np.float32)
+    if case == "no_live_obs":
+        mask[:] = 0
+    return kf, lm, mask
+
+
+@pytest.mark.parametrize("n_kf,n_lm,O,case", K15_CASES, ids=[c[3] for c in K15_CASES])
+def test_redundancy_values_matches_plain(dev, n_kf, n_lm, O, case):
+    from covins_tpu_torch.ops import covisibility
+
+    args = [torch.from_numpy(x).to(dev) for x in _k15_inputs(n_kf, n_lm, O, case)]
+    before = covisibility.redundancy_values.launches
+    got = covisibility.redundancy_values(*args, n_kf, n_lm)
+    again = covisibility.redundancy_values(*args, n_kf, n_lm)
+    assert covisibility.redundancy_values.launches == before + 2
+    want = covisibility.redundancy_values_plain(*[a.cpu() for a in args], n_kf, n_lm)
+    assert got.dtype == torch.float32 and got.shape == (n_kf,)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    assert torch.equal(again.view(torch.int32), got.view(torch.int32))
+    # the plain version gives the same bits on the card
+    on_card = covisibility.redundancy_values_plain(*args, n_kf, n_lm)
+    assert torch.equal(on_card.cpu().view(torch.int32), want.view(torch.int32))
+
+
+def test_redundancy_values_refuses_bad_inputs(dev):
+    from covins_tpu_torch.ops import covisibility
+
+    kf = torch.zeros(8, dtype=torch.int32, device=dev)
+    mask = torch.ones(8, dtype=torch.float32, device=dev)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        covisibility.redundancy_values(kf, kf.cpu(), mask, 2, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        covisibility.redundancy_values(kf.cpu(), kf, mask, 2, 2)
+    with pytest.raises(ValueError):
+        covisibility.redundancy_values(kf.long(), kf, mask, 2, 2)
+    with pytest.raises(ValueError):
+        covisibility.redundancy_values(kf, kf, mask.bool(), 2, 2)
+    with pytest.raises(ValueError):
+        covisibility.redundancy_values(kf, kf[:4], mask, 2, 2)
+    with pytest.raises(ValueError):
+        covisibility.redundancy_values(kf, kf, mask, 2, 0)
