@@ -34,6 +34,17 @@ RED_TABLE = (0.0, 0.0, 0.0, 0.4, 0.7, 0.9, 1.0)
 # intermediate
 _QUERY_BATCH = 64
 
+# K15's slots for its grid's per-block totals (kMaxGrid of
+# csrc/redundancy_values.cu), part of the scratch the wrapper allocates
+_K15_GRID_SLOTS = 2048
+
+
+def k15_scratch_len(O: int, n_kf: int, n_lm: int) -> int:
+    """int32 entries of K15's scratch: its (score, mask) pairs, counts,
+    segment starts, keyframe lists and partition
+    (`csrc/redundancy_values.cu`)."""
+    return 4 * O + n_lm + 3 * n_kf + 2 + _K15_GRID_SLOTS
+
 
 def landmark_obs_counts(obs_lm: torch.Tensor, obs_mask: torch.Tensor,
                         n_lm: int) -> torch.Tensor:
@@ -137,12 +148,12 @@ def redundancy_values(obs_kf: torch.Tensor, obs_lm: torch.Tensor, obs_mask: torc
     out = torch.empty(n_kf, dtype=torch.float32, device=dev)
     if n_kf == 0:
         return out
-    lm_count = torch.empty(n_lm, dtype=torch.int32, device=dev)
+    scratch = torch.empty(k15_scratch_len(O, n_kf, n_lm), dtype=torch.int32, device=dev)
     lib = cuda_build.library("redundancy_values")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.covins_redundancy_values(kf, lm, mask, O, n_kf, n_lm, lm_count.data_ptr(),
-                                          out.data_ptr(), stream)
+        rc = lib.covins_redundancy_values(kf, lm, mask, O, n_kf, n_lm, scratch.data_ptr(),
+                                          scratch.numel(), out.data_ptr(), stream)
     cuda_build.check(rc, "redundancy_values")
     redundancy_values.launches += 1
     return out

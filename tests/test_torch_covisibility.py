@@ -32,11 +32,15 @@ from covins_tpu_torch.utils.config import Config
 
 # (n_kf, n_lm, O, case): ragged sizes; a keyframe with no observation; no
 # live observation; landmarks seen far more than six times; one
-# observation; the five-agent map's size; observations sorted by keyframe
+# observation; the five-agent map's size; observations sorted by keyframe;
+# every observation in one keyframe; masks other than 0 and 1 (truncated
+# counts, ordered mask sums); prunemap's size in a map's order (sorted by
+# keyframe, 5% appended later)
 COO_CASES = [(37, 3001, 12345, "ragged"), (12, 200, 800, "kf_without_obs"),
              (9, 40, 700, "no_live_obs"), (6, 3, 500, "many_obs_per_lm"),
              (4, 7, 1, "one_obs"), (160, 40_000, 200_000, "large"),
-             (25, 1200, 5000, "sorted")]
+             (25, 1200, 5000, "sorted"), (1, 500, 20_000, "one_kf"),
+             (37, 3001, 12345, "fractional_mask"), (160, 27_441, 101_712, "prunemap_like")]
 
 
 def _coo(n_kf, n_lm, O, case, seed=0):
@@ -46,10 +50,16 @@ def _coo(n_kf, n_lm, O, case, seed=0):
         kf[kf == 5] = 6
     if case == "sorted":
         kf = np.sort(kf)
+    if case == "prunemap_like":
+        kf = np.sort(kf)
+        late = rng.permutation(rng.choice(O, O // 20, replace=False))
+        kf = np.concatenate([np.delete(kf, late), kf[late]])
     lm = rng.integers(0, n_lm, O).astype(np.int32)
     mask = (rng.random(O) < 0.8).astype(np.float32)
     if case == "no_live_obs":
         mask[:] = 0
+    if case == "fractional_mask":
+        mask = rng.choice(np.float32([-0.5, 0, 0.3, 1, 1.7, 2]), O)
     return kf, lm, mask
 
 

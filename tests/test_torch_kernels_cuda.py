@@ -1321,12 +1321,20 @@ def test_insert_and_score_l2_matches_the_cpu(dev):
 # K15: (n_kf, n_lm, O, case) — ragged; no live observation; a keyframe
 # with none; landmarks seen far more than six times; one observation; the
 # five-agent map's order of size; observations sorted by keyframe (the
-# others are unsorted); more keyframes than a block's shared sums hold
+# others are unsorted); far more keyframes than observations; one
+# keyframe's segment longer than a block sorts at once (taken in windows);
+# masks other than 0 and 1 (truncated counts, ordered mask sums);
+# prunemap's size in a map's order (sorted by keyframe, 5% appended later);
+# more keyframes than a block scans itself, each with more observations
+# than a thread sums; segments wider than one group of windows
 K15_CASES = [(37, 3001, 12345, "ragged"), (9, 40, 700, "no_live_obs"),
              (12, 200, 800, "kf_without_obs"), (6, 3, 500, "many_obs_per_lm"),
              (4, 7, 1, "one_obs"), (160, 40_000, 200_000, "large"),
              (25, 1200, 5000, "sorted"), (1_000_000, 10_000, 50_000, "many_kfs"),
-             (5, 9, 0, "no_obs")]
+             (5, 9, 0, "no_obs"), (1, 5000, 200_000, "one_kf"),
+             (37, 3001, 12345, "fractional_mask"), (160, 27_441, 101_712, "prunemap_like"),
+             (6000, 40_000, 150_000, "many_kfs_listed"),
+             (400, 1_000_000, 4_300_000, "two_groups")]
 
 
 def _k15_inputs(n_kf, n_lm, O, case):
@@ -1336,10 +1344,16 @@ def _k15_inputs(n_kf, n_lm, O, case):
         kf[kf == 5] = 6
     if case == "sorted":
         kf = np.sort(kf)
+    if case == "prunemap_like":
+        kf = np.sort(kf)
+        late = rng.permutation(rng.choice(O, O // 20, replace=False))
+        kf = np.concatenate([np.delete(kf, late), kf[late]])
     lm = rng.integers(0, n_lm, O).astype(np.int32)
     mask = (rng.random(O) < 0.8).astype(np.float32)
     if case == "no_live_obs":
         mask[:] = 0
+    if case == "fractional_mask":
+        mask = rng.choice(np.float32([-0.5, 0, 0.3, 1, 1.7, 2]), O)
     return kf, lm, mask
 
 
