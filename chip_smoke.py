@@ -67,7 +67,12 @@ package beside it.  Phases:
    (:func:`l2_filter_error`: within its bound on every pair, the
    product's share at most C_TC / 8; also on the SIFT phase's replayed
    inputs); K5's L2 metric (float64 distances) at stage 3's
-   1024 x 1024 and stage 5's 10,070 x 1,024 exactly;
+   1024 x 1024 and stage 5's 10,070 x 1,024 exactly; K16 (the DBoW2
+   vocabulary-tree descent, a warp a descriptor) bit for bit at ORBvoc.txt's
+   shape (k 10, L 6, 1,111,111 nodes from a seed) with 6,480 and 65,536
+   descriptors, on a ragged tree, tied children, k 2 and 16, N 0 and 1,
+   with and without masked rows, across two launches, beside its bound
+   (the distinct bytes its descents touch, :func:`dbow_bytes`);
 2. the full main path at the workload of the JAX package's benchmark
    (2 agents x 128 KF over 2000 landmarks, 512-word vocabulary trained on
    the card, 1024-message windows, the default ``Config()`` with
@@ -138,15 +143,15 @@ server. the agent-facing product on the card with phase 3's streams and
    changes on the CPU, the ATE to the agents' ground truth before and
    after;
 7. COVINS-G (``placerec_type="COVINS_G"``, ``G_ORB``) on phase 2's
-   trajectories cut to 2 x 64 keyframes (PHASE7_KF, to keep the smoke
+   trajectories cut to 2 x 32 keyframes (PHASE7_KF, to keep the smoke
    within its time; widths unchanged) with the default thresholds: the
    whole ingest and drain on the card with the launch counters set to 0
    just before it and read just after (K1 and K3 once a window, K11 once
    and K12 four times a verification: the central 5-point RANSACs whole,
    then three scorings; nothing of COVINS's K4-K6 or of SIFT), failed if
    it closes no loop, the drain's time and the host's time per Gumbel
-   draw, upload and dispatch; then the first WARM_WINDOWS windows on the
-   card and on the CPU, compared: the database and every queued score,
+   draw, upload and dispatch; then the first G_HEAD_WINDOWS windows on the
+   card and on the CPU (failed if they verify no candidate), compared: the database and every queued score,
    candidates, every verification's gates, pair matches, central
    inliers, pool and 17-point inliers, loops and merges exactly, loop
    transforms to LOOP_TOL, covariances to COV_TOL, poses to POSE_TOL;
@@ -155,17 +160,35 @@ server. the agent-facing product on the card with phase 3's streams and
    dispatch on the card (at most 20,000) beside the host's ms a dispatch;
 SIFT. the same over SIFT descriptors (``G_SIFT``: ``feat_type="SIFT"``,
    128 float32 dimensions, ``img_match_thres=500``, else the defaults) on
-   phase 7's 2 x 64 keyframes, with a 512-word L2 vocabulary trained on the
+   phase 7's 2 x 32 keyframes, with a 512-word L2 vocabulary trained on the
    card (k-means on K13): K13 and K3 once a window, K14 once and K12 four
    times a verification, no kernel of binary descriptors; K13 and K14
    replayed;
+frontend. the front-end attachment on the card (:func:`phase_frontend`):
+   phase 2's trajectories cut to 2 x 32 keyframes written as CFS streams
+   (keypoints, descriptors, odometry, velocity, IMU windows; no
+   landmarks), a k 10, L 3 DBoW2 text vocabulary over 1000 centres trained
+   on the card, loaded through the CLI's `.txt` path, a `CovinsServer` on
+   the card in COVINS-G fed by two `run_stream` clients over TCP (counters
+   set to 0 before, read after the last finish: K1 and K3 once a window,
+   K11 once and K12 four times a verification, pgo_pcg once loops fired,
+   nothing of COVINS or SIFT, and K16 on no server path), then the CLI's
+   `frontend` in a
+   subprocess as a third agent: every keyframe arrived, no worker error,
+   every client finished; the adapter's keyframes through `AgentSession`
+   on the card and on the CPU in windows of FRONTEND_WINDOW keyframes,
+   compared as phase 7 compares; `HierVocabulary.assign` (K16, once per
+   agent, those launches printed as `assign_launches`) on the card against
+   the CPU, and K16 timed on its input;
 8. one JSON line per the kernel table (K1-K7 and pgo_pcg timed on phase
    2's inputs with phase 2's launches, K8-K10 and gba_pcg on bench.py's
    GBA problem with phase 6's launches, K11 and K12 on phase 7's inputs
    with its launches, K13 and K14 on the SIFT phase's with its launches,
    K5's L2 metric on phase 1's stage-5 scene with the SIFT phase's launches
    of K5, none; K15 on the server phase's prunemap input with its
-   launches), the card line, and the result line
+   launches; K16 on the phase "frontend"'s descriptors with the server
+   path's launches of K16, 0), checked to hold every kernel of SOURCES,
+   the card line, and the result line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -194,7 +217,10 @@ WARM_WINDOWS = 4
 # the COVINS-G cells' keyframes an agent (phase 7 and the SIFT phase): cut
 # from the bench's 128 to keep the smoke well within its time limit, which
 # the host's pace between calls (up to twofold in a drain) otherwise nears
-PHASE7_KF = 64
+PHASE7_KF = 32
+# the windows of a COVINS-G cell compared card against CPU: the CPU's pass
+# is most of the cell's time
+G_HEAD_WINDOWS = 4
 # How far the card's run of the full path may differ from the CPU's.  Both
 # take the same RANSAC draws (one seeded CPU generator per agent) and the
 # same algorithms; they differ only where the card's transcendental
@@ -1664,6 +1690,74 @@ def _k7_inputs(rng, N, E, dev):
             torch.tensor(rng.normal(size=(E, 6, 6)), **f64), graph)
 
 
+def dbow_bytes(descs, mask, children, node_desc, L):
+    """The distinct bytes a descent of ``descs`` needs (the bound of K16):
+    the descriptors (and mask) read once, the ids and weights written once,
+    and for each node some live descent visits its children's ids and
+    each child's 32-byte row, once, and each end node's id and weight."""
+    import torch
+
+    from covins_tpu_torch.ops import dbow_import as dbi
+
+    N, (n_nodes, k) = descs.shape[0], children.shape
+    ids = torch.arange(n_nodes, dtype=torch.int32, device=descs.device)
+    zeros = torch.zeros(n_nodes, dtype=torch.float32, device=descs.device)
+    live = descs if mask is None else descs[mask]
+    visited = [dbi.dbow_descend_plain(live, None, children, node_desc, zeros, ids, level)[0]
+               for level in range(L + 1)]
+    inner = torch.unique(torch.cat(visited[:L])) if L and len(live) else visited[0][:0]
+    reads = inner.numel() * k * 4 + int((children[inner.long()] >= 0).sum()) * 32
+    ends = torch.unique(visited[L]).numel() * 8
+    return N * 32 + (0 if mask is None else N) + N * 8 + reads + ends
+
+
+def k16_case(tree, L, descs, mask, reps, cpu=True):
+    """K16 (`dbow_import.dbow_descend`) against its plain version on the
+    card and (``cpu``) on the CPU, bit for bit, one launch a call and the
+    same across two launches; timed beside its bound (the distinct bytes
+    its descents touch, :func:`dbow_bytes`).  No single PyTorch call
+    descends a tree: no library time."""
+    import torch
+
+    from covins_tpu_torch.ops import dbow_import as dbi
+
+    N = descs.shape[0]
+
+    def kernel():
+        return dbi.dbow_descend(descs, mask, *tree, L)
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    before = dbi.dbow_descend.launches
+    out, again = kernel(), kernel()
+    check(dbi.dbow_descend.launches == before + (2 if N else 0),
+          "K16 did not launch once per call")
+    plain = dbi.dbow_descend_plain(descs, mask, *tree, L)
+    wants = [plain]
+    if cpu:
+        wants.append(dbi.dbow_descend_plain(descs.cpu(), None if mask is None else mask.cpu(),
+                                            *(t.cpu() for t in tree), L))
+    torch.cuda.synchronize()
+    for g, a, *ws in zip(out, again, *wants):
+        check(torch.equal(bits(g), bits(a)), "K16 differs between two launches")
+        check(all(torch.equal(bits(g).cpu(), bits(w).cpu()) for w in ws),
+              f"K16 differs from its plain version at {N} x {tree[0].shape}")
+    n_nodes, k = tree[0].shape
+    live = torch.ones(N, dtype=torch.bool, device=descs.device) if mask is None else mask
+    # descents that end on an inner node (id -1, as the JAX package's)
+    row = {"max_abs_err": 0.0, "shape": [N, n_nodes, k, L], "library_ms": None,
+           "inner_ends": int(((out[0] < 0) & live).sum())}
+    if N < 2:
+        return row
+    nbytes = dbow_bytes(descs, mask, tree[0], tree[1], L)
+    bnd, by = bound(nbytes)
+    return {**row, "kernel_ms": cuda_ms(kernel, reps), "busy_ms": busy_ms(kernel, reps),
+            "plain_ms": cuda_ms(lambda: dbi.dbow_descend_plain(descs, mask, *tree, L),
+                                max(1, reps // 10)),
+            "bound_ms": bnd, "bound_by": by, "bytes": nbytes}
+
+
 def phase1(dev):
     """Kernels against their plain versions on the card, with edge cases."""
     import torch
@@ -1895,18 +1989,41 @@ def phase1(dev):
             print(json.dumps({"phase": 1, "kernel": "gba_reproj_blocks", "camera": camera,
                               "huber": 2.447,
                               "shape": [n_kf, p.lms.shape[0], p.obs_kf.shape[0]], **r}))
+    # K16 at ORBvoc.txt's shape (k = 10, L = 6: 1,111,111 nodes, built from
+    # a seed) with a bench window's descriptors (12 KF x 540) and 65,536 (its
+    # plain version held on the card only: the CPU's takes tens of seconds),
+    # each also with masked rows; a ragged tree (1-3 children in random
+    # slots, leaves at depths 1-2, inner nodes without children), tied
+    # children, k = 2 and 16, and N = 0 and 1
+    card = card_line()
+    rng16 = np.random.default_rng(SEED + 16)
+    orb = synthetic.dbow_tree(rng16, 10, 6)
+    for kind, k, L, N in (("complete", 10, 6, 6480), ("complete", 10, 6, 65536),
+                          ("ragged", 10, 8, 3001), ("ties", 10, 3, 2000),
+                          ("complete", 2, 8, 1000), ("complete", 16, 3, 5000),
+                          ("complete", 10, 3, 0), ("complete", 10, 3, 1)):
+        voc = orb if (k, L) == (10, 6) else synthetic.dbow_tree(rng16, k, L, kind)
+        descs = t(synthetic.dbow_descriptors(rng16, voc, N))
+        for mask in (None, t(rng16.random(N) < 0.9)):
+            r = k16_case(voc.tree_on(dev), L, descs, mask, reps=20 if N > 10000 else 50,
+                         cpu=N < 10000)
+            print(json.dumps({"phase": 1, "kernel": "dbow_descend", "card": card,
+                              "tree": kind, "masked": mask is not None, **r}))
+            if kind == "ragged":
+                check(r["inner_ends"] > 0, "no ragged descent ended on an inner node")
+    del orb
     return table, sift_k5
 
 
 # -------------------------------------------------------------------- main path
-def make_windows(streams):
-    """Interleave the agent streams into windows of WINDOW messages, the
+def make_windows(streams, size=WINDOW):
+    """Interleave the agent streams into windows of ``size`` messages, the
     way the server worker drains them (per-client order preserved)."""
     windows = []
     cursors = [0] * len(streams)
     while any(c < len(s) for c, s in zip(cursors, streams)):
         window = {}
-        budget = WINDOW
+        budget = size
         while budget > 0:
             progressed = False
             for cid, s in enumerate(streams):
@@ -2362,8 +2479,8 @@ def trace_slice(vocab, windows, card):
 
 
 def kernel_wrappers():
-    from covins_tpu_torch.ops import (bow, covisibility, descriptors, epipolar, gba, imu,
-                                      landmark_ops, pgo, pnp, projmatch)
+    from covins_tpu_torch.ops import (bow, covisibility, dbow_import, descriptors, epipolar,
+                                      gba, imu, landmark_ops, pgo, pnp, projmatch)
 
     return {"hamming_argmin": descriptors.hamming_argmin,
             "landmark_attributes": landmark_ops.landmark_attributes,
@@ -2382,7 +2499,8 @@ def kernel_wrappers():
             "gba_reduced_matvec": gba.reduced_matvec,
             "gba_pcg": gba.pcg,
             "imu_preintegrate": imu.preintegrate,
-            "redundancy_values": covisibility.redundancy_values}
+            "redundancy_values": covisibility.redundancy_values,
+            "dbow_descend": dbow_import.dbow_descend}
 
 
 # the kernels of the ingest and place-recognition drain (phase 2) and of GBA;
@@ -2942,6 +3060,234 @@ def phase_server(dev, card, streams, vocab):
     return {"redundancy_values": k15}
 
 
+# phase "frontend": phase 2's trajectories cut to 2 agents x FRONTEND_KF
+# keyframes (widths unchanged), sent as the front-end adapter sends them (no
+# landmarks), in windows of FRONTEND_WINDOW keyframes for the card-against-CPU
+# replay (64 keyframes fill less than one of the server's 1024-message
+# windows); the CLI's `frontend` sends the first FRONTEND_CLI_KF frames of
+# agent 1's stream as a third agent
+FRONTEND_KF = 32
+FRONTEND_WINDOW = 8
+FRONTEND_CLI_KF = 8
+
+
+def cfs_frames(stream):
+    """An agent's keyframes as CFS frame records: odometry pose, velocity,
+    keypoints (the synthetic agent's, undistorted: the stream's
+    calibration says so), descriptors, angles and the IMU window since the
+    previous keyframe."""
+    frames = []
+    for m in stream:
+        if type(m).__name__ != "MsgKeyframe":
+            continue
+        pre = m.preintegration
+        imu = {} if pre is None else {"acc": pre.acc, "gyro": pre.gyro, "imu_dts": pre.dts}
+        frames.append({"timestamp": m.timestamp, "T_w_s": m.T_w_s_vio,
+                       "keypoints": m.keypoints_undist, "descriptors": m.descriptors,
+                       "keypoints_aors": m.keypoints_aors, "velocity": m.velocity, **imu})
+    return frames
+
+
+def write_cfs(path, calib, frames):
+    from covins_tpu_torch.io import stream as cfs
+
+    with cfs.StreamWriter(path) as w:
+        w.write_calibration(calib)
+        for f in frames:
+            w.write_frame(**f)
+
+
+def tree_vocabulary(centres, rng):
+    """A DBoW2 tree of k = 10, L = 3 whose 1000 leaves are ``centres``, in
+    order, grouped ten under a parent; each inner node's descriptor is its
+    children's bitwise majority, each leaf's weight drawn from ``rng``."""
+    from covins_tpu_torch.utils import synthetic
+
+    voc = synthetic.dbow_tree(rng, 10, 3)
+    voc.node_desc[voc.leaf_word_id >= 0] = centres
+    for lvl in (2, 1):
+        rows = np.where(voc.depth == lvl)[0]
+        bits = np.unpackbits(voc.node_desc[voc.children[rows]], axis=-1).sum(1)
+        voc.node_desc[rows] = np.packbits(2 * bits > voc.k, axis=-1)
+    return voc
+
+
+def phase_frontend(dev, card):
+    """The front-end attachment on the card: each agent's keyframes as a
+    CFS stream, a DBoW2 text vocabulary loaded through the CLI's `.txt`
+    path, a `CovinsServer` on the card in COVINS-G fed by two `run_stream`
+    clients over TCP (the launch counters set to 0 just before and read
+    after the last finish), then the CLI's `frontend` in a subprocess;
+    every keyframe arrived, no worker error, every client finished.  Then
+    the adapter's keyframes through `AgentSession` on the card and on the
+    CPU, compared, and `HierVocabulary.assign` (K16) on the card against
+    the CPU on the phase's descriptors."""
+    import argparse
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    from covins_tpu_torch import cli
+    from covins_tpu_torch.agents.frontend_adapter import FrontendWrapper, run_stream
+    from covins_tpu_torch.comm.server import CovinsServer
+    from covins_tpu_torch.ops import bow, dbow_import
+    from covins_tpu_torch.utils.config import Config
+
+    t_phase = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_frontend_")
+    world, streams = build_streams(2, FRONTEND_KF, 2000)
+    calib = dataclasses.replace(world.calib, dist_model=0, dist=np.zeros(4))
+    frames = [cfs_frames(st) for st in streams]
+    paths = [os.path.join(out_dir, f"agent{cid}.cfs") for cid in range(2)]
+    for path, fr in zip(paths, frames):
+        write_cfs(path, calib, fr)
+    cli_path = os.path.join(out_dir, "cli.cfs")
+    write_cfs(cli_path, calib, frames[1][:FRONTEND_CLI_KF])
+    n_kf = sum(len(fr) for fr in frames)
+
+    # the vocabulary: 1000 centres trained on the card on the keyframes'
+    # descriptors, as a DBoW2 text tree, through the CLI's loader
+    descs = [np.concatenate([f["descriptors"] for f in fr]) for fr in frames]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    centres = bow.train_vocabulary(torch.from_numpy(np.concatenate(descs)).to(dev), k=1000,
+                                   iters=4, generator=gen).cpu().numpy()
+    voc = tree_vocabulary(centres, np.random.default_rng(SEED))
+    voc_path = os.path.join(out_dir, "voc.txt")
+    dbow_import.save_orb_vocabulary_text(voc, voc_path)
+    vocab = cli._load_or_make_vocab(argparse.Namespace(vocab=voc_path, vocab_words=512), dev)
+    check(np.array_equal(vocab, centres), "the CLI's flattened vocabulary is not the leaves")
+
+    # the server on the card, two run_stream clients, then the CLI
+    wrappers = kernel_wrappers()
+    cfg = Config(placerec_type="COVINS_G", placerec_defer=True)
+    port = free_port()
+    srv = CovinsServer(vocab, cfg, host="127.0.0.1", port=port,
+                       output_dir=os.path.join(out_dir, "server"), device=dev)
+    srv.start_background()
+    sent, errors = {}, []
+    try:
+        for k in wrappers.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        with HostLog() as s_log:
+
+            def client(cid):
+                try:
+                    sent[cid] = run_stream(paths[cid], "127.0.0.1", port)
+                except Exception as e:  # reported below
+                    errors.append(f"client {cid}: {e!r}")
+            threads = [threading.Thread(target=client, args=(cid,)) for cid in range(2)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(SERVER_WAIT_S)
+            check(not errors and sorted(sent.items()) == [(0, len(frames[0])), (1, len(frames[1]))],
+                  f"the clients sent {sent}: {errors}")
+            t_sent = time.perf_counter()
+            wait_for(lambda: sum(x.stats["keyframes"] for x in list(srv.sessions.values())) == n_kf,
+                     "every keyframe ingested", period=0.01)
+            t_ingested = time.perf_counter()
+            wait_for(lambda: len(srv.finished) == 2, "both clients' finish")
+            t_finished = time.perf_counter()
+            launches = {name: k.launches for name, k in wrappers.items()}
+        check_server(srv, "phase frontend (server)")
+        # phase 7's kernels, as phase_g checks them: K1 and K3 once a
+        # window, K11 and the 5-point RANSAC once and the scoring three
+        # times a verification, pgo_pcg once a loop or merge has fired;
+        # nothing of COVINS, of SIFT or K16
+        n_windows = s_log.calls.get("add_and_query_batch", 0)
+        n_ver = sum(x.placerec.n_dispatched for x in srv.sessions.values())
+        n_loops, n_merges = srv.manager.n_loops, srv.manager.n_merges
+        check(n_windows > 0 and n_ver > 0 and n_loops > 0,
+              f"the front-end path ran {n_windows} windows, {n_ver} verifications, "
+              f"{n_loops} loops")
+        for name in G_ORB.per_window:
+            check(launches[name] == n_windows,
+                  f"{n_windows} windows launched {name} {launches[name]} times, once each expected")
+        for name in G_ORB.per_verification:
+            check(launches[name] == n_ver,
+                  f"{n_ver} verifications launched {name} {launches[name]} times, "
+                  "once each expected")
+        check(launches["ray_ransac_score"] == 3 * n_ver,
+              f"{n_ver} verifications launched the scoring {launches['ray_ransac_score']} times, "
+              "three each expected")
+        check(srv.manager.n_pgo > 0 and launches["pgo_pcg"] > 0,
+              f"{n_loops} loops ran {srv.manager.n_pgo} pose-graph solves, "
+              f"{launches['pgo_pcg']} launches of pgo_pcg")
+        for name in G_ORB.absent + ("dbow_descend",):
+            check(launches[name] == 0, f"the front-end path launched {name} {launches[name]} times")
+        # the entry point itself: `frontend` in a subprocess, a third agent
+        t_cli = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "covins_tpu_torch", "frontend", "--stream",
+                              cli_path, "--port", str(port)],
+                             cwd=os.path.dirname(os.path.abspath(__file__)),
+                             capture_output=True, text=True, timeout=300)
+        check(run.returncode == 0 and f"sent {FRONTEND_CLI_KF} keyframes" in run.stdout,
+              f"the CLI's frontend failed: {run.stdout[-2000:]} {run.stderr[-2000:]}")
+        wait_for(lambda: len(srv.finished) == 3, "the CLI client's finish")
+        t_cli = time.perf_counter() - t_cli
+        got = sum(x.stats["keyframes"] for x in list(srv.sessions.values()))
+        check(got == n_kf + FRONTEND_CLI_KF, f"{got} keyframes arrived")
+        check_server(srv, "phase frontend (CLI)")
+    finally:
+        srv.stop()
+    print(json.dumps({
+        "phase": "frontend", "card": card, "agents": 2, "keyframes": n_kf,
+        "windows": n_windows, "candidates": n_ver, "pgo_solves": srv.manager.n_pgo,
+        "vocabulary": {"k": voc.k, "L": voc.L, "words": voc.n_words, "flat": len(vocab)},
+        "loops": n_loops, "merges": n_merges, "wall_s": t_finished - t0,
+        "send_s": t_sent - t0, "ingest_kf_per_s": n_kf / (t_ingested - t0),
+        "launches": launches, "cli_keyframes": FRONTEND_CLI_KF, "cli_s": t_cli,
+        "loops_with_cli": srv.manager.n_loops, "merges_with_cli": srv.manager.n_merges}))
+
+    # the adapter's keyframes in process, card against CPU
+    kfs = [list(FrontendWrapper(None, client_id=cid).replay(path))
+           for cid, path in enumerate(paths)]
+    check([len(k) for k in kfs] == [len(fr) for fr in frames], "the adapter dropped a frame")
+    head = make_windows(kfs, FRONTEND_WINDOW)[:WARM_WINDOWS]
+    with HostLog() as g_log:
+        g_run = run_slice(vocab, head, 2, "cuda", placerec_type="COVINS_G")
+    with HostLog() as c_log:
+        c_run = run_cpu(vocab, head, 2, placerec_type="COVINS_G")
+    n_scores = compare_database(g_run, c_run)
+    g_out, worst_loop, worst, worst_cov = compare_g(g_run, c_run, g_log, c_log)
+    check(g_out["candidates"] > 0 and len(g_log.results) > 0,
+          "the front-end phase's compared windows verified no candidate")
+    print(json.dumps({
+        "phase": "frontend", "card_vs_cpu": "agree", "windows": len(head),
+        "window_keyframes": FRONTEND_WINDOW, "queued_scores_equal": n_scores,
+        "candidates": g_out["candidates"], "verifications_fetched": len(g_log.results),
+        "loops": g_out["loops"], "merges": g_out["merges"], "loop_tol": LOOP_TOL,
+        "max_loop_T_diff": worst_loop, "cov_tol": COV_TOL, "max_cov_rel_diff": worst_cov,
+        "pose_tol": POSE_TOL, "max_pose_diff": worst, "card_drain_wall_s": g_run["flush_s"],
+        "cpu_drain_wall_s": c_run["flush_s"]}))
+
+    # K16: the exact DBoW2 words of the phase's descriptors, card against CPU
+    for k in wrappers.values():
+        k.launches = 0
+    words = [voc.assign(d, device=dev) for d in descs]
+    assign_launches = wrappers["dbow_descend"].launches
+    check(assign_launches == len(descs),
+          f"{len(descs)} assignments launched K16 {assign_launches} times")
+    for (w, wt), d in zip(words, descs):
+        cw, cwt = voc.assign(d, device="cpu")
+        check(w.device == dev and torch.equal(w.cpu(), cw)
+              and torch.equal(wt.cpu().view(torch.int32), cwt.view(torch.int32)),
+              "HierVocabulary.assign differs between the card and the CPU")
+    row = k16_case(voc.tree_on(dev), voc.L, torch.from_numpy(descs[0]).to(dev), None, reps=50)
+    # no entry point calls `assign` (the CLI flattens the tree): the row
+    # carries the server path's launches of K16, 0, as K5's L2 metric's
+    # carries the SIFT path's; the direct calls' launches stand beside it
+    row["launches"] = launches["dbow_descend"]
+    row["assign_launches"] = assign_launches
+    print(json.dumps({"phase": "frontend", "kernel": "dbow_descend", "card": card, **row}))
+    print(json.dumps({"phase": "frontend", "elapsed_s": time.perf_counter() - t_phase}))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return {"dbow_descend": row}
+
+
 def phase4(dev, card):
     """The ingest-only path (place recognition off), card against CPU."""
     import torch
@@ -3489,7 +3835,7 @@ def phase_g(dev, card, mode, vocab, windows, n_agents=2, n_kf=128):
     thresholds: the whole ingest and drain on the card with the launch
     counters set to 0 just before it and read just after, checked against
     the mode's kernels (and failed if it closes no loop); then card against
-    CPU on the first WARM_WINDOWS windows (the database and every queued
+    CPU on the first G_HEAD_WINDOWS windows (the database and every queued
     score exactly, then :func:`compare_g`); then the mode's kernels
     replayed on the largest inputs the CPU pass gave them, and the PyTorch
     operations of one verification's dispatch on the card.  Returns the
@@ -3542,7 +3888,7 @@ def phase_g(dev, card, mode, vocab, windows, n_agents=2, n_kf=128):
 
     # card against CPU on the stream's first windows
     rec = g_recorder(mode.replay)
-    head = windows[:WARM_WINDOWS]
+    head = windows[:G_HEAD_WINDOWS]
     with HostLog() as g_log, profile(activities=[ProfilerActivity.CUDA]) as prof:
         g_run = run_slice(vocab, head, n_agents, "cuda", **mode.config)
     g_busy, g_top = _device_busy_ms(prof)
@@ -3551,8 +3897,10 @@ def phase_g(dev, card, mode, vocab, windows, n_agents=2, n_kf=128):
         c_run = run_cpu(vocab, head, n_agents, **mode.config)
     n_scores = compare_database(g_run, c_run)
     g_out, worst_loop, worst, worst_cov = compare_g(g_run, c_run, g_log, c_log)
+    check(g_out["candidates"] > 0 and len(g_log.results) > 0,
+          f"phase {tag}'s first {G_HEAD_WINDOWS} windows verified no candidate")
     print(json.dumps({
-        "phase": tag, "card_vs_cpu": "agree", "windows": WARM_WINDOWS,
+        "phase": tag, "card_vs_cpu": "agree", "windows": G_HEAD_WINDOWS,
         "queued_scores_equal": n_scores, "candidates": g_out["candidates"],
         "loops": g_out["loops"], "merges": g_out["merges"], "loop_tol": LOOP_TOL,
         "max_loop_T_diff": worst_loop, "cov_tol": COV_TOL, "max_cov_rel_diff": worst_cov,
@@ -3634,6 +3982,9 @@ SOURCES = {
     # with _RED_TABLE (:52); prunemap's culling loop, map_store.py:665
     "redundancy_values": ("covins_tpu_torch/csrc/redundancy_values.cu",
                           "covins_tpu/ops/covisibility.py:58"),
+    # the jax.vmap (:83) of the descent of :70-81
+    "dbow_descend": ("covins_tpu_torch/csrc/dbow_descend.cu",
+                     "covins_tpu/ops/dbow_import.py:54"),
 }
 
 
@@ -3685,6 +4036,8 @@ def main():
     sift_table, sift_launches = phase_g(dev, card, G_SIFT, *sift_inputs(dev), n_kf=PHASE7_KF)
     print(json.dumps({"phase": "sift", "elapsed_s": time.perf_counter() - t_start}))
     table.update(sift_table)
+    table.update(phase_frontend(dev, card))
+    print(json.dumps({"phase": "frontend", "elapsed_s": time.perf_counter() - t_start}))
     # K5's L2 metric is off the SIFT path (COVINS-G matches no landmarks):
     # its row carries the path's launches of K5, 0, and phase 1's timing
     table["project_match_l2"] = {**sift_k5, "launches": sift_launches["project_match"]}
@@ -3693,6 +4046,8 @@ def main():
     table.update(gba_table)
     table.update(server_table)
 
+    missing = sorted(set(SOURCES) - set(table))
+    check(not missing and set(table) == set(SOURCES), f"the kernel table lacks {missing}")
     kernels = []
     for name, row in table.items():
         src, replaces = SOURCES[name]

@@ -7,15 +7,17 @@ shell scripts under `orb_slam3/covins_examples/`) with the same
 subcommands:
 
     python -m covins_tpu_torch server --port 9871 --vocab vocab.npz
+    python -m covins_tpu_torch server --port 9871 --vocab ORBvoc.txt
     python -m covins_tpu_torch agent --keyframes 40 --port 9871
+    python -m covins_tpu_torch agent --euroc MH_01/mav0 --port 9871
+    python -m covins_tpu_torch frontend --stream run.cfs --port 9871
     python -m covins_tpu_torch admin gba --map-id 0 --port 9871
     python -m covins_tpu_torch ate --est output/KF_0_ftum.csv --gt gt.csv
 
 ``server`` and ``ate`` run on the CUDA card unless ``--device cpu`` is
-given, and fail when no card is there; ``agent`` and ``admin`` touch no
-tensors.  The EuRoC replay agent (``agent --euroc``), the ``frontend``
-subcommand and DBoW2 ``.txt`` vocabularies are not ported yet (ROADMAP.md,
-queue A, item A5): they are refused.
+given, and fail when no card is there; ``agent``, ``frontend`` and
+``admin`` touch no tensors.  ``agent --euroc`` and a ``frontend`` stream
+of images need OpenCV on the agent's host (imported there, lazily).
 """
 
 from __future__ import annotations
@@ -26,14 +28,18 @@ import sys
 
 import numpy as np
 
-NOT_PORTED = ("is not ported to covins_tpu_torch yet (ROADMAP.md, queue A, item A5); "
-              "run it with `python -m covins_tpu`")
-
-
 def _load_or_make_vocab(args, device) -> np.ndarray:
     if args.vocab:
         if args.vocab.endswith(".txt"):
-            raise SystemExit(f"a DBoW2 .txt vocabulary {NOT_PORTED}")
+            # DBoW2 ORBvoc.txt (backend.cpp:411-429): import the official
+            # tree and flatten it for the dense retrieval pipeline
+            from covins_tpu_torch.ops.dbow_import import load_orb_vocabulary_text
+            voc = load_orb_vocabulary_text(args.vocab)
+            vocab, _ = voc.flatten(max_words=max(args.vocab_words, 1024))
+            print(f"[covins-server] imported DBoW2 vocabulary "
+                  f"k={voc.k} L={voc.L} words={voc.n_words} "
+                  f"-> flat {len(vocab)}", flush=True)
+            return vocab
         z = np.load(args.vocab)
         return z["vocab"] if "vocab" in z else z[z.files[0]]
     # deterministic default: Hamming k-medians on a seeded synthetic world's
@@ -83,24 +89,29 @@ def cmd_server(args):
     server = CovinsServer(vocab, cfg, host=args.host, port=args.port,
                           output_dir=args.output_dir,
                           cereal_port=args.cereal_port, device=device)
-    print(f"[covins-server] listening on {args.host}:{args.port} "
-          f"(placerec={cfg.placerec_type}, device={_device_name(device)})",
-          flush=True)
-    server.run()
+    # on a card the server builds every kernel before it binds its socket:
+    # the startup line goes out once it listens, as agents wait for it
+    server.run(on_listening=lambda: print(
+        f"[covins-server] listening on {args.host}:{args.port} "
+        f"(placerec={cfg.placerec_type}, device={_device_name(device)})",
+        flush=True))
 
 
 def cmd_agent(args):
     from covins_tpu_torch.agents.synthetic_agent import SyntheticAgent, SyntheticWorld
     from covins_tpu_torch.comm.client import AgentClient
 
-    if args.euroc:
-        raise SystemExit(f"the EuRoC replay agent (--euroc) {NOT_PORTED}")
     client = AgentClient(args.host, args.port)
     print(f"[covins-agent] connected, client_id={client.client_id}", flush=True)
-    world = SyntheticWorld.create(n_landmarks=args.landmarks, seed=args.world_seed)
-    agent = SyntheticAgent(world, client.client_id, n_keyframes=args.keyframes,
-                           t0=args.t0, pose_drift=args.drift,
-                           send_updates=args.send_updates)
+    if args.euroc:
+        from covins_tpu_torch.agents.euroc_agent import EurocAgent
+        agent = EurocAgent(args.euroc, client.client_id, max_keyframes=args.keyframes,
+                           pose_drift=args.drift)
+    else:
+        world = SyntheticWorld.create(n_landmarks=args.landmarks, seed=args.world_seed)
+        agent = SyntheticAgent(world, client.client_id, n_keyframes=args.keyframes,
+                               t0=args.t0, pose_drift=args.drift,
+                               send_updates=args.send_updates)
     n = 0
     for msg in agent.messages():
         client.send(msg)
@@ -110,7 +121,14 @@ def cmd_agent(args):
 
 
 def cmd_frontend(args):
-    raise SystemExit(f"the recorded front-end stream attachment (frontend) {NOT_PORTED}")
+    from covins_tpu_torch.agents.frontend_adapter import run_stream
+
+    n = run_stream(
+        args.stream, args.host, args.port,
+        kf_t_min=args.kf_t_min, kf_r_min=args.kf_r_min,
+        n_features=args.features, n_features_add=args.features_add,
+    )
+    print(f"[covins-frontend] sent {n} keyframes from {args.stream}", flush=True)
 
 
 def cmd_admin(args):
@@ -176,10 +194,12 @@ def main(argv=None):
                    help="torch device of the maps and kernels (default: the "
                         "CUDA card; fails without one unless 'cpu' is given)")
     s.add_argument("--config", nargs="*", help="YAML config path(s)")
-    s.add_argument("--vocab", help="vocabulary npz (default: trained at start "
-                                   "from a seeded synthetic world on the "
-                                   "device, with a torch generator: not the "
-                                   "JAX package's default vocabulary)")
+    s.add_argument("--vocab", help="vocabulary npz, or a DBoW2 text tree "
+                                   "(ORBvoc.txt) flattened to at least 1024 "
+                                   "words (default: trained at start from a "
+                                   "seeded synthetic world on the device, "
+                                   "with a torch generator: not the JAX "
+                                   "package's default vocabulary)")
     s.add_argument("--vocab-words", type=int, default=512)
     s.add_argument("--output-dir", default="output")
     s.add_argument("--placerec-type", choices=["COVINS", "COVINS_G"])
@@ -199,11 +219,11 @@ def main(argv=None):
                         "this port — stock C++ front-ends attach here")
     s.set_defaults(fn=cmd_server)
 
-    a = sub.add_parser("agent", help="run a synthetic replay agent")
+    a = sub.add_parser("agent", help="run a replay agent")
     a.add_argument("--host", default="127.0.0.1")
     a.add_argument("--port", type=int, default=9871)
     a.add_argument("--synthetic", action="store_true", default=True)
-    a.add_argument("--euroc", help="EuRoC sequence directory: not ported yet (A5)")
+    a.add_argument("--euroc", help="EuRoC sequence directory (mav0; needs OpenCV)")
     a.add_argument("--keyframes", type=int, default=40)
     a.add_argument("--landmarks", type=int, default=800)
     a.add_argument("--world-seed", type=int, default=0)
@@ -214,9 +234,20 @@ def main(argv=None):
                         "(comm.send_updates plane)")
     a.set_defaults(fn=cmd_agent)
 
-    f = sub.add_parser("frontend", help="attach a recorded front-end stream: "
-                                        "not ported yet (A5)")
-    f.add_argument("--stream")
+    f = sub.add_parser(
+        "frontend",
+        help="attach a recorded front-end stream (CFS format — the "
+             "covins_frontend generic-odometry attachment path)",
+    )
+    f.add_argument("--stream", required=True, help="CFS stream file")
+    f.add_argument("--host", default="127.0.0.1")
+    f.add_argument("--port", type=int, default=9871)
+    f.add_argument("--kf-t-min", type=float, default=0.1,
+                   help="keyframe translation threshold (m)")
+    f.add_argument("--kf-r-min", type=float, default=0.1,
+                   help="keyframe rotation threshold (rad)")
+    f.add_argument("--features", type=int, default=500)
+    f.add_argument("--features-add", type=int, default=1000)
     f.set_defaults(fn=cmd_frontend)
 
     d = sub.add_parser("admin", help="admin verbs (gba/pgo/savemap/loadmap/prunemap/stats/snapshot)")

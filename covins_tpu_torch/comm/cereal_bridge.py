@@ -29,6 +29,7 @@ from typing import Iterator, List
 
 import numpy as np
 
+from covins_tpu_torch.agents.euroc_agent import _pose_from_44
 from covins_tpu_torch.comm import messages as msgs
 from covins_tpu_torch.utils import npgeo
 
@@ -39,28 +40,6 @@ HEADER_BYTES = CONTAINER_ENTRIES * 5 * 4  # 10 entries x 5 u32, big-endian
 # covins_tpu_torch.utils.cameras: 0 none, 1 radtan, 2 equidistant, 3 fisheye)
 _DIST_FROM_REF = {-1: 0, 0: 1, 1: 2, 2: 1}
 _DIST_TO_REF = {0: -1, 1: 0, 2: 1, 3: 0}
-
-
-def _pose_from_44(T: np.ndarray) -> np.ndarray:
-    """4x4 transform -> [qw qx qy qz tx ty tz] (Shepperd's method,
-    w-positive branch), as the JAX package's EuRoC agent converts it."""
-    T = np.asarray(T, np.float64)
-    R = T[:3, :3]
-    tr = np.trace(R)
-    if tr > 0:
-        s = np.sqrt(tr + 1.0) * 2
-        q = np.asarray([0.25 * s, (R[2, 1] - R[1, 2]) / s,
-                        (R[0, 2] - R[2, 0]) / s, (R[1, 0] - R[0, 1]) / s])
-    else:
-        i = int(np.argmax(np.diag(R)))
-        j, k = (i + 1) % 3, (i + 2) % 3
-        s = np.sqrt(max(R[i, i] - R[j, j] - R[k, k] + 1.0, 1e-12)) * 2
-        q = np.empty(4)
-        q[0] = (R[k, j] - R[j, k]) / s
-        q[1 + i] = 0.25 * s
-        q[1 + j] = (R[j, i] + R[i, j]) / s
-        q[1 + k] = (R[k, i] + R[i, k]) / s
-    return np.concatenate([npgeo.quat_normalize(q), T[:3, 3]])
 
 
 def _pose_to_44(p: np.ndarray) -> np.ndarray:

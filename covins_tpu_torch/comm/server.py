@@ -458,13 +458,14 @@ class CovinsServer:
         except (asyncio.CancelledError, ConnectionResetError, OSError):
             pass
 
-    async def serve(self):
+    async def serve(self, on_listening=None):
         """Run until `shutdown()` (or `stop()` from another thread).
 
         Connection handlers are tracked so shutdown can cancel them
         deterministically — the reference leaks its detached comm threads
         on exit (`handler_be.cpp:52-56`); here teardown is explicit.  On a
-        card, every kernel is built before the first connection."""
+        card, every kernel is built before the first connection;
+        ``on_listening()`` is called once every socket is bound."""
         self._loop = asyncio.get_running_loop()
         self._shutdown_evt = asyncio.Event()
         if self.manager.device.type == "cuda":
@@ -493,6 +494,8 @@ class CovinsServer:
         if self.cereal_port is not None:
             cereal_server = await asyncio.start_server(
                 tracked_cereal, self.host, self.cereal_port)
+        if on_listening is not None:
+            on_listening()
         async with self._server:
             await self._shutdown_evt.wait()
         if cereal_server is not None:
@@ -557,9 +560,9 @@ class CovinsServer:
         started.wait(timeout=START_TIMEOUT_S)
         return self._thread
 
-    def run(self):
+    def run(self, on_listening=None):
         try:
-            asyncio.run(self.serve())
+            asyncio.run(self.serve(on_listening))
         except KeyboardInterrupt:
             pass
         finally:

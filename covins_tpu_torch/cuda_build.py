@@ -87,6 +87,9 @@ SIGNATURES = {
     "redundancy_values": {
         "covins_redundancy_values": [_P, _P, _P, _I, _I, _I, _P, _L, _P, _P],
     },
+    "dbow_descend": {
+        "covins_dbow_descend": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P],
+    },
 }
 # the most blocks a PCG kernel's grid may have: the size of the block slots
 # its wrapper allocates for the dot products' partial sums

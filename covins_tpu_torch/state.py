@@ -13,6 +13,8 @@ imports nothing of that package:
 * :func:`preintegrated_from_reference` and :func:`gba_problem_from_reference`
   — a reference `Preintegrated` / `GBAProblem` (any object with those
   fields) into the port's, on a device;
+* :func:`hier_vocabulary_from_reference` — a reference DBoW2
+  `HierVocabulary`'s arrays as the port's;
 * `Map.load` reads the npz that the reference `Map.save` writes.
 """
 
@@ -26,13 +28,14 @@ import torch
 from covins_tpu_torch.comm import messages as msgs
 from covins_tpu_torch.device import DeviceLike, resolve_device
 from covins_tpu_torch.models.kf_database import KeyframeDatabase
+from covins_tpu_torch.ops import dbow_import
 from covins_tpu_torch.ops import gba as gba_mod
 from covins_tpu_torch.ops import imu as imu_mod
 from covins_tpu_torch.utils import cameras as cam_mod
 
 __all__ = ["vocabulary_from_reference", "database_from_reference",
            "messages_from_reference", "preintegrated_from_reference",
-           "gba_problem_from_reference"]
+           "gba_problem_from_reference", "hier_vocabulary_from_reference"]
 
 _MESSAGE_TYPES = {cls.__name__: cls for cls in (
     msgs.VICalibration, msgs.PreintegrationData, msgs.MsgKeyframe,
@@ -126,3 +129,12 @@ def gba_problem_from_reference(p, device: DeviceLike = None) -> gba_mod.GBAProbl
             kw[f.name] = _tensor(v, dev, index=f.name in (
                 "obs_kf", "obs_lm", "imu_i", "imu_j", "loop_i", "loop_j"))
     return gba_mod.GBAProblem(**kw)
+
+
+def hier_vocabulary_from_reference(voc) -> dbow_import.HierVocabulary:
+    """A reference `HierVocabulary` (any object with its fields) as the
+    port's: the same tree, each array copied in its own dtype."""
+    return dbow_import.HierVocabulary(
+        voc.k, voc.L, np.array(voc.children, np.int32), np.array(voc.node_desc, np.uint8),
+        np.array(voc.node_weight, np.float32), np.array(voc.leaf_word_id, np.int32),
+        np.array(voc.depth, np.int32), voc.scoring, voc.weighting)

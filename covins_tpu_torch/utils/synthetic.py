@@ -742,3 +742,74 @@ def l2_match_scene(rng: np.random.Generator, M, seg, n_seg, case=None):
         b_mask[seg + seg // 2] = True
         b_mask[2 * seg + 1] = b_mask[3 * seg - 1] = True
     return a.astype(np.float32), a_mask, b.astype(np.float32), b_mask
+
+
+def dbow_tree(rng: np.random.Generator, k: int, L: int, kind: str = "complete"):
+    """A DBoW2 vocabulary tree (`ops.dbow_import.HierVocabulary`) built
+    from a seed, nodes numbered level by level as a DBoW2 file numbers
+    them.  ``kind``: ``"complete"``, a full k-ary tree of depth L (k = 10,
+    L = 6 is ORBvoc.txt's shape, 1,111,111 nodes, built without a loop);
+    ``"ragged"``, the root min(k, 6) children and every other node 1 to 3,
+    in random slots of the k (the rest -1), leaves at depths 1 and 2 and
+    inner nodes without children above depth L; ``"ties"``, a complete tree whose odd children repeat
+    their first sibling's descriptor."""
+    from covins_tpu_torch.ops.dbow_import import HierVocabulary
+
+    if kind in ("complete", "ties"):
+        sizes = [k ** lvl for lvl in range(L + 1)]
+        starts = np.cumsum([0] + sizes)
+        n_nodes = int(starts[-1])
+        children = np.full((n_nodes, k), -1, np.int32)
+        for lvl in range(L):
+            j = np.arange(sizes[lvl])
+            children[starts[lvl]:starts[lvl + 1]] = (
+                starts[lvl + 1] + j[:, None] * k + np.arange(k)[None, :])
+        depth = np.repeat(np.arange(L + 1, dtype=np.int32), sizes)
+        node_desc = rng.integers(0, 256, (n_nodes, 32), dtype=np.uint8)
+        if kind == "ties" and L > 0:
+            inner = children[:starts[L]]
+            node_desc[inner[:, 1::2]] = node_desc[inner[:, :1]]
+        is_leaf = depth == L
+    elif kind == "ragged":
+        children_l, depth_l, leaf_l = [[-1] * k], [0], [False]
+        level, lvl = [0], 0
+        while level and lvl < L:
+            nxt = []
+            for p in level:
+                n = min(k, 6) if lvl == 0 else int(rng.integers(1, min(3, k) + 1))
+                for c, s in enumerate(np.sort(rng.choice(k, n, replace=False))):
+                    nid = len(depth_l)
+                    children_l[p][s] = nid
+                    leaf = lvl == L - 1 or (c == 0 and (lvl == 0 or (lvl == 1 and n > 1)))
+                    childless = not leaf and ((lvl, c) == (0, 1) or rng.random() < 0.05)
+                    children_l.append([-1] * k)
+                    depth_l.append(lvl + 1)
+                    leaf_l.append(leaf)
+                    if not leaf and not childless:
+                        nxt.append(nid)
+            level, lvl = nxt, lvl + 1
+        children = np.asarray(children_l, np.int32)
+        depth = np.asarray(depth_l, np.int32)
+        is_leaf = np.asarray(leaf_l)
+        node_desc = rng.integers(0, 256, (len(depth), 32), dtype=np.uint8)
+    else:
+        raise ValueError(f"unknown tree kind {kind!r}")
+    n_nodes = len(depth)
+    node_weight = np.where(is_leaf | ((children < 0).all(1) & (depth > 0)),
+                           rng.uniform(0.1, 2.0, n_nodes), 0.0).astype(np.float32)
+    leaf_word_id = np.full(n_nodes, -1, np.int32)
+    leaf_word_id[is_leaf] = np.arange(int(is_leaf.sum()), dtype=np.int32)
+    return HierVocabulary(k, L, children, node_desc, node_weight, leaf_word_id, depth)
+
+
+def dbow_descriptors(rng: np.random.Generator, voc, n: int, near: float = 0.25):
+    """(n, 32) uint8 descriptors for a tree descent: a share ``near`` of
+    them copies of random nodes' descriptors with a few bits flipped (so
+    distances of 0 and near-ties occur), the rest random."""
+    d = rng.integers(0, 256, (n, 32), dtype=np.uint8)
+    m = int(n * near)
+    if m and len(voc.node_desc) > 1:
+        d[:m] = voc.node_desc[rng.integers(1, len(voc.node_desc), m)]
+        flips = rng.integers(0, 256, (m, 32)) < 4  # about 1.5% of the bytes
+        d[:m] ^= (flips * (1 << rng.integers(0, 8, (m, 32)))).astype(np.uint8)
+    return d

@@ -1,4 +1,6 @@
-"""The port and its chip check import neither JAX nor the JAX package.
+"""The port and its chip check import neither JAX nor the JAX package, and
+no port module imports OpenCV when it is imported (the agents import it
+inside the functions that need it, agent-side).
 
 Runs in a subprocess, because this test process already imported JAX
 (tests/conftest.py).
@@ -28,7 +30,8 @@ def test_port_modules_import_without_jax():
                  "ops.linalg", "ops.gba", "ops.imu", "utils.geometry",
                  "utils.cameras", "utils.synthetic", "comm.wire", "comm.native_codec",
                  "comm.cereal_bridge", "comm.client", "comm.server", "ops.covisibility",
-                 "io.export", "cli", "__main__"):
+                 "io.export", "cli", "__main__", "io.stream", "ops.dbow_import",
+                 "agents.frontend_adapter", "agents.euroc_agent", "utils.fake_euroc"):
         assert f"covins_tpu_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"
@@ -38,6 +41,7 @@ def test_port_modules_import_without_jax():
         "('jax.') or m == 'covins_tpu' or m.startswith('covins_tpu.'))\n"
         "print(len(sys.modules))\n"
         "assert not bad, bad\n"
+        "assert 'cv2' not in sys.modules, 'a port module imports OpenCV'\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT

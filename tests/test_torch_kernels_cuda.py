@@ -72,7 +72,13 @@ rescanned, and counted), distances one float32 ulp apart, a masked row
 tile and segments of 0, 1 and 2 valid columns; their tensor-core filter
 within its error bound on every pair;
 K5's L2 metric (float32 SIFT descriptors, float64 distances) its matches
-and distances exactly, as its Hamming metric.
+and distances exactly, as its Hamming metric.  K16 (the DBoW2
+vocabulary-tree descent) its word ids and weight bits exactly, with the
+plain version on the card and on the CPU and across two launches: ragged
+trees (empty slots among the children, leaves at depths 1 and 2, inner
+nodes without children), tied children, k 2 and 16, masked rows, N 0 and
+1, ORBvoc.txt's shape (k 10, L 6) at 6,480 and 65,536 descriptors, and
+`HierVocabulary.assign` on the card.
 """
 
 import numpy as np
@@ -1392,3 +1398,71 @@ def test_redundancy_values_refuses_bad_inputs(dev):
         covisibility.redundancy_values(kf, kf[:4], mask, 2, 2)
     with pytest.raises(ValueError):
         covisibility.redundancy_values(kf, kf, mask, 2, 0)
+
+
+# K16: (kind, k, L, N) — a ragged tree (1-3 children in random slots of 10,
+# leaves at depths 1 and 2, inner nodes without children), tied children,
+# k = 2 and k = 16, no descriptor and one, a bench window (12 KF x 540) and
+# ORBvoc.txt's shape (k = 10, L = 6, 1,111,111 nodes) x 65,536
+K16_CASES = [("ragged", 10, 8, 3001), ("ties", 10, 3, 2000), ("complete", 2, 8, 1000),
+             ("complete", 16, 3, 5000), ("ragged", 16, 4, 777), ("complete", 10, 3, 0),
+             ("complete", 10, 3, 1), ("complete", 10, 6, 6480), ("complete", 10, 6, 65536)]
+
+
+@pytest.mark.parametrize("kind,k,L,N", K16_CASES,
+                         ids=[f"{c[0]}-k{c[1]}-L{c[2]}-N{c[3]}" for c in K16_CASES])
+def test_dbow_descend_matches_plain(dev, kind, k, L, N):
+    from covins_tpu_torch.ops import dbow_import as dbi
+    from covins_tpu_torch.utils.synthetic import dbow_descriptors, dbow_tree
+
+    rng = np.random.default_rng(k * 1000 + L + N)
+    voc = dbow_tree(rng, k, L, kind)
+    descs = torch.from_numpy(dbow_descriptors(rng, voc, N))
+    mask = torch.from_numpy(rng.random(N) < 0.8)
+    tree, cpu_tree = voc.tree_on(dev), voc.tree_on(torch.device("cpu"))
+    for m in (None, mask):
+        d, md = descs.to(dev), None if m is None else m.to(dev)
+        before = dbi.dbow_descend.launches
+        got = dbi.dbow_descend(d, md, *tree, L)
+        again = dbi.dbow_descend(d, md, *tree, L)
+        assert dbi.dbow_descend.launches == before + (2 if N else 0)
+        want = dbi.dbow_descend_plain(descs, m, *cpu_tree, L)
+        on_card = dbi.dbow_descend_plain(d, md, *tree, L)
+        for g, a, w, c in zip(got, again, want, on_card):
+            assert g.shape == (N,) and g.dtype == w.dtype
+            bits = (lambda t: t.view(torch.int32)) if g.dtype == torch.float32 else (lambda t: t)
+            assert torch.equal(bits(g), bits(a)) and torch.equal(bits(g.cpu()), bits(w))
+            assert torch.equal(bits(c.cpu()), bits(w))
+        if m is not None and N:
+            assert (got[0].cpu()[~m] == -1).all() and (got[1].cpu()[~m] == 0).all()
+    if kind == "ragged":
+        assert (want[0] == -1).sum() > (~mask).sum()  # descents that end on inner nodes
+    # HierVocabulary.assign on the card: one launch, the same words
+    before = dbi.dbow_descend.launches
+    w, wt = voc.assign(descs.numpy(), mask.numpy())
+    assert w.device == dev and dbi.dbow_descend.launches == before + (1 if N else 0)
+    assert torch.equal(w.cpu(), want[0]) and torch.equal(wt.cpu().view(torch.int32),
+                                                          want[1].view(torch.int32))
+
+
+def test_dbow_descend_refuses_bad_inputs(dev):
+    from covins_tpu_torch.ops import dbow_import as dbi
+    from covins_tpu_torch.utils.synthetic import dbow_tree
+
+    voc = dbow_tree(np.random.default_rng(0), 4, 2)
+    ch, nd, nw, lw = voc.tree_on(dev)
+    d = torch.zeros((8, 32), dtype=torch.uint8, device=dev)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dbi.dbow_descend(d.cpu(), None, ch, nd, nw, lw, 2)
+    with pytest.raises(ValueError, match="k <= 16"):
+        wide = torch.full((nd.shape[0], 17), -1, dtype=torch.int32, device=dev)
+        dbi.dbow_descend(d, None, wide, nd, nw, lw, 2)
+    with pytest.raises(ValueError, match="aligned"):
+        shifted = torch.zeros(8 * 32 + 1, dtype=torch.uint8, device=dev)[1:].view(8, 32)
+        dbi.dbow_descend(shifted, None, ch, nd, nw, lw, 2)
+    with pytest.raises(ValueError):
+        dbi.dbow_descend(d.int(), None, ch, nd, nw, lw, 2)
+    with pytest.raises(ValueError):
+        dbi.dbow_descend(d, torch.ones(7, dtype=torch.bool, device=dev), ch, nd, nw, lw, 2)
+    with pytest.raises(ValueError):
+        dbi.dbow_descend(d, None, ch.long(), nd, nw, lw, 2)

@@ -22,7 +22,8 @@ JAX package's.
   measured there on its merged two-agent map, the same kind of map as
   this one), and `loadmap` refused once an agent registered.
 * The CLI in subprocesses: a server on ``--device cpu`` with an agent and
-  `admin stats`; a server with no ``--device`` fails without a card.
+  `admin stats`; a server with no ``--device`` fails without a card;
+  `agent --euroc` and `frontend` are not refused by name.
 
 Every wait has a deadline of at most 60 s.
 """
@@ -454,7 +455,12 @@ def test_cli_refuses_without_a_card_or_an_unported_path(tmp_path):
                          capture_output=True, text=True, timeout=DEADLINE)
     assert out.returncode != 0
     assert "CUDA card" in out.stderr and "device='cpu'" in out.stderr
-    for args in (["agent", "--euroc", str(tmp_path)], ["frontend", "--stream", "x"]):
+    # `agent --euroc` and `frontend` are ported: no longer refused by name,
+    # they reach for their server (none listens on this port)
+    port = str(_free_port())
+    for args in (["agent", "--euroc", str(tmp_path), "--port", port],
+                 ["frontend", "--stream", "x", "--port", port]):
         out = subprocess.run(cli + args, cwd=ROOT, env=_env(), capture_output=True,
                              text=True, timeout=DEADLINE)
-        assert out.returncode != 0 and "A5" in out.stderr, out.stderr
+        assert out.returncode != 0 and "A5" not in out.stderr, out.stderr
+        assert "ConnectionRefusedError" in out.stderr, out.stderr
