@@ -36,6 +36,12 @@
 // columns (a part's last tile rounded to 8) have a key part above that.
 // Codes above 256 decode to 2^30.  The gate is float32, as the reference's
 // weakly typed scalars make it: d1 < max_dist and d1 < ratio * d2.
+//
+// A second entry, covins_hamming_knn2, is the same kernel over one segment
+// of all N columns with no masks and no gate: it writes both keys' columns
+// and distances, each row's two nearest columns, ties to the lower column
+// (replaces the +-1 dot_general and lax.top_k of
+// covins_tpu/parallel/sharding.py:67 sharded_hamming_knn for k <= 2).
 
 #include <algorithm>
 #include <cstdint>
@@ -111,12 +117,24 @@ __device__ __forceinline__ void write_match(const uint8_t* a_mask, int M, int S,
   out[2 * (int64_t)M * S + o] = d2;
 }
 
+// knn2: the two nearest columns of a row and their distances, out (2, M, 2):
+// columns, then distances
+__device__ __forceinline__ void write_knn2(int M, int row, unsigned k1, unsigned k2,
+                                           int32_t* out) {
+  out[2 * (int64_t)row] = static_cast<int>(k1 & kColMask);
+  out[2 * (int64_t)row + 1] = static_cast<int>(k2 & kColMask);
+  out[2 * (int64_t)M + 2 * (int64_t)row] = decode(k1);
+  out[2 * (int64_t)M + 2 * (int64_t)row + 1] = decode(k2);
+}
+
+// with knn (a_mask and b_mask null, seg = N): write_knn2 instead of the gate
 __global__ void __launch_bounds__(kThreads)
 hamming_ratio_match_kernel(const unsigned* __restrict__ a, const uint8_t* __restrict__ a_mask,
                            int M, const unsigned* __restrict__ b,
                            const uint8_t* __restrict__ b_mask, int N, int seg, int P,
-                           int chunk, float max_dist, float ratio, int32_t* __restrict__ out,
-                           unsigned* __restrict__ part, int* __restrict__ done) {
+                           int chunk, float max_dist, float ratio, int knn,
+                           int32_t* __restrict__ out, unsigned* __restrict__ part,
+                           int* __restrict__ done) {
   __shared__ uint2 sb[4 * kTileN];   // word pairs (k, k + 4), k = 0..3, of each column
   __shared__ unsigned skey[kTileN];  // key part: popc(b) << kColBits | column
   __shared__ unsigned sbest[2][kColSplits][kRows];
@@ -160,7 +178,7 @@ hamming_ratio_match_kernel(const unsigned* __restrict__ a, const uint8_t* __rest
     for (int i = threadIdx.x; i < 4 * n8; i += kThreads) {
       const int j = i >> 2, k = i & 3;
       const bool real = j < n;
-      const bool valid = real && b_mask[c_base + j] != 0;
+      const bool valid = real && (knn || b_mask[c_base + j] != 0);
       unsigned lo = 0u, hi = 0u;
       if (valid) {
         lo = b[8 * (int64_t)(c_base + j) + k];
@@ -209,8 +227,12 @@ hamming_ratio_match_kernel(const unsigned* __restrict__ a, const uint8_t* __rest
       merge(k1, k2, sbest[0][w][threadIdx.x], sbest[1][w][threadIdx.x]);
   }
   if (P == 1) {
-    if (threadIdx.x < kRows && row < M)
-      write_match(a_mask, M, S, s, seg, row, k1, k2, max_dist, ratio, out);
+    if (threadIdx.x < kRows && row < M) {
+      if (knn)
+        write_knn2(M, row, k1, k2, out);
+      else
+        write_match(a_mask, M, S, s, seg, row, k1, k2, max_dist, ratio, out);
+    }
     return;
   }
   // the parts' pairs: the last block of this (row tile, segment) merges them
@@ -230,7 +252,10 @@ hamming_ratio_match_kernel(const unsigned* __restrict__ a, const uint8_t* __rest
     k1 = kFull;
     k2 = kFull;
     for (int q = 0; q < P; ++q) merge(k1, k2, __ldcg(pp + 2 * q), __ldcg(pp + 2 * q + 1));
-    write_match(a_mask, M, S, s, seg, row, k1, k2, max_dist, ratio, out);
+    if (knn)
+      write_knn2(M, row, k1, k2, out);
+    else
+      write_match(a_mask, M, S, s, seg, row, k1, k2, max_dist, ratio, out);
   }
 }
 
@@ -250,14 +275,11 @@ int sm_count() {
 
 }  // namespace
 
-// a: (M, 32) u8 and a_mask (M,) bool; b: (N, 32) u8 and b_mask (N,) bool,
-// descriptors 4-byte aligned and contiguous, 0 < N < 2^22, N a multiple of
-// seg; out: (3, M, N / seg) int32 (index within the segment or -1, d1, d2);
-// scratch: (2 * M * (N / seg) * 8 + ceil(M / 32) * (N / seg),) int32.
-extern "C" int covins_hamming_ratio_match(const void* a, const void* a_mask, int M,
-                                          const void* b, const void* b_mask, int N,
-                                          int seg, float max_dist, float ratio,
-                                          void* out, void* scratch, void* stream) {
+namespace {
+
+int launch(const void* a, const void* a_mask, int M, const void* b, const void* b_mask, int N,
+           int seg, float max_dist, float ratio, int knn, void* out, void* scratch,
+           void* stream) {
   if (M <= 0) return 0;
   if (N <= 0 || N > static_cast<int>(kColMask) || seg <= 0 || N % seg != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -282,6 +304,28 @@ extern "C" int covins_hamming_ratio_match(const void* a, const void* a_mask, int
   hamming_ratio_match_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
       static_cast<const unsigned*>(a), static_cast<const uint8_t*>(a_mask), M,
       static_cast<const unsigned*>(b), static_cast<const uint8_t*>(b_mask), N, seg, P, chunk,
-      max_dist, ratio, static_cast<int32_t*>(out), part, done);
+      max_dist, ratio, knn, static_cast<int32_t*>(out), part, done);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// a: (M, 32) u8 and a_mask (M,) bool; b: (N, 32) u8 and b_mask (N,) bool,
+// descriptors 4-byte aligned and contiguous, 0 < N < 2^22, N a multiple of
+// seg; out: (3, M, N / seg) int32 (index within the segment or -1, d1, d2);
+// scratch: (2 * M * (N / seg) * 8 + ceil(M / 32) * (N / seg),) int32.
+extern "C" int covins_hamming_ratio_match(const void* a, const void* a_mask, int M,
+                                          const void* b, const void* b_mask, int N,
+                                          int seg, float max_dist, float ratio,
+                                          void* out, void* scratch, void* stream) {
+  return launch(a, a_mask, M, b, b_mask, N, seg, max_dist, ratio, 0, out, scratch, stream);
+}
+
+// a: (M, 32) u8, b: (N, 32) u8 as above, 2 <= N < 2^22; out: (2, M, 2)
+// int32 (each row's nearest and second-nearest column, then their
+// distances); scratch: (2 * M * 8 + ceil(M / 32),) int32.
+extern "C" int covins_hamming_knn2(const void* a, int M, const void* b, int N, void* out,
+                                   void* scratch, void* stream) {
+  if (M > 0 && N < 2) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(a, nullptr, M, b, nullptr, N, N, 0.0f, 0.0f, 1, out, scratch, stream);
 }

@@ -44,6 +44,7 @@ SIGNATURES = {
     },
     "hamming_ratio_match": {
         "covins_hamming_ratio_match": [_P, _P, _I, _P, _P, _I, _I, _F, _F, _P, _P, _P],
+        "covins_hamming_knn2": [_P, _I, _P, _I, _P, _P, _P],
     },
     "l2_match": {
         "covins_l2_argmin": [_P, _P, _I, _P, _I, _F, _P, _P, _P, _P, _P],

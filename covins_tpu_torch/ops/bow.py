@@ -294,5 +294,8 @@ def common_words(query_bow: torch.Tensor, db_bow: torch.Tensor) -> torch.Tensor:
 
 
 def topk_candidates(scores: torch.Tensor, k: int):
-    """Top-k retrieval: (scores_k, idx_k) sorted descending."""
-    return torch.topk(scores, k)
+    """Top-k retrieval along the last axis: (scores_k, idx_k) sorted
+    descending, ties to the lower index, as ``jax.lax.top_k`` orders them
+    (a stable sort; ``torch.topk`` leaves the order of ties open)."""
+    vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]

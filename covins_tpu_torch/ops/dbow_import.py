@@ -40,8 +40,9 @@ from covins_tpu_torch.device import DeviceLike, check_cuda, check_tensor, is_cpu
 
 # a distance no child reaches (256 at most): an empty child slot
 NO_CHILD_DIST = 1 << 14
-# the kernel packs (distance << 4 | slot) into one 32-bit key
-MAX_BRANCHING = 16
+# the kernel packs (distance << 17 | slot) into one 32-bit key: 15 bits
+# hold NO_CHILD_DIST, 17 the slot
+MAX_BRANCHING = 1 << 17
 
 _POPCOUNT8 = torch.tensor([bin(i).count("1") for i in range(256)], dtype=torch.int32)
 
@@ -158,7 +159,7 @@ def dbow_descend(descs: torch.Tensor, mask: Optional[torch.Tensor],
     (N,) float32)``, ``(-1, 0.0)`` where ``mask`` (N,) bool is False.
 
     children: (n_nodes, k) int32, -1 an empty slot, every id < n_nodes,
-    1 <= k <= 16; node_desc: (n_nodes, 32) uint8; node_weight: (n_nodes,)
+    1 <= k <= MAX_BRANCHING; node_desc: (n_nodes, 32) uint8; node_weight: (n_nodes,)
     float32; leaf_word_id: (n_nodes,) int32.  CPU tensors take the plain
     version; CUDA tensors launch kernel K16 once (none for N = 0) or
     raise."""
@@ -172,8 +173,8 @@ def dbow_descend(descs: torch.Tensor, mask: Optional[torch.Tensor],
     n_nodes, k = children.shape
     N = descs.shape[0]
     if not 1 <= k <= MAX_BRANCHING or n_nodes < 1 or L < 0:
-        raise ValueError(f"{name}: needs 1 <= k <= {MAX_BRANCHING}, a root and L >= 0; "
-                         f"got k={k}, {n_nodes} nodes, L={L}")
+        raise ValueError(f"{name}: needs 1 <= k <= {MAX_BRANCHING} (the kernel's 17 slot "
+                         f"bits), a root and L >= 0; got k={k}, {n_nodes} nodes, L={L}")
     d_ptr = check_tensor(name, "descs", descs, (N, 32), torch.uint8)
     c_ptr = check_tensor(name, "children", children, (n_nodes, k), torch.int32)
     nd_ptr = check_tensor(name, "node_desc", node_desc, (n_nodes, 32), torch.uint8)

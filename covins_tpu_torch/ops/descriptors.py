@@ -10,7 +10,9 @@ distance + row argmin that retrieval needs, :func:`hamming_argmin` (K1,
 loop verification's stage 1, :func:`hamming_mutual_nn` (K4,
 `csrc/hamming_mutual_nn.cu`), and the masked top-2 ratio match of the
 COVINS-G verification per column segment, :func:`hamming_ratio_match`
-(K11, `csrc/hamming_ratio_match.cu`).  The matchers on a distance matrix
+(K11, `csrc/hamming_ratio_match.cu`), whose source also holds each row's
+two nearest columns, :func:`hamming_knn2` (the row-sharded k-NN of
+`parallel/sharding.py`).  The matchers on a distance matrix
 (`knn2`, `match_ratio`, `match_mutual_nn`, `match_mutual_nn_ratio`) are
 the reference's.
 
@@ -48,6 +50,16 @@ def unpack_to_pm1(desc_u8: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     bits = (desc_u8[..., :, None] >> shifts) & 1
     bits = bits.reshape(desc_u8.shape[:-1] + (desc_u8.shape[-1] * 8,))
     return bits.to(dtype) * 2 - 1
+
+
+def pack_pm1(x_pm1: torch.Tensor) -> torch.Tensor:
+    """(N, 8B) in {-1, +1} -> (N, B) uint8, the inverse of
+    :func:`unpack_to_pm1` (a bit is set where the entry is positive)."""
+    if x_pm1.shape[-1] % 8:
+        raise ValueError(f"pack_pm1: {x_pm1.shape[-1]} bits is not a whole number of bytes")
+    bits = (x_pm1 > 0).reshape(x_pm1.shape[:-1] + (x_pm1.shape[-1] // 8, 8)).to(torch.uint8)
+    shifts = torch.arange(8, dtype=torch.uint8, device=x_pm1.device)
+    return (bits << shifts).sum(-1, dtype=torch.uint8).contiguous()
 
 
 def hamming_distance(a_u8: torch.Tensor, b_u8: torch.Tensor,
@@ -333,6 +345,69 @@ def hamming_ratio_match(a_u8: torch.Tensor, a_mask: torch.Tensor,
 
 
 hamming_ratio_match.launches = 0
+
+
+def hamming_knn_plain(a_u8: torch.Tensor, b_u8: torch.Tensor, k: int):
+    """Plain version of :func:`hamming_knn2` and :func:`hamming_knn` (any
+    device): the Hamming matrix, then a stable ascending sort, so ties go
+    to the lowest column as ``jax.lax.top_k`` orders equal products."""
+    dist, idx = torch.sort(hamming_distance(a_u8, b_u8), dim=1, stable=True)
+    return dist[:, :k], idx[:, :k].to(torch.int32)
+
+
+def hamming_knn2_plain(a_u8: torch.Tensor, b_u8: torch.Tensor):
+    """Plain version of :func:`hamming_knn2`."""
+    return hamming_knn_plain(a_u8, b_u8, 2)
+
+
+def hamming_knn2(a_u8: torch.Tensor, b_u8: torch.Tensor):
+    """Each row's two nearest columns by Hamming distance between (M, 32)
+    and (N, 32) uint8 descriptors, N >= 2: ``(dist (M, 2) int32, idx
+    (M, 2) int32)``, nearest first, ties to the lowest column.  CPU
+    tensors take the plain version; CUDA tensors launch K11's source
+    (`covins_hamming_knn2`: the binary tensor-core product and its top-2
+    keys over one segment of all columns, no masks, no gate) or raise."""
+    if is_cpu(a_u8) and is_cpu(b_u8):
+        return hamming_knn2_plain(a_u8, b_u8)
+    dev = check_cuda("hamming_knn2", a_u8, b_u8)
+    _check_desc("hamming_knn2 a", a_u8, 2)
+    _check_desc("hamming_knn2 b", b_u8, 2)
+    m, n = a_u8.shape[0], b_u8.shape[0]
+    if n < 2 or n > ARGMIN_MAX_COLUMNS or m >= 2**30:
+        raise ValueError(f"hamming_knn2: needs 2 <= N <= {ARGMIN_MAX_COLUMNS} columns and "
+                         f"fewer than 2^30 rows, got {m} x {n}")
+    # the outputs (columns, then distances, (M, 2) each), then the kernel's
+    # scratch: each column part's two keys and a counter a row tile
+    buf = torch.empty(4 * m + 16 * m + -(-m // 32), dtype=torch.int32, device=dev)
+    lib = cuda_build.library("hamming_ratio_match")
+    with torch.cuda.device(dev):
+        rc = lib.covins_hamming_knn2(a_u8.data_ptr(), m, b_u8.data_ptr(), n, buf.data_ptr(),
+                                     buf.data_ptr() + 4 * 4 * m,
+                                     torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(rc, "hamming_knn2")
+    hamming_knn2.launches += 1
+    out = buf[:4 * m].view(2, m, 2)
+    return out[1], out[0]
+
+
+hamming_knn2.launches = 0
+
+
+def hamming_knn(a_u8: torch.Tensor, b_u8: torch.Tensor, k: int):
+    """Each row's ``k`` nearest columns, 1 <= k <= N: ``(dist (M, k)
+    int32, idx (M, k) int32)``, ties to the lowest column.  k <= 2 (with
+    N >= 2) is :func:`hamming_knn2` (K11's source); a larger k takes K1's
+    distance matrix (:func:`hamming_argmin` with ``want_dist``) and a
+    stable sort of it (on CPU tensors, their plain versions)."""
+    n = b_u8.shape[0]
+    if not 1 <= k <= n:
+        raise ValueError(f"hamming_knn: needs 1 <= k <= {n} columns, got k={k}")
+    if k <= 2 and n >= 2:
+        dist, idx = hamming_knn2(a_u8, b_u8)
+        return dist[:, :k], idx[:, :k]
+    _, _, dist = hamming_argmin(a_u8, b_u8, want_dist=True)
+    dist, idx = torch.sort(dist, dim=1, stable=True)
+    return dist[:, :k], idx[:, :k].to(torch.int32)
 
 
 # ---------------------------------------------------------------- L2 (SIFT)

@@ -547,16 +547,22 @@ def _with_state(p: GBAProblem, st) -> GBAProblem:
 
 
 def total_cost(p: GBAProblem, graph: ObsGraph, st, visual_only: bool,
-               huber_k: float = 0.0, inputs: Optional[ReprojInputs] = None):
+               huber_k: float = 0.0, inputs: Optional[ReprojInputs] = None,
+               allreduce=None):
     """Sum of the squared whitened residuals at state ``st`` = (poses,
     vels, biases, lms): a device scalar; or, with each of the four stacked
     over S states (a leading dimension, in place of the reference's
     ``jax.vmap``), the (S,) costs, whose reprojection sums are one K8
     launch.  A single state is evaluated as a stack of one.  ``inputs``
-    as in :func:`reproj_blocks`."""
+    as in :func:`reproj_blocks`.  ``allreduce`` (``*tensors -> tensors``,
+    summed over the ranks that share the problem, see :func:`reduced_system`)
+    sums the reprojection costs before the loop and IMU costs are added
+    once."""
     single = st[0].dim() == 2
     pt = _with_state(p, tuple(x[None] for x in st) if single else st)
     c = reproj_blocks(pt, graph, huber_k, "cost", inputs)
+    if allreduce is not None:
+        c, = allreduce(c)
     r_l = _loop_r(pt)
     c = c + torch.sum(r_l * r_l, dim=(-2, -1))
     if not visual_only:
@@ -627,11 +633,19 @@ class ReducedSystem:
 
 
 def reduced_system(p: GBAProblem, graph: ObsGraph, state, lam, visual_only: bool,
-                   huber_k: float = 0.0,
-                   inputs: Optional[ReprojInputs] = None) -> ReducedSystem:
+                   huber_k: float = 0.0, inputs: Optional[ReprojInputs] = None,
+                   allreduce=None) -> ReducedSystem:
     """Linearise at ``state`` and eliminate the landmarks (`gba.py:214-343`
     of the reference); ``lam`` is the Marquardt parameter, a device
-    scalar; ``inputs`` as in :func:`reproj_blocks`."""
+    scalar; ``inputs`` as in :func:`reproj_blocks`.
+
+    ``allreduce``: for a problem whose landmarks (with all their
+    observations) are split over several ranks and whose keyframes, IMU and
+    loop factors every rank holds whole, a function that sums tensors over
+    those ranks (``*tensors -> tensors``).  It is called once, on the
+    observation parts of the keyframe gradient, of the keyframe blocks and
+    of -Hpl Hll^-1 b_l; the loop and IMU terms, the damping and the
+    inverses are then added to the sums once, on every rank alike."""
     poses = state[0]
     pp = _with_state(p, state)
     n = poses.shape[0]
@@ -645,6 +659,17 @@ def reduced_system(p: GBAProblem, graph: ObsGraph, state, lam, visual_only: bool
 
     r_o, Jp_o, Jl_o, b6, M6, b_l, Hll = reproj_blocks(pp, graph, huber_k, "linearize",
                                                          inputs)
+    # landmark blocks, damped, and their inverses (a landmark's
+    # observations all lie on one rank), and the observation part of b_red
+    b_l = b_l * lm_free
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    dll = torch.diagonal(Hll, dim1=-2, dim2=-1)
+    Hll = Hll + lam * dll[..., None] * eye3 + 1e-10 * eye3
+    Hll_inv = (linalg.inv33(Hll) * lm_free[..., None]).contiguous()
+    c6 = reduced_matvec(None, b_l.contiguous(), Jp_o, Jl_o, Hll_inv, graph, n)
+    if allreduce is not None:
+        b6, M6, c6 = allreduce(b6, M6, c6)
+
     r_l, Ji_l, Jj_l = _loop_r_J(pp)
     Ji_f = Jj_f = None
     if not visual_only:
@@ -657,13 +682,6 @@ def reduced_system(p: GBAProblem, graph: ObsGraph, state, lam, visual_only: bool
     if not visual_only:
         b_p = b_p.index_add(0, p.imu_i, -_bt(Ji_f, r_f)).index_add(0, p.imu_j, -_bt(Jj_f, r_f))
     b_p = b_p * free
-    b_l = b_l * lm_free
-
-    # landmark blocks, damped, and their inverses
-    eye3 = torch.eye(3, dtype=dtype, device=dev)
-    dll = torch.diagonal(Hll, dim1=-2, dim2=-1)
-    Hll = Hll + lam * dll[..., None] * eye3 + 1e-10 * eye3
-    Hll_inv = (linalg.inv33(Hll) * lm_free[..., None]).contiguous()
 
     # block-Jacobi blocks of Hpp (also the Marquardt diagonal)
     M6 = M6.index_add(0, p.loop_i, Ji_l.transpose(-1, -2) @ Ji_l).index_add(
@@ -676,8 +694,7 @@ def reduced_system(p: GBAProblem, graph: ObsGraph, state, lam, visual_only: bool
     lam_diag = lam * dpp + 1e-8
     M_inv = linalg.inv_psd_small(M_blocks + torch.diag_embed(lam_diag))
 
-    b_red = (b_p + _pad15(reduced_matvec(None, b_l.contiguous(), Jp_o, Jl_o, Hll_inv,
-                                         graph, n))) * free
+    b_red = (b_p + _pad15(c6)) * free
     fac = factors(p.loop_i, p.loop_j, Ji_l, Jj_l, p.imu_i, p.imu_j, Ji_f, Jj_f, n)
     return ReducedSystem(b_red, M_inv, free, lam_diag, Jp_o, Jl_o, Hll_inv, b_l, lm_free,
                          fac)
@@ -745,12 +762,12 @@ def pcg_plain(s: ReducedSystem, graph: ObsGraph, n_cg: int, matvec=None, total=t
     return x
 
 
-def _pcg_classic(s: ReducedSystem, graph: ObsGraph, n_cg: int):
+def _pcg_classic(s: ReducedSystem, graph: ObsGraph, n_cg: int, matvec=None):
     x, r = torch.zeros_like(s.b_red), s.b_red
     z = _apply_M(s, s.b_red)
     pvec = z
     for _ in range(n_cg):
-        Hp = reduced_Hv(s, graph, pvec)
+        Hp = reduced_Hv(s, graph, pvec, matvec)
         rz = torch.sum(r * z)
         alpha = _safe_div(rz, torch.sum(pvec * Hp))
         x = x + alpha * pvec
@@ -824,20 +841,33 @@ pcg.launches = 0
 
 def _gn_schur_step(p: GBAProblem, graph: ObsGraph, state, lam, n_cg: int,
                    visual_only: bool, huber_k: float = 0.0,
-                   cg_variant: str = "fused", inputs: Optional[ReprojInputs] = None):
+                   cg_variant: str = "fused", inputs: Optional[ReprojInputs] = None,
+                   allreduce=None):
     """One Levenberg-Marquardt step with Schur landmark elimination
     (`gba.py:214-450` of the reference).  ``lam`` is the adaptive
     Marquardt parameter, a device scalar; ``inputs`` as in
-    :func:`reproj_blocks`; returns (state, lam, cost)."""
+    :func:`reproj_blocks`; returns (state, lam, cost).
+
+    ``allreduce`` as in :func:`reduced_system`, for a problem split by
+    landmarks over several ranks (`parallel.sharding.gba_step_sharded`):
+    the reduced system's observation sums, each PCG matvec's observation
+    part (K9, then the sum) and the ladder's reprojection costs are summed
+    over the ranks, one call each.  The PCG then runs as the eager loop
+    (:func:`pcg_plain`, or the classic one), since a collective cannot run
+    inside the persistent PCG kernel."""
     poses, vels, biases, lms = state
     n = poses.shape[0]
     if inputs is None:
         inputs = reproj_inputs(p)
-    s = reduced_system(p, graph, state, lam, visual_only, huber_k, inputs)
+    s = reduced_system(p, graph, state, lam, visual_only, huber_k, inputs, allreduce)
+    matvec = None
+    if allreduce is not None:
+        def matvec(*args):
+            return allreduce(reduced_matvec(*args))[0]
     if cg_variant == "classic":
-        dx_p = _pcg_classic(s, graph, n_cg)
+        dx_p = _pcg_classic(s, graph, n_cg, matvec)
     elif cg_variant == "fused":
-        dx_p = pcg(s, graph, n_cg)
+        dx_p = pcg(s, graph, n_cg) if matvec is None else pcg_plain(s, graph, n_cg, matvec)
     else:
         raise ValueError(f"unknown cg_variant {cg_variant!r}")
     dx_p = dx_p * s.free
@@ -855,7 +885,7 @@ def _gn_schur_step(p: GBAProblem, graph: ObsGraph, state, lam, n_cg: int,
     # the six scales and the current state, stacked, in one cost evaluation
     cands = tuple(torch.stack([*cs, old]) for cs, old in
                   zip(zip(*(state_at(a) for a in LADDER)), state))
-    costs = total_cost(p, graph, cands, visual_only, huber_k, inputs)
+    costs = total_cost(p, graph, cands, visual_only, huber_k, inputs, allreduce)
     best = torch.argmin(costs[:-1])
     c_best = costs[best]
     c_old = costs[-1]

@@ -87,6 +87,11 @@ class MatvecGraph:
     ej32: torch.Tensor
     rowptr: torch.Tensor  # (N + 1,) int32
     entries: torch.Tensor  # (2E,) int32
+    # the entries in CSR order as (node, slot in the node's row) pairs,
+    # and the longest row: the layout of :func:`node_sums`
+    entry_node: torch.Tensor  # (2E,) int64
+    entry_slot: torch.Tensor  # (2E,) int64
+    max_degree: int
 
 
 def matvec_graph(edge_i, edge_j, n: int) -> MatvecGraph:
@@ -96,9 +101,28 @@ def matvec_graph(edge_i, edge_j, n: int) -> MatvecGraph:
         0, keys, torch.ones_like(keys))
     rowptr = torch.zeros(n + 1, dtype=torch.int32, device=keys.device)
     rowptr[1:] = torch.cumsum(counts, 0)
+    node = keys[order]
+    slot = torch.arange(node.shape[0], device=keys.device) - rowptr[node]
+    max_degree = int(counts.max()) if n > 0 and node.shape[0] > 0 else 0
     return MatvecGraph(edge_i, edge_j, edge_i.to(torch.int32),
                        edge_j.to(torch.int32), rowptr,
-                       order.to(torch.int32))
+                       order.to(torch.int32), node, slot, max_degree)
+
+
+def node_sums(graph: MatvecGraph, n: int, at_i, at_j):
+    """Each node's sum of the edge terms ``at_i`` (E, ...) at its i ends and
+    ``at_j`` at its j ends, its terms added one at a time in CSR order
+    (its i ends in edge order, then its j ends) from zero: bit for bit the
+    CPU's ``zeros.index_add_(0, edge_i, at_i).index_add_(0, edge_j, at_j)``
+    on any device, where CUDA's ``index_add_`` adds with atomics in an
+    order that changes from run to run."""
+    src = torch.cat([at_i, at_j])[graph.entries.long()]
+    rows = src.new_zeros((n, graph.max_degree) + src.shape[1:])
+    rows[graph.entry_node, graph.entry_slot] = src
+    out = src.new_zeros((n,) + src.shape[1:])
+    for k in range(graph.max_degree):
+        out = out + rows[:, k]
+    return out
 
 
 def matvec_plain(v, free, Ji, Jj, graph: MatvecGraph, damping: float):
@@ -223,13 +247,34 @@ def pcg(b, Minv, free, Ji, Jj, graph: MatvecGraph, damping: float, n_iters: int)
 pcg.launches = 0
 
 
-def normal_equations(poses, g: PoseGraph, free, damping: float, cauchy_scale: float):
+def normal_equations(poses, g: PoseGraph, free, damping: float, cauchy_scale: float,
+                     graph: MatvecGraph = None):
     """Linearise every edge at ``poses``: (edge residuals r (E, 6), edge
     weights w (E,), whitened Jacobians Ji_w, Jj_w (E, 6, 6), the gradient
-    b (N, 6) and the inverse block-Jacobi blocks Minv (N, 6, 6))."""
+    b (N, 6) and the inverse block-Jacobi blocks Minv (N, 6, 6)).
+    ``graph`` is ``g``'s :func:`matvec_graph`, built here if not given."""
+    r, w, Ji_w, Jj_w, b, M = edge_sums(poses, g, free, cauchy_scale, graph)
+    return r, w, Ji_w, Jj_w, b, inverse_blocks(M, damping)
+
+
+def inverse_blocks(M, damping: float):
+    """The block-Jacobi preconditioner: the inverses of the (N, 6, 6)
+    blocks of J^T J plus (damping + 1e-9) I."""
+    eye = torch.eye(6, dtype=M.dtype, device=M.device)
+    return linalg.inv_psd_small(M + (damping + 1e-9) * eye)
+
+
+def edge_sums(poses, g: PoseGraph, free, cauchy_scale: float, graph: MatvecGraph = None):
+    """:func:`normal_equations` up to the undamped blocks: (r, w, Ji_w,
+    Jj_w, b, the blocks of J^T J (N, 6, 6)), every node sum over ``g``'s
+    edges alone, so that the sums of a graph split by edges add up.  The
+    node sums are :func:`node_sums` over ``graph`` (``g``'s
+    :func:`matvec_graph`, built here if not given): the same bits on every
+    run and on every device."""
     n = poses.shape[0]
+    if graph is None:
+        graph = matvec_graph(g.edge_i, g.edge_j, n)
     dt = poses.dtype
-    eye = torch.eye(6, dtype=dt, device=poses.device)
     r, Ji, Jj = _edge_residual_jac(poses, g)
     w = g.edge_mask.to(dt)
     if cauchy_scale > 0:
@@ -242,16 +287,14 @@ def normal_equations(poses, g: PoseGraph, free, damping: float, cauchy_scale: fl
 
     bi = -torch.einsum("eri,er->ei", Ji_w, r_w)
     bj = -torch.einsum("eri,er->ei", Jj_w, r_w)
-    b = (torch.zeros((n, 6), dtype=dt, device=poses.device)
-         .index_add_(0, g.edge_i, bi).index_add_(0, g.edge_j, bj)
-         ) * free[:, None]
-
     Pi = torch.einsum("eri,erj->eij", Ji_w, Ji_w)
     Pj = torch.einsum("eri,erj->eij", Jj_w, Jj_w)
-    M = (torch.zeros((n, 6, 6), dtype=dt, device=poses.device)
-         .index_add_(0, g.edge_i, Pi).index_add_(0, g.edge_j, Pj)
-         ) + (damping + 1e-9) * eye
-    return r, w, Ji_w, Jj_w, b, linalg.inv_psd_small(M)
+    e = bi.shape[0]
+    sums = node_sums(graph, n, torch.cat([bi, Pi.reshape(e, 36)], 1),
+                     torch.cat([bj, Pj.reshape(e, 36)], 1))
+    b = sums[:, :6] * free[:, None]
+    M = sums[:, 6:].reshape(n, 6, 6)
+    return r, w, Ji_w, Jj_w, b, M
 
 
 def optimize_pose_graph(g: PoseGraph, n_gn: int = 8, n_cg: int = 100,
@@ -265,7 +308,8 @@ def optimize_pose_graph(g: PoseGraph, n_gn: int = 8, n_cg: int = 100,
     poses = g.poses
     cost = None
     for _ in range(n_gn):
-        r, w, Ji_w, Jj_w, b, Minv = normal_equations(poses, g, free, damping, cauchy_scale)
+        r, w, Ji_w, Jj_w, b, Minv = normal_equations(poses, g, free, damping, cauchy_scale,
+                                                     graph)
         dx = pcg(b, Minv, free, Ji_w, Jj_w, graph, damping, n_cg) * free[:, None]
         poses_new = geo.pose_boxplus(poses, dx)
         # accept only if the cost fell (guard against CG blow-ups)

@@ -269,6 +269,54 @@ def build_pose_graph(n_kf=256, n_neighbors=5, n_loops=5, seed=0, drift=0.01,
                             for f in dataclasses.fields(g)}), gt.numpy()
 
 
+def chain_pose_graph(n_poses=32, seed=0, device=None):
+    """The pose chain of the JAX package's multi-device dry run
+    (`__graft_entry__.py:214`): true poses 0.5 per tangent component from
+    the identity, an edge from each pose to the next measuring the true
+    relative pose, unit sqrt-information, the start 0.05 per component
+    away from the truth except pose 0, which is fixed.  The draws are
+    numpy's (``seed``).  Returns (graph on ``device``, true poses (N, 7)
+    on ``device``)."""
+    from covins_tpu_torch.device import resolve_device
+    from covins_tpu_torch.ops import pgo
+    from covins_tpu_torch.utils import geometry as geo
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    f64 = dict(dtype=torch.float64)
+    ident = geo.pose_identity(torch.float64).expand(n_poses, 7)
+    gt = geo.pose_boxplus(ident, torch.from_numpy(0.5 * rng.normal(size=(n_poses, 6))))
+    start = geo.pose_boxplus(gt, torch.from_numpy(0.05 * rng.normal(size=(n_poses, 6)))
+                             * (torch.arange(n_poses) > 0)[:, None])
+    ei = torch.arange(n_poses - 1)
+    g = pgo.PoseGraph(
+        poses=start, pose_mask=torch.ones(n_poses, dtype=torch.bool),
+        fixed=torch.arange(n_poses) == 0, edge_i=ei, edge_j=ei + 1,
+        edge_T=geo.pose_relative(gt[ei], gt[ei + 1]),
+        edge_sqrt_info=torch.eye(6, **f64).expand(n_poses - 1, 6, 6),
+        edge_mask=torch.ones(n_poses - 1, dtype=torch.bool),
+        edge_is_loop=torch.zeros(n_poses - 1, dtype=torch.bool))
+    return pgo.PoseGraph(**{f.name: getattr(g, f.name).to(dev).contiguous()
+                            for f in dataclasses.fields(g)}), gt.to(dev)
+
+
+def knn_scene(rng: np.random.Generator, Q: int, N: int, nbits: int = 256):
+    """A Hamming k-NN scene in {-1, +1} float32 (the form
+    `parallel.sharding.sharded_hamming_knn` takes): ``N`` random database
+    rows, an eighth of them copies of another row (tied distances), and
+    ``Q`` queries, the first half copies of random rows with a few bits
+    flipped.  Returns (db (N, nbits), queries (Q, nbits))."""
+    db = rng.integers(0, 2, (N, nbits)).astype(np.float32) * 2 - 1
+    dup = rng.choice(N, N // 8, replace=False)
+    db[dup] = db[rng.integers(0, N, N // 8)]
+    q = rng.integers(0, 2, (Q, nbits)).astype(np.float32) * 2 - 1
+    near = Q // 2
+    q[:near] = db[rng.integers(0, N, near)]
+    flip = rng.random((near, nbits)) < 0.02
+    q[:near][flip] *= -1
+    return db, q
+
+
 def stacked_states(p, S, seed=0):
     """S states of the GBA problem ``p``, the first unchanged and the
     others moved a little, each of (poses, vels, biases, lms) stacked on a

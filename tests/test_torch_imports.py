@@ -31,7 +31,8 @@ def test_port_modules_import_without_jax():
                  "utils.cameras", "utils.synthetic", "comm.wire", "comm.native_codec",
                  "comm.cereal_bridge", "comm.client", "comm.server", "ops.covisibility",
                  "io.export", "cli", "__main__", "io.stream", "ops.dbow_import",
-                 "agents.frontend_adapter", "agents.euroc_agent", "utils.fake_euroc"):
+                 "agents.frontend_adapter", "agents.euroc_agent", "utils.fake_euroc",
+                 "parallel.sharding", "parallel.dryrun"):
         assert f"covins_tpu_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"

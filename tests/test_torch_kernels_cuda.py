@@ -977,6 +977,63 @@ def test_hamming_ratio_match_refuses_bad_inputs(dev):
         descriptors.hamming_ratio_match(a, m, a.cpu(), m.cpu(), 2, 40.0, 0.8)
 
 
+# K11's top-2 entry (the row-sharded Hamming k-NN): (M, N), ragged, one
+# row, two columns, the verification's 2048 x 3072, columns past one
+# shared-memory tile and over several parts; tied and duplicated rows
+@pytest.mark.parametrize("M,N", [(1, 2), (37, 13), (300, 1030), (2048, 3072), (5, 9000)])
+def test_hamming_knn2_matches_plain(dev, M, N):
+    from covins_tpu_torch.utils.synthetic import knn_scene
+
+    rng = np.random.default_rng(M + N)
+    db, q = (descriptors.pack_pm1(torch.from_numpy(x)).to(dev) for x in knn_scene(rng, M, N))
+    n0 = descriptors.hamming_knn2.launches
+    got, again = descriptors.hamming_knn2(q, db), descriptors.hamming_knn2(q, db)
+    plain = descriptors.hamming_knn2_plain(q, db)
+    torch.cuda.synchronize()
+    assert descriptors.hamming_knn2.launches == n0 + 2
+    for g, a, p in zip(got, again, plain):
+        assert g.shape == (M, 2) and torch.equal(g, p) and torch.equal(g, a)
+    # k 5 takes K1's distances and a stable sort
+    k = min(5, N)
+    n1 = descriptors.hamming_argmin.launches
+    d5, i5 = descriptors.hamming_knn(q, db, k)
+    want = descriptors.hamming_knn_plain(q.cpu(), db.cpu(), k)
+    assert descriptors.hamming_argmin.launches == n1 + (1 if k > 2 else 0)
+    assert torch.equal(d5.cpu(), want[0]) and torch.equal(i5.cpu(), want[1])
+
+
+def test_hamming_knn2_refuses_bad_inputs(dev):
+    a = torch.zeros((4, 32), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="2 <= N"):
+        descriptors.hamming_knn2(a, a[:1])
+    with pytest.raises(ValueError):
+        descriptors.hamming_knn2(a[:, :16].contiguous(), a)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        descriptors.hamming_knn2(a, a.cpu())
+
+
+def test_sharded_paths_on_the_card_world1(dev):
+    """The multi-device dry run on the card: a group of one over NCCL
+    (`parallel.sharding.make_mesh`), its four legs and their asserts."""
+    import torch.distributed as dist
+
+    from covins_tpu_torch.parallel import sharding as sh
+    from covins_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    try:
+        mesh = sh.make_mesh()
+        assert mesh.backend == "nccl" and mesh.device == dev and mesh.world == 1
+        n0 = descriptors.hamming_knn2.launches
+        out = dryrun_multichip(mesh)
+        assert out["knn"] == (5, 0) and descriptors.hamming_knn2.launches == n0 + 1
+        with pytest.raises(ValueError, match="256-bit"):
+            sh.sharded_hamming_knn(mesh, torch.ones((8, 128), device=dev),
+                                   torch.ones((1, 128), device=dev))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
 # ------------------------------------------------------------------ K12
 K12_CASES = {
     "central": dict(B=6, H=2000, N=1024, central=True, with_valid=True),
@@ -1402,11 +1459,15 @@ def test_redundancy_values_refuses_bad_inputs(dev):
 
 # K16: (kind, k, L, N) — a ragged tree (1-3 children in random slots of 10,
 # leaves at depths 1 and 2, inner nodes without children), tied children,
-# k = 2 and k = 16, no descriptor and one, a bench window (12 KF x 540) and
-# ORBvoc.txt's shape (k = 10, L = 6, 1,111,111 nodes) x 65,536
+# k = 2 and k = 16, no descriptor and one, a bench window (12 KF x 540),
+# ORBvoc.txt's shape (k = 10, L = 6, 1,111,111 nodes) x 65,536, and nodes
+# wider than one round of 16 slots: k = 17 and 32, ties across rounds
+# (k = 32: odd slots repeat slot 0), a ragged tree in slots of 40
 K16_CASES = [("ragged", 10, 8, 3001), ("ties", 10, 3, 2000), ("complete", 2, 8, 1000),
              ("complete", 16, 3, 5000), ("ragged", 16, 4, 777), ("complete", 10, 3, 0),
-             ("complete", 10, 3, 1), ("complete", 10, 6, 6480), ("complete", 10, 6, 65536)]
+             ("complete", 10, 3, 1), ("complete", 10, 6, 6480), ("complete", 10, 6, 65536),
+             ("complete", 17, 3, 3000), ("complete", 32, 3, 4000), ("ties", 32, 2, 2000),
+             ("ragged", 40, 4, 1500)]
 
 
 @pytest.mark.parametrize("kind,k,L,N", K16_CASES,
@@ -1454,8 +1515,9 @@ def test_dbow_descend_refuses_bad_inputs(dev):
     d = torch.zeros((8, 32), dtype=torch.uint8, device=dev)
     with pytest.raises(RuntimeError, match="CUDA"):
         dbi.dbow_descend(d.cpu(), None, ch, nd, nw, lw, 2)
-    with pytest.raises(ValueError, match="k <= 16"):
-        wide = torch.full((nd.shape[0], 17), -1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match=f"k <= {dbi.MAX_BRANCHING}"):
+        wide = torch.full((nd.shape[0], dbi.MAX_BRANCHING + 1), -1, dtype=torch.int32,
+                          device=dev)
         dbi.dbow_descend(d, None, wide, nd, nw, lw, 2)
     with pytest.raises(ValueError, match="aligned"):
         shifted = torch.zeros(8 * 32 + 1, dtype=torch.uint8, device=dev)[1:].view(8, 32)
