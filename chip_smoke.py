@@ -68,13 +68,23 @@ package beside it.  Phases:
    product's share at most C_TC / 8; also on the SIFT phase's replayed
    inputs); K5's L2 metric (float64 distances) at stage 3's
    1024 x 1024 and stage 5's 10,070 x 1,024 exactly; K16 (the DBoW2
-   vocabulary-tree descent, a warp a descriptor) bit for bit at ORBvoc.txt's
-   shape (k 10, L 6, 1,111,111 nodes from a seed) with 6,480 and 65,536
-   descriptors, on a ragged tree, tied children, k 2 and 16, N 0 and 1,
-   with and without masked rows, across two launches, beside its bound
-   (the distinct bytes its descents touch, :func:`dbow_bytes`), and on
-   nodes wider than one round of 16 slots (k 17 and 32, ties across
-   rounds, a ragged tree in slots of 40);
+   vocabulary-tree descent over the tree's child-block table, a warp a
+   descriptor or floor(32 / k) descriptors a warp) bit for bit
+   at ORBvoc.txt's shape (k 10, L 6, 1,111,111 nodes from a seed) with
+   6,480 and 65,536 descriptors, on a ragged tree, tied children, k 2 and
+   16, N 0 and 1, with and without masked rows, across two launches,
+   beside its bound (the distinct bytes its descents touch,
+   :func:`dbow_bytes`), on nodes wider than one round of 16 slots (k 17
+   and 32, ties across rounds, a ragged tree in slots of 40) and on a tree
+   whose nodes are numbered out of order, with each table's bytes and
+   build time; K17 (the covisibility counts in one cooperative launch)
+   exactly at the server phase's snapshot shape (152 of 160 keyframes,
+   27,441 landmarks, 101,712 observations, `utils/synthetic.covis_scene`),
+   a long session (1,024 keyframes, 200,000 landmarks, 1,000,000
+   observations, every keyframe queried), duplicated observations with
+   repeated queries and a query without a live observation, and a map of
+   40,000 keyframes (the instance that counts in device memory), beside
+   one float32 matmul of the seen landmarks by the observation counts;
 2. the full main path at the workload of the JAX package's benchmark
    (2 agents x 128 KF over 2000 landmarks, 512-word vocabulary trained on
    the card, 1024-message windows, the default ``Config()`` with
@@ -109,7 +119,9 @@ server. the agent-facing product on the card with phase 3's streams and
    and one merge; (b) the admin verbs over the socket on the merged map
    (stats, pgo, gba, gba visual-only with a time budget, prunemap down to
    the live keyframes less 8, snapshot, savemap), each answering ok, with
-   their wall times and launches (K8-K10, gba_pcg, K15), prunemap removing
+   their wall times and launches (K8-K10, gba_pcg, K15; K17 once, for the
+   snapshot of the merged map, whose JSON equals the CPU's snapshot of the
+   same map as savemap wrote it), prunemap removing
    keyframes and stats showing the count fall by as many (culling may
    leave a 2 s pred-succ gap, SERVER_CULL_GAP: the default 1 s blocks
    every keyframe of a stream 0.5 s apart); K15 replayed on prunemap's
@@ -201,7 +213,8 @@ sharding. `parallel/sharding.py` on the card at world 1 over NCCL
    with its launches, K13 and K14 on the SIFT phase's with its launches,
    K5's L2 metric on phase 1's stage-5 scene with the SIFT phase's launches
    of K5, none; K15 on the server phase's prunemap input with its
-   launches; K16 on the phase "frontend"'s descriptors with the server
+   launches; K17 on the server phase's snapshot input with its launch;
+   K16 on the phase "frontend"'s descriptors with the server
    path's launches of K16, 0; knn2 on phase "sharding"'s k-NN with its
    launches, and that phase's launches of K1, K7, K8 and K9 beside theirs
    as ``sharding_launches``), checked to hold every kernel of SOURCES,
@@ -595,9 +608,9 @@ def k4_case(a, am, b, bm, max_dist, reps):
     }
 
 
-def pm1_bf16_top2(a, b, seg):
+def pm1_bf16_topk(a, b, seg, k=2):
     """K11's library form: the JAX package's +-1 bf16 product as one
-    PyTorch matmul, then ``torch.topk`` of the two smallest distances of
+    PyTorch matmul, then ``torch.topk`` of the ``k`` smallest distances of
     each segment (a yardstick only; the port never calls it)."""
     import torch
 
@@ -605,7 +618,7 @@ def pm1_bf16_top2(a, b, seg):
 
     dot = unpack_to_pm1(a, torch.bfloat16) @ unpack_to_pm1(b, torch.bfloat16).T
     dist = (256.0 - dot.float()) * 0.5
-    return torch.topk(dist.view(a.shape[0], -1, seg), 2, dim=-1, largest=False)
+    return torch.topk(dist.view(a.shape[0], -1, seg), k, dim=-1, largest=False)
 
 
 def k11_case(a, am, b, bm, seg, reps, max_dist=40.0, ratio=0.8):
@@ -638,7 +651,7 @@ def k11_case(a, am, b, bm, seg, reps, max_dist=40.0, ratio=0.8):
         "kernel_ms": cuda_ms(kernel, reps), "busy_ms": busy_ms(kernel, reps),
         "plain_ms": cuda_ms(lambda: d.hamming_ratio_match_plain(
             a, am, b, bm, seg, max_dist, ratio), reps),
-        "library_ms": cuda_ms(lambda: pm1_bf16_top2(a, b, seg), reps),
+        "library_ms": cuda_ms(lambda: pm1_bf16_topk(a, b, seg), reps),
         "bound_ms": bnd, "bound_by": by,
         "max_abs_err": int(max((g - r).abs().max().item() for g, r in zip(got, ref)))
         if m else 0,
@@ -1739,20 +1752,22 @@ def dbow_bytes(descs, mask, children, node_desc, L):
     return N * 32 + (0 if mask is None else N) + N * 8 + reads + ends
 
 
-def k16_case(tree, L, descs, mask, reps, cpu=True):
-    """K16 (`dbow_import.dbow_descend`) against its plain version on the
-    card and (``cpu``) on the CPU, bit for bit, one launch a call and the
-    same across two launches; timed beside its bound (the distinct bytes
-    its descents touch, :func:`dbow_bytes`).  No single PyTorch call
-    descends a tree: no library time."""
+def k16_case(tree, L, descs, mask, reps, cpu=True, blocks=None):
+    """K16 (`dbow_import.dbow_descend`, over the child-block table
+    ``blocks`` where given) against its plain version on the card and
+    (``cpu``) on the CPU, bit for bit, one launch a call and the same
+    across two launches; timed beside its bound (the distinct bytes its
+    descents touch, :func:`dbow_bytes`).  No single PyTorch call descends a
+    tree: no library time."""
     import torch
 
     from covins_tpu_torch.ops import dbow_import as dbi
 
     N = descs.shape[0]
+    table = {} if blocks is None else {"blocks": blocks}
 
     def kernel():
-        return dbi.dbow_descend(descs, mask, *tree, L)
+        return dbi.dbow_descend(descs, mask, *tree, L, **table)
 
     def bits(t):
         return t.view(torch.int32) if t.dtype == torch.float32 else t
@@ -1784,6 +1799,71 @@ def k16_case(tree, L, descs, mask, reps, cpu=True):
             "plain_ms": cuda_ms(lambda: dbi.dbow_descend_plain(descs, mask, *tree, L),
                                 max(1, reps // 10)),
             "bound_ms": bnd, "bound_by": by, "bytes": nbytes}
+
+
+def k17_case(q, kf, lm, mask, n_kf, n_lm, reps, cpu=True):
+    """K17 (`covisibility.covis_weights_batch`) against its plain version
+    on the card and (``cpu``) on the CPU, bit for bit, one launch a call and
+    the same across two launches; beside one float32 `torch.matmul` of the
+    (Q, n_lm) 0/1 matrix of the landmarks each query sees by the (n_lm,
+    n_kf) matrix of live observation counts (the library yardstick, exact
+    below 2^24, held equal with the query's own column zeroed), both built
+    outside the timed call."""
+    import torch
+
+    from covins_tpu_torch.ops import covisibility as cov
+
+    def kernel():
+        return cov.covis_weights_batch(q, kf, lm, mask, n_kf, n_lm)
+
+    before = cov.covis_weights_batch.launches
+    out, again = kernel(), kernel()
+    check(cov.covis_weights_batch.launches == before + 2, "K17 did not launch once per call")
+    wants = [cov.covis_weights_batch_plain(q, kf, lm, mask, n_kf, n_lm)]
+    if cpu:
+        wants.append(cov.covis_weights_batch_plain(q.cpu(), kf.cpu(), lm.cpu(), mask.cpu(),
+                                                   n_kf, n_lm))
+    torch.cuda.synchronize()
+    check(torch.equal(out, again), "K17 differs between two launches")
+    Q, O = q.numel(), kf.numel()
+    check(all(torch.equal(out.cpu(), w.cpu()) for w in wants),
+          f"K17 differs from its plain version at {Q} x {n_kf}, {O} observations")
+    live = mask.bool()
+    counts = torch.zeros((n_lm, n_kf), dtype=torch.float32, device=kf.device)
+    counts.index_put_((lm.long()[live], kf.long()[live]),
+                      torch.ones(int(live.sum()), device=kf.device), accumulate=True)
+    seen = (counts[:, q.long()].T > 0).float().contiguous()
+
+    def library():
+        return torch.matmul(seen, counts)
+
+    lib = library()
+    # one addition a (query, observation of a landmark it sees)
+    adds = float(lib.sum())
+    views = torch.bincount(lm.long()[live], minlength=n_lm)
+    views = views[views > 0].float()
+    lib[torch.arange(Q, device=kf.device), q.long()] = 0
+    check(torch.equal(lib.int(), out), "the matmul yardstick differs from K17")
+    del lib
+    # the COO (a keyframe, a landmark and a mask byte an observation) and
+    # the queries read once, the counts written once; the additions at the
+    # float32 rate (integer adds run on the same cores)
+    nbytes = 9 * O + 4 * Q + 4 * Q * n_kf
+    bnd, by = bound(nbytes, (adds, FP32_OPS_S))
+    return {"kernel_ms": cuda_ms(kernel, reps), "busy_ms": busy_ms(kernel, reps),
+            "plain_ms": cuda_ms(lambda: cov.covis_weights_batch_plain(q, kf, lm, mask, n_kf,
+                                                                      n_lm),
+                                max(1, reps // 10)),
+            "library_ms": cuda_ms(library, max(1, reps // 4)),
+            "library_busy_ms": busy_ms(library, max(1, reps // 4)),
+            "bound_ms": bnd, "bound_by": by, "bytes": nbytes, "additions": adds,
+            "max_abs_err": 0.0, "shape": [Q, n_kf, n_lm, O],
+            "live_obs": int(live.sum()), "shared_counts": n_kf <= cov.K17_SHARED_KF,
+            # the keyframes that see a landmark: median, largest, and the mean
+            # over observations (the walk's mean length)
+            "views_median": float(views.median()) if views.numel() else 0.0,
+            "views_max": float(views.max()) if views.numel() else 0.0,
+            "views_per_obs": float((views * views).sum() / views.sum()) if views.numel() else 0.0}
 
 
 def phase1(dev):
@@ -2022,8 +2102,10 @@ def phase1(dev):
     # plain version held on the card only: the CPU's takes tens of seconds),
     # each also with masked rows; a ragged tree (1-3 children in random
     # slots, leaves at depths 1-2, inner nodes without children), tied
-    # children, k = 2 and 16, N = 0 and 1, and nodes wider than one round of
-    # 16 slots (k 17 and 32, ties across rounds, a ragged tree in slots of 40)
+    # children, k = 2 and 16, N = 0 and 1, nodes wider than one round of
+    # 16 slots (k 17 and 32, ties across rounds, a ragged tree in slots of
+    # 40), a tree numbered out of order, and a ragged tree under 20,000
+    # descriptors (more than the card holds warps: 3 a warp)
     card = card_line()
     rng16 = np.random.default_rng(SEED + 16)
     orb = synthetic.dbow_tree(rng16, 10, 6)
@@ -2032,17 +2114,42 @@ def phase1(dev):
                           ("complete", 2, 8, 1000), ("complete", 16, 3, 5000),
                           ("complete", 10, 3, 0), ("complete", 10, 3, 1),
                           ("complete", 17, 3, 3000), ("complete", 32, 3, 4000),
-                          ("ties", 32, 2, 2000), ("ragged", 40, 4, 1500)):
+                          ("ties", 32, 2, 2000), ("ragged", 40, 4, 1500),
+                          ("shuffled", 10, 4, 4000), ("ragged", 10, 8, 20000)):
         voc = orb if (k, L) == (10, 6) else synthetic.dbow_tree(rng16, k, L, kind)
         descs = t(synthetic.dbow_descriptors(rng16, voc, N))
+        tree, blocks = voc.tree_on(dev), voc.blocks_on(dev)
+        table_bytes = sum(x.numel() * x.element_size()
+                          for x in (blocks.rows, blocks.nxt, blocks.node_of))
         for mask in (None, t(rng16.random(N) < 0.9)):
-            r = k16_case(voc.tree_on(dev), L, descs, mask, reps=20 if N > 10000 else 50,
-                         cpu=N < 10000)
+            r = k16_case(tree, L, descs, mask, reps=20 if N > 10000 else 50,
+                         cpu=N < 10000, blocks=blocks)
             print(json.dumps({"phase": 1, "kernel": "dbow_descend", "card": card,
-                              "tree": kind, "masked": mask is not None, **r}))
+                              "tree": kind, "masked": mask is not None,
+                              "table_bytes": table_bytes, "table_build_s": voc.table_build_s,
+                              **r}))
             if kind == "ragged":
                 check(r["inner_ends"] > 0, "no ragged descent ended on an inner node")
     del orb
+    # K17 at the server phase's snapshot (152 live of 160 keyframes, 27,441
+    # landmarks, 101,712 observations, as phase "server" gives prunemap; a
+    # landmark seen by 17 keyframes, as there), a long session (1,024
+    # keyframes, 200,000 landmarks, 1,000,000 observations, every keyframe
+    # queried), duplicated observations with repeated queries and a query
+    # without a live observation, and a map wider than the shared counts
+    # (the device-memory instance)
+    rng17 = np.random.default_rng(SEED + 17)
+    for n_kf, n_lm, O, culled, edges, n_q, views in (
+            (160, 27_441, 101_712, 8, False, None, SERVER_VIEWS),
+            (1024, 200_000, 1_000_000, 0, False, None, None),
+            (160, 27_441, 101_712, 8, True, None, SERVER_VIEWS),
+            (40_000, 30_000, 120_000, 4, True, 64, None)):
+        q, kf, lm, mask = synthetic.covis_scene(rng17, n_kf, n_lm, O, culled, edges, views)
+        if n_q is not None:
+            q = np.concatenate([q[rng17.choice(len(q) - 1, n_q - 1, replace=False)], q[-1:]])
+        r = k17_case(t(q), t(kf), t(lm), t(mask), n_kf, n_lm, reps=20, cpu=O < 500_000)
+        print(json.dumps({"phase": 1, "kernel": "covis_weights", "card": card,
+                          "edges": edges, **r}))
     return table, sift_k5
 
 
@@ -2579,6 +2686,7 @@ def kernel_wrappers():
             "gba_pcg": gba.pcg,
             "imu_preintegrate": imu.preintegrate,
             "redundancy_values": covisibility.redundancy_values,
+            "covis_weights": covisibility.covis_weights_batch,
             "dbow_descend": dbow_import.dbow_descend}
 
 
@@ -2796,6 +2904,11 @@ def phase3(dev, card, n_kf):
 # the default kf_culling_max_time_dist of 1 s (a pred-succ gap must stay
 # below it) blocks every keyframe; 2 s lets prunemap erase every other one
 SERVER_CULL_GAP = 2.0
+# the keyframes that see a landmark of the server phase's merged map, on
+# average over its observations (its snapshot's counts make 1,569,403
+# additions over 90,439 live observations, as this script's phase "server"
+# printed them on an NVIDIA H100 80GB HBM3)
+SERVER_VIEWS = 17
 SERVER_WAIT_S = 600.0  # a deadline for each wait on the server
 
 
@@ -2912,6 +3025,7 @@ def phase_server(dev, card, streams, vocab):
 
     from covins_tpu_torch.comm.client import AgentClient
     from covins_tpu_torch.comm.server import CovinsServer
+    from covins_tpu_torch.io import export as vis_export
     from covins_tpu_torch.models.map_manager import MapManager
     from covins_tpu_torch.models.map_store import Map
     from covins_tpu_torch.ops import covisibility
@@ -2976,13 +3090,14 @@ def phase_server(dev, card, streams, vocab):
         verbs = [("stats", {}), ("pgo", {}), ("gba", {}),
                  ("gba", {"visual_only": True, "time_budget_s": 30.0}),
                  ("prunemap", {"max_num_kfs": live - 8}),
-                 ("snapshot", {"path": os.path.join(out_dir, "snapshot.json")}),
+                 ("snapshot", {"map_id": mid, "path": os.path.join(out_dir, "snapshot.json")}),
                  ("savemap", {"path": os.path.join(out_dir, "merged.npz")})]
         for k in wrappers.values():
             k.launches = 0
         replies, walls = [], []
-        with Recorder([(covisibility, "redundancy_values", lambda kf, *a, **kw: kf.numel())]) \
-                as rec:
+        with Recorder([(covisibility, "redundancy_values", lambda kf, *a, **kw: kf.numel()),
+                       (covisibility, "covis_weights_batch",
+                        lambda q, kf, *a, **kw: q.numel() * kf.numel())]) as rec:
             for verb, kw in verbs:
                 t0 = time.perf_counter()
                 reply = admin.admin(verb, **kw)
@@ -2993,6 +3108,8 @@ def phase_server(dev, card, streams, vocab):
         check_server(srv, "phase server (b)")
         for name in GBA_KERNELS + ("redundancy_values",):
             check(launches_b[name] > 0, f"the admin verbs never launched {name}")
+        check(launches_b["covis_weights"] == 1,
+              f"the snapshot launched K17 {launches_b['covis_weights']} times, not once")
         removed = replies[4]["removed"]
         after = admin.admin("stats")["result"]["maps"][str(mid)]["n_kf"]
         check(removed >= 1 and after == live - removed,
@@ -3009,6 +3126,19 @@ def phase_server(dev, card, streams, vocab):
         k15 = k15_case(kf, lm, mask, sizes["n_kf"], sizes["n_lm"], reps=50)
         k15["launches"] = launches_b["redundancy_values"]
         print(json.dumps({"phase": "server", "kernel": "redundancy_values", **k15}))
+        # the snapshot on the card against the same map's on the CPU: the
+        # map savemap wrote right after it, loaded on the CPU
+        with open(os.path.join(out_dir, "snapshot.json")) as fh:
+            card_snap = json.load(fh)
+        cpu_map = Map.load(os.path.join(out_dir, "merged.npz"), device="cpu")
+        cpu_snap = json.loads(json.dumps(vis_export.map_snapshot(cpu_map, cfg.covis_thres)))
+        check(card_snap == cpu_snap, "the card's snapshot differs from the CPU's")
+        q, kf, lm, mask = rec.on("covis_weights_batch", dev)
+        sizes = rec.kwargs("covis_weights_batch")
+        k17 = k17_case(q, kf, lm, mask, sizes["n_kf"], sizes["n_lm"], reps=50)
+        k17["launches"] = launches_b["covis_weights"]
+        print(json.dumps({"phase": "server", "kernel": "covis_weights",
+                          "covis_edges": len(card_snap["covis_edges"]), **k17}))
     finally:
         if admin is not None:
             admin.finish()
@@ -3136,7 +3266,7 @@ def phase_server(dev, card, streams, vocab):
                       "elapsed_s": time.perf_counter() - t_d}))
     print(json.dumps({"phase": "server", "elapsed_s": time.perf_counter() - t_phase}))
     shutil.rmtree(out_dir, ignore_errors=True)
-    return {"redundancy_values": k15}
+    return {"redundancy_values": k15, "covis_weights": k17}
 
 
 # phase "frontend": phase 2's trajectories cut to 2 agents x FRONTEND_KF
@@ -3355,7 +3485,8 @@ def phase_frontend(dev, card):
         check(w.device == dev and torch.equal(w.cpu(), cw)
               and torch.equal(wt.cpu().view(torch.int32), cwt.view(torch.int32)),
               "HierVocabulary.assign differs between the card and the CPU")
-    row = k16_case(voc.tree_on(dev), voc.L, torch.from_numpy(descs[0]).to(dev), None, reps=50)
+    row = k16_case(voc.tree_on(dev), voc.L, torch.from_numpy(descs[0]).to(dev), None, reps=50,
+                   blocks=voc.blocks_on(dev))
     # no entry point calls `assign` (the CLI flattens the tree): the row
     # carries the server path's launches of K16, 0, as K5's L2 metric's
     # carries the SIFT path's; the direct calls' launches stand beside it
@@ -4088,7 +4219,7 @@ def knn2_case(q, db, reps):
     bnd, by = bound((m + n) * 32 + 16 * m, (2.0 * m * n * 256, INT8_OPS_S))
     return {"kernel_ms": cuda_ms(kernel, reps), "busy_ms": busy_ms(kernel, reps),
             "plain_ms": cuda_ms(lambda: d.hamming_knn2_plain(q, db), reps),
-            "library_ms": cuda_ms(lambda: pm1_bf16_top2(q, db, n), reps),
+            "library_ms": cuda_ms(lambda: pm1_bf16_topk(q, db, n), reps),
             "bound_ms": bnd, "bound_by": by, "shape": [m, n, 256],
             "max_abs_err": max(int((g - p).abs().max()) for g, p in zip(got, plain))}
 
@@ -4243,7 +4374,8 @@ def phase_sharding(dev, card):
         knn2 = {**knn2_case(q8, d8, reps=20), "launches": launches["hamming_knn2"]}
         print(json.dumps({"phase": "sharding", "kernel": "hamming_knn2", "card": card, **knn2}))
         k5 = {"ms": cuda_ms(lambda: descriptors.hamming_knn(q8, d8, 5), 20),
-              "plain_ms": cuda_ms(lambda: descriptors.hamming_knn_plain(q8, d8, 5), 20)}
+              "plain_ms": cuda_ms(lambda: descriptors.hamming_knn_plain(q8, d8, 5), 20),
+              "library_ms": cuda_ms(lambda: pm1_bf16_topk(q8, d8, d8.shape[0], k=5), 20)}
         # (6) count_collectives against its formula
         counted = sh.count_collectives(mesh, shard, shard.state(), lam0, SHARD_CG)
         check(counted == {"all_reduce": SHARD_CG + 3, "all_reduce_start": 0, "all_gather": 0,
@@ -4335,6 +4467,9 @@ SOURCES = {
     # with _RED_TABLE (:52); prunemap's culling loop, map_store.py:665
     "redundancy_values": ("covins_tpu_torch/csrc/redundancy_values.cu",
                           "covins_tpu/ops/covisibility.py:58"),
+    # the jax.vmap of :25 covis_weights_for; io/export.py's snapshot
+    "covis_weights": ("covins_tpu_torch/csrc/covis_weights.cu",
+                      "covins_tpu/ops/covisibility.py:45"),
     # the jax.vmap (:83) of the descent of :70-81
     "dbow_descend": ("covins_tpu_torch/csrc/dbow_descend.cu",
                      "covins_tpu/ops/dbow_import.py:54"),
@@ -4370,33 +4505,41 @@ def main():
     check(sorted(f"covins_tpu_torch/csrc/{n}.cu" for n in logs)
           == sorted({src for src, _ in SOURCES.values()}), "a kernel source was not built")
 
+    laps = [t_start]
+
+    def lap(phase):
+        """The phase's seconds and the run's so far."""
+        laps.append(time.perf_counter())
+        print(json.dumps({"phase": phase, "phase_s": laps[-1] - laps[-2],
+                          "elapsed_s": laps[-1] - t_start}))
+
     gba_table, sift_k5 = phase1(dev)
-    print(json.dumps({"phase": 1, "elapsed_s": time.perf_counter() - t_start}))
+    lap(1)
     table, gpu_run, vocab, world = phase2(dev, card)
-    print(json.dumps({"phase": 2, "elapsed_s": time.perf_counter() - t_start}))
+    lap(2)
     streams3, vocab3 = phase3(dev, card, n_kf=32)
-    print(json.dumps({"phase": 3, "elapsed_s": time.perf_counter() - t_start}))
+    lap(3)
     server_table = phase_server(dev, card, streams3, vocab3)
-    print(json.dumps({"phase": "server", "elapsed_s": time.perf_counter() - t_start}))
+    lap("server")
     phase4(dev, card)
-    print(json.dumps({"phase": 4, "elapsed_s": time.perf_counter() - t_start}))
+    lap(4)
     phase5(dev, card)
-    print(json.dumps({"phase": 5, "elapsed_s": time.perf_counter() - t_start}))
+    lap(5)
     gba_launches = phase6(dev, card, gpu_run, vocab, world)
-    print(json.dumps({"phase": 6, "elapsed_s": time.perf_counter() - t_start}))
+    lap(6)
     orb_table, _ = phase_g(dev, card, G_ORB, vocab,
                            make_windows(build_streams(2, PHASE7_KF, 2000)[1]),
                            n_kf=PHASE7_KF)
     table.update(orb_table)
-    print(json.dumps({"phase": 7, "elapsed_s": time.perf_counter() - t_start}))
+    lap(7)
     sift_table, sift_launches = phase_g(dev, card, G_SIFT, *sift_inputs(dev), n_kf=PHASE7_KF)
-    print(json.dumps({"phase": "sift", "elapsed_s": time.perf_counter() - t_start}))
+    lap("sift")
     table.update(sift_table)
     table.update(phase_frontend(dev, card))
-    print(json.dumps({"phase": "frontend", "elapsed_s": time.perf_counter() - t_start}))
+    lap("frontend")
     shard_table, shard_launches = phase_sharding(dev, card)
     table.update(shard_table)
-    print(json.dumps({"phase": "sharding", "elapsed_s": time.perf_counter() - t_start}))
+    lap("sharding")
     # K5's L2 metric is off the SIFT path (COVINS-G matches no landmarks):
     # its row carries the path's launches of K5, 0, and phase 1's timing
     table["project_match_l2"] = {**sift_k5, "launches": sift_launches["project_match"]}

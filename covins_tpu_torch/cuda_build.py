@@ -88,8 +88,11 @@ SIGNATURES = {
     "redundancy_values": {
         "covins_redundancy_values": [_P, _P, _P, _I, _I, _I, _P, _L, _P, _P],
     },
+    "covis_weights": {
+        "covins_covis_weights": [_P, _I, _P, _P, _P, _I, _I, _I, _P, _L, _P, _P],
+    },
     "dbow_descend": {
-        "covins_dbow_descend": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P],
+        "covins_dbow_descend": [_P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P],
     },
 }
 # the most blocks a PCG kernel's grid may have: the size of the block slots

@@ -47,7 +47,7 @@ def map_snapshot(mp, covis_thres: int = 10, max_landmarks: int = 20000) -> dict:
     if mp.n_obs > 0 and len(live) > 1:
         o, dev = mp.n_obs, mp.device
         w = cov_ops.covis_weights_batch(
-            torch.from_numpy(live).to(dev),
+            torch.from_numpy(live.astype(np.int32)).to(dev),
             torch.from_numpy(mp.obs_kf[:o].copy()).to(dev),
             torch.from_numpy(mp.obs_lm[:o].copy()).to(dev),
             torch.from_numpy(mp.obs_mask[:o].copy()).to(dev),

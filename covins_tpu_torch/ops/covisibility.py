@@ -13,9 +13,10 @@ list (obs_kf, obs_lm) whenever needed.
 CUDA tensor and :func:`redundancy_values_plain` on a CPU one.  Its float32
 sums are taken in observation order, as the JAX package's scatter-add on
 the CPU takes them, so that the values, and the keyframe that culling
-erases among near-ties, are the same on every device.  The covisibility
-counts are integer segment counts, exact in any order: they stay PyTorch
-integer operations on the map's device.
+erases among near-ties, are the same on every device.
+:func:`covis_weights_batch` is kernel K17 (`csrc/covis_weights.cu`) on a
+CUDA tensor and :func:`covis_weights_batch_plain` on a CPU one: integer
+counts, exact in any order, so the two agree bit for bit.
 """
 
 from __future__ import annotations
@@ -30,9 +31,18 @@ from covins_tpu_torch.device import check_cuda, check_tensor, is_cpu
 # float32 values
 RED_TABLE = (0.0, 0.0, 0.0, 0.4, 0.7, 0.9, 1.0)
 
-# queries a batch of covis_weights_batch handles at once: bounds its (Q, O)
-# intermediate
+# queries a batch of covis_weights_batch_plain handles at once: bounds its
+# (Q, O) intermediate
 _QUERY_BATCH = 64
+
+# K17's slots for its grid's per-block totals (kMaxGrid of
+# csrc/covis_weights.cu), and the most observations it takes (2 O entries
+# and their places as int32)
+_K17_GRID_SLOTS = 2048
+_K17_MAX_OBS = 1 << 29
+# the most keyframes K17 counts in shared memory (kSharedKf): wider maps take
+# its second instance, which adds into the output rows in device memory
+K17_SHARED_KF = 32768
 
 # K15's slots for its grid's per-block totals (kMaxGrid of
 # csrc/redundancy_values.cu), part of the scratch the wrapper allocates
@@ -53,12 +63,17 @@ def landmark_obs_counts(obs_lm: torch.Tensor, obs_mask: torch.Tensor,
         0, obs_lm.long(), obs_mask.to(torch.int32))
 
 
-def covis_weights_batch(query_kfs: torch.Tensor, obs_kf: torch.Tensor,
-                        obs_lm: torch.Tensor, obs_mask: torch.Tensor,
-                        n_kf: int, n_lm: int) -> torch.Tensor:
-    """(Q,) query keyframe rows -> (Q, n_kf) int32 covisibility weights: the
-    landmarks each keyframe shares with the query over live observations
-    (the query's own entry 0)."""
+def k17_scratch_len(O: int, n_kf: int, n_lm: int) -> int:
+    """int32 entries of K17's scratch: its segment counts and starts, the
+    slices' totals, each observation's two slots and its two entries, and
+    their places (`csrc/covis_weights.cu`)."""
+    return n_kf + n_lm + 1 + _K17_GRID_SLOTS + 5 * O
+
+
+def covis_weights_batch_plain(query_kfs: torch.Tensor, obs_kf: torch.Tensor,
+                              obs_lm: torch.Tensor, obs_mask: torch.Tensor,
+                              n_kf: int, n_lm: int) -> torch.Tensor:
+    """Plain version of :func:`covis_weights_batch` on any device."""
     dev = obs_kf.device
     kf, lm = obs_kf.long(), obs_lm.long()
     live = obs_mask.bool()
@@ -76,10 +91,56 @@ def covis_weights_batch(query_kfs: torch.Tensor, obs_kf: torch.Tensor,
     return out
 
 
+def covis_weights_batch(query_kfs: torch.Tensor, obs_kf: torch.Tensor,
+                        obs_lm: torch.Tensor, obs_mask: torch.Tensor,
+                        n_kf: int, n_lm: int) -> torch.Tensor:
+    """(Q,) query keyframe rows -> (Q, n_kf) int32 covisibility weights: the
+    live observations of each keyframe whose landmark the query observes
+    live (a landmark the query sees twice counts once, a keyframe that sees
+    it twice twice; the query's own entry 0;
+    `covins_tpu/ops/covisibility.py:45`).
+
+    query_kfs: (Q,) int32, 0 <= query < n_kf; obs_kf, obs_lm: (O,) int32,
+    0 <= obs_kf < n_kf and 0 <= obs_lm < n_lm; obs_mask: (O,) bool.  CPU
+    tensors take the plain version; CUDA tensors launch kernel K17 once
+    (none for Q = 0 or n_kf = 0), or raise."""
+    tensors = (query_kfs, obs_kf, obs_lm, obs_mask)
+    if all(is_cpu(t) for t in tensors):
+        return covis_weights_batch_plain(*tensors, n_kf, n_lm)
+    name = "covis_weights_batch"
+    dev = check_cuda(name, *tensors)
+    Q = query_kfs.shape[0] if query_kfs.dim() == 1 else -1
+    O = obs_kf.shape[0] if obs_kf.dim() == 1 else -1
+    q_ptr = check_tensor(name, "query_kfs", query_kfs, (Q,), torch.int32)
+    kf_ptr = check_tensor(name, "obs_kf", obs_kf, (O,), torch.int32)
+    lm_ptr = check_tensor(name, "obs_lm", obs_lm, (O,), torch.int32)
+    m_ptr = check_tensor(name, "obs_mask", obs_mask, (O,), torch.bool)
+    if n_kf < 0 or n_lm < 1 or O > _K17_MAX_OBS or n_kf + n_lm >= 1 << 30:
+        raise ValueError(f"{name}: needs n_kf >= 0, n_lm >= 1, O <= {_K17_MAX_OBS} and "
+                         f"n_kf + n_lm < 2**30; got n_kf={n_kf}, n_lm={n_lm}, O={O}")
+    out = torch.empty((Q, n_kf), dtype=torch.int32, device=dev)
+    if Q == 0 or n_kf == 0:
+        return out
+    scratch = torch.empty(k17_scratch_len(O, n_kf, n_lm), dtype=torch.int32, device=dev)
+    lib = cuda_build.library("covis_weights")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.covins_covis_weights(q_ptr, Q, kf_ptr, lm_ptr, m_ptr, O, n_kf, n_lm,
+                                      scratch.data_ptr(), scratch.numel(), out.data_ptr(),
+                                      stream)
+    cuda_build.check(rc, name)
+    covis_weights_batch.launches += 1
+    return out
+
+
+covis_weights_batch.launches = 0
+
+
 def covis_weights_for(query_kf: int, obs_kf: torch.Tensor, obs_lm: torch.Tensor,
                       obs_mask: torch.Tensor, n_kf: int, n_lm: int) -> torch.Tensor:
-    """(n_kf,) int32 covisibility weights of one keyframe row."""
-    q = torch.as_tensor([int(query_kf)], device=obs_kf.device)
+    """(n_kf,) int32 covisibility weights of one keyframe row, through
+    :func:`covis_weights_batch`."""
+    q = torch.as_tensor([int(query_kf)], dtype=torch.int32, device=obs_kf.device)
     return covis_weights_batch(q, obs_kf, obs_lm, obs_mask, n_kf, n_lm)[0]
 
 

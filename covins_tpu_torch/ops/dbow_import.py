@@ -17,9 +17,10 @@ get word ids in order of appearance.
 Two consumption modes:
 
 * :meth:`HierVocabulary.assign` — exact DBoW2 leaf word ids by tree
-  descent: kernel K16 (:func:`dbow_descend`, `csrc/dbow_descend.cu`) on
-  the card, :func:`dbow_descend_plain` on the CPU, bit for bit alike
-  (integer distances, one gathered float).
+  descent: kernel K16 (:func:`dbow_descend`, `csrc/dbow_descend.cu`, over
+  the tree's child-block table, :func:`child_blocks`) on the card,
+  :func:`dbow_descend_plain` on the CPU, bit for bit alike (integer
+  distances, one gathered float).
 * :meth:`HierVocabulary.flatten` — a flat ``(K, 32)`` word-center matrix
   for the dense BoW database (`models/kf_database.py`), cut at the deepest
   tree level whose node count fits ``max_words`` (leaves above the cut
@@ -30,7 +31,8 @@ Parsing, flattening and writing stay numpy and exact.
 
 from __future__ import annotations
 
-from typing import Optional
+import time
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -45,6 +47,61 @@ NO_CHILD_DIST = 1 << 14
 MAX_BRANCHING = 1 << 17
 
 _POPCOUNT8 = torch.tensor([bin(i).count("1") for i in range(256)], dtype=torch.int32)
+
+# the code of an empty slot in a child-block table
+EMPTY_SLOT = np.iinfo(np.int32).min
+
+
+class ChildBlocks(NamedTuple):
+    """A tree's child-block table (K16's input, :func:`child_blocks`): the
+    nodes with a child ("inner") numbered in breadth-first order from the
+    root, and for inner number i its k children in slot order."""
+
+    rows: torch.Tensor        # (n_inner * k, 32) uint8: the children's rows, 0 if empty
+    nxt: torch.Tensor         # (n_inner, k) int32: a child's inner number, ~node
+                              # for a child without children, EMPTY_SLOT for none
+    node_of: torch.Tensor     # (n_inner,) int32: the node of each inner number
+    root: int                 # the root's code: 0, or ~0 = -1 without children
+
+    def to(self, device):
+        return self._replace(rows=self.rows.to(device), nxt=self.nxt.to(device),
+                             node_of=self.node_of.to(device))
+
+
+def child_blocks(children: np.ndarray, node_desc: np.ndarray) -> ChildBlocks:
+    """The child-block table of a tree (``children`` (n_nodes, k) int32, -1
+    an empty slot; ``node_desc`` (n_nodes, 32) uint8) as CPU tensors: every
+    node reachable from the root that has a child gets an inner number, level
+    by level (a level's nodes in the order their parents list them), so the
+    upper levels, which every descent reads, lie together at the table's
+    start."""
+    children = np.asarray(children, np.int32)
+    node_desc = np.asarray(node_desc, np.uint8)
+    n_nodes, k = children.shape
+    has_child = (children >= 0).any(1)
+    seen = np.zeros(n_nodes, bool)
+    seen[0] = True
+    levels, level = [], np.zeros(1, np.int64)
+    while level.size:
+        inner = level[has_child[level]]
+        levels.append(inner)
+        ch = children[inner].ravel()
+        ch = ch[ch >= 0]
+        _, first = np.unique(ch, return_index=True)
+        ch = ch[np.sort(first)]
+        level = ch[~seen[ch]].astype(np.int64)
+        seen[level] = True
+    node_of = np.concatenate(levels).astype(np.int32)
+    inner_of = np.full(n_nodes, -1, np.int64)
+    inner_of[node_of] = np.arange(node_of.size)
+    ch = children[node_of]
+    filled = ch >= 0
+    safe = np.where(filled, ch, 0)
+    nxt = np.where(filled, np.where(inner_of[safe] >= 0, inner_of[safe], ~safe), EMPTY_SLOT)
+    rows = np.where(filled[..., None], node_desc[safe], 0).reshape(-1, 32)
+    return ChildBlocks(torch.from_numpy(np.ascontiguousarray(rows, np.uint8)),
+                       torch.from_numpy(nxt.astype(np.int32)), torch.from_numpy(node_of),
+                       0 if has_child[0] else -1)
 
 
 class HierVocabulary:
@@ -63,11 +120,14 @@ class HierVocabulary:
         self.weighting = weighting
         self.n_words = int((leaf_word_id >= 0).sum())
         self._trees = {}
+        self._blocks = {}
+        self.table_build_s = None
 
     # ------------------------------------------------------------- descent
     def tree_on(self, device: torch.device):
         """The tree's (children, node_desc, node_weight, leaf_word_id) as
-        contiguous tensors on ``device``, moved there once and cached."""
+        contiguous tensors on ``device``, moved there once and cached; on a
+        card also its child-block table (:meth:`blocks_on`), built once."""
         key = str(device)
         tree = self._trees.get(key)
         if tree is None:
@@ -82,7 +142,18 @@ class HierVocabulary:
                                        (self.node_weight, np.float32),
                                        (self.leaf_word_id, np.int32)))
             self._trees[key] = tree
+            if not is_cpu(tree[0]):
+                t0 = time.perf_counter()
+                blocks = child_blocks(children, self.node_desc).to(device)
+                self._blocks[key] = blocks
+                self.table_build_s = time.perf_counter() - t0
         return tree
+
+    def blocks_on(self, device: torch.device) -> ChildBlocks:
+        """The tree's child-block table on a card, built by :meth:`tree_on`
+        (``table_build_s`` its build's seconds, host and upload)."""
+        self.tree_on(device)
+        return self._blocks[str(device)]
 
     def assign(self, descs_u8, mask=None, device: DeviceLike = None):
         """Exact DBoW2 word assignment by tree descent.
@@ -96,7 +167,8 @@ class HierVocabulary:
         dev = resolve_device(device)
         descs = torch.as_tensor(descs_u8, dtype=torch.uint8).to(dev).contiguous()
         m = None if mask is None else torch.as_tensor(mask, dtype=torch.bool).to(dev).contiguous()
-        return dbow_descend(descs, m, *self.tree_on(dev), self.L)
+        tree = self.tree_on(dev)
+        return dbow_descend(descs, m, *tree, self.L, blocks=self._blocks.get(str(dev)))
 
     # ------------------------------------------------------------- flatten
     def flatten(self, max_words: int = 4096):
@@ -150,7 +222,8 @@ def dbow_descend_plain(descs: torch.Tensor, mask: Optional[torch.Tensor],
 
 def dbow_descend(descs: torch.Tensor, mask: Optional[torch.Tensor],
                  children: torch.Tensor, node_desc: torch.Tensor,
-                 node_weight: torch.Tensor, leaf_word_id: torch.Tensor, L: int):
+                 node_weight: torch.Tensor, leaf_word_id: torch.Tensor, L: int,
+                 blocks: Optional[ChildBlocks] = None):
     """DBoW2 tree descent (`covins_tpu/ops/dbow_import.py:54
     HierVocabulary.assign`): each (N, 32) uint8 descriptor starts at the
     root (node 0) and, ``L`` times, moves to the child of least Hamming
@@ -162,7 +235,10 @@ def dbow_descend(descs: torch.Tensor, mask: Optional[torch.Tensor],
     1 <= k <= MAX_BRANCHING; node_desc: (n_nodes, 32) uint8; node_weight: (n_nodes,)
     float32; leaf_word_id: (n_nodes,) int32.  CPU tensors take the plain
     version; CUDA tensors launch kernel K16 once (none for N = 0) or
-    raise."""
+    raise.  The kernel reads the tree's child-block table ``blocks``
+    (:func:`child_blocks` on the card; :meth:`HierVocabulary.blocks_on`
+    keeps one a device), built here from ``children`` and ``node_desc``
+    when not given."""
     tensors = (descs, mask, children, node_desc, node_weight, leaf_word_id)
     if all(t is None or is_cpu(t) for t in tensors):
         return dbow_descend_plain(*tensors, L)
@@ -176,13 +252,22 @@ def dbow_descend(descs: torch.Tensor, mask: Optional[torch.Tensor],
         raise ValueError(f"{name}: needs 1 <= k <= {MAX_BRANCHING} (the kernel's 17 slot "
                          f"bits), a root and L >= 0; got k={k}, {n_nodes} nodes, L={L}")
     d_ptr = check_tensor(name, "descs", descs, (N, 32), torch.uint8)
-    c_ptr = check_tensor(name, "children", children, (n_nodes, k), torch.int32)
-    nd_ptr = check_tensor(name, "node_desc", node_desc, (n_nodes, 32), torch.uint8)
+    check_tensor(name, "children", children, (n_nodes, k), torch.int32)
+    check_tensor(name, "node_desc", node_desc, (n_nodes, 32), torch.uint8)
     w_ptr = check_tensor(name, "node_weight", node_weight, (n_nodes,), torch.float32)
     l_ptr = check_tensor(name, "leaf_word_id", leaf_word_id, (n_nodes,), torch.int32)
     m_ptr = None if mask is None else check_tensor(name, "mask", mask, (N,), torch.bool)
-    if d_ptr % 16 or nd_ptr % 16:
-        raise ValueError(f"{name}: descs and node_desc must be 16-byte aligned")
+    if blocks is None:
+        blocks = child_blocks(children.cpu().numpy(), node_desc.cpu().numpy()).to(dev)
+    check_cuda(name, blocks.rows, blocks.nxt, blocks.node_of, descs)
+    n_inner = blocks.node_of.shape[0] if blocks.node_of.dim() == 1 else -1
+    r_ptr = check_tensor(name, "blocks.rows", blocks.rows, (n_inner * k, 32), torch.uint8)
+    x_ptr = check_tensor(name, "blocks.nxt", blocks.nxt, (n_inner, k), torch.int32)
+    o_ptr = check_tensor(name, "blocks.node_of", blocks.node_of, (n_inner,), torch.int32)
+    if d_ptr % 16 or r_ptr % 16:
+        raise ValueError(f"{name}: descs and the table's rows must be 16-byte aligned")
+    if n_inner * k >= 1 << 31:
+        raise ValueError(f"{name}: the table holds {n_inner} x {k} slots, over 2**31")
     words = torch.empty(N, dtype=torch.int32, device=dev)
     weights = torch.empty(N, dtype=torch.float32, device=dev)
     if N == 0:
@@ -190,8 +275,9 @@ def dbow_descend(descs: torch.Tensor, mask: Optional[torch.Tensor],
     lib = cuda_build.library(name)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.covins_dbow_descend(d_ptr, m_ptr, N, c_ptr, nd_ptr, w_ptr, l_ptr, k, L,
-                                     words.data_ptr(), weights.data_ptr(), stream)
+        rc = lib.covins_dbow_descend(d_ptr, m_ptr, N, r_ptr, x_ptr, o_ptr, n_inner, w_ptr,
+                                     l_ptr, k, L, blocks.root, words.data_ptr(),
+                                     weights.data_ptr(), stream)
     cuda_build.check(rc, name)
     dbow_descend.launches += 1
     return words, weights

@@ -800,10 +800,12 @@ def dbow_tree(rng: np.random.Generator, k: int, L: int, kind: str = "complete"):
     ``"ragged"``, the root min(k, 6) children and every other node 1 to 3,
     in random slots of the k (the rest -1), leaves at depths 1 and 2 and
     inner nodes without children above depth L; ``"ties"``, a complete tree whose odd children repeat
-    their first sibling's descriptor."""
+    their first sibling's descriptor; ``"shuffled"``, a complete tree whose
+    nodes but the root are numbered in a random order, so that children
+    come before their parents and siblings lie apart."""
     from covins_tpu_torch.ops.dbow_import import HierVocabulary
 
-    if kind in ("complete", "ties"):
+    if kind in ("complete", "ties", "shuffled"):
         sizes = [k ** lvl for lvl in range(L + 1)]
         starts = np.cumsum([0] + sizes)
         n_nodes = int(starts[-1])
@@ -818,6 +820,12 @@ def dbow_tree(rng: np.random.Generator, k: int, L: int, kind: str = "complete"):
             inner = children[:starts[L]]
             node_desc[inner[:, 1::2]] = node_desc[inner[:, :1]]
         is_leaf = depth == L
+        if kind == "shuffled":
+            new_id = np.concatenate([[0], 1 + rng.permutation(n_nodes - 1)])
+            old_id = np.argsort(new_id)
+            children = np.where(children >= 0, new_id[np.maximum(children, 0)], -1)[old_id]
+            children = children.astype(np.int32)
+            node_desc, depth, is_leaf = node_desc[old_id], depth[old_id], is_leaf[old_id]
     elif kind == "ragged":
         children_l, depth_l, leaf_l = [[-1] * k], [0], [False]
         level, lvl = [0], 0
@@ -861,3 +869,39 @@ def dbow_descriptors(rng: np.random.Generator, voc, n: int, near: float = 0.25):
         flips = rng.integers(0, 256, (m, 32)) < 4  # about 1.5% of the bytes
         d[:m] ^= (flips * (1 << rng.integers(0, 8, (m, 32)))).astype(np.uint8)
     return d
+
+
+def covis_scene(rng: np.random.Generator, n_kf: int, n_lm: int, n_obs: int,
+                n_culled: int = 0, edges: bool = False, views: float = None):
+    """Inputs of the covisibility counts (`ops.covisibility.covis_weights_batch`)
+    as a map holds them: ``(queries (Q,) int32, obs_kf, obs_lm (n_obs,)
+    int32, obs_mask (n_obs,) bool)``.  Observations are appended keyframe by
+    keyframe, about n_obs / n_kf each; a keyframe sees landmarks drawn from
+    a window of four times that many around its place along the trajectory,
+    so that each landmark is seen by some ``views`` keyframes (default
+    n_obs / n_lm; the landmarks seen, n_obs / views of them, spread evenly
+    over the n_lm ids, the rest unobserved, as a map's fused and culled
+    rows are) and its neighbours share many; 2% of the observations dead.
+    ``n_culled`` keyframes, spread evenly, are culled (every observation
+    dead) and left out of the queries, which are the live keyframes in
+    order, as `io/export.map_snapshot` passes them.  ``edges``: a tenth of
+    the observations appended again (a keyframe that sees a landmark
+    twice), the queries repeated in part, and the first culled keyframe
+    queried (a query with no live observation)."""
+    per = max(1, n_obs // max(n_kf, 1))
+    kf = np.minimum(np.arange(n_obs) // per, n_kf - 1).astype(np.int32)
+    n_seen = n_lm if views is None else max(1, min(n_lm, int(n_obs / views)))
+    centre = (kf.astype(np.int64) * n_seen) // max(n_kf, 1)
+    window = min(n_seen, 4 * per)
+    lm = (centre + rng.integers(-(window // 2), window - window // 2, n_obs)) % n_seen
+    lm = (lm * (n_lm // n_seen)).astype(np.int32)
+    mask = rng.random(n_obs) >= 0.02
+    culled = np.linspace(0, n_kf - 1, n_culled).astype(np.int64) if n_culled else []
+    mask[np.isin(kf, culled)] = False
+    queries = np.setdiff1d(np.arange(n_kf), culled).astype(np.int32)
+    if edges:
+        again = rng.choice(n_obs, n_obs // 10, replace=False)
+        kf, lm, mask = (np.concatenate([a, a[again]]) for a in (kf, lm, mask))
+        queries = np.concatenate([queries, queries[rng.choice(len(queries), 8)],
+                                  np.int32(culled[:1])]).astype(np.int32)
+    return queries, kf, lm, mask

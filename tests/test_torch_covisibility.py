@@ -5,7 +5,10 @@ Inputs: COOs from a numpy seed, and maps the JAX package builds from its
 synthetic agents (place recognition off).  Expected, all exactly:
 `redundancy_values_plain` bit for bit the JAX `redundancy_values` (its
 float32 sums are taken in observation order, as the JAX package's CPU
-scatter-add takes them); the integer covisibility counts equal; and
+scatter-add takes them); the integer covisibility counts (K17's plain
+version, the wrapper on CPU tensors) equal, also with duplicated
+observations, repeated queries, queries without a live observation,
+landmark ids far below n_lm and no observation; and
 `erase_keyframe` / `remove_redundant_keyframes` on a map the JAX package
 saved, loaded into both packages behind their own `MapManager` (so that
 culled keyframes leave the retrieval database), remove the same keyframes
@@ -82,24 +85,56 @@ def test_redundancy_values_bit_for_bit(n_kf, n_lm, O, case):
         assert set(np.unique(got.numpy())) <= {np.float32(1.0)}
 
 
-@pytest.mark.parametrize("n_kf,n_lm,O,case", COO_CASES[:3], ids=[c[3] for c in COO_CASES[:3]])
+# (n_kf, n_lm, O, case) of the covisibility counts: the first three COO
+# cases; every observation doubled or tripled in part (a keyframe that sees
+# a landmark twice counts twice, a query that does once); repeated queries,
+# a query keyframe without observations and one whose observations are all
+# dead; landmark ids far below n_lm; no observation at all
+COVIS_CASES = COO_CASES[:3] + [(20, 300, 4000, "duplicates"),
+                               (16, 150, 2000, "repeated_and_empty_queries"),
+                               (12, 5000, 900, "n_lm_above_largest"), (8, 10, 0, "no_obs")]
+
+
+@pytest.mark.parametrize("n_kf,n_lm,O,case", COVIS_CASES, ids=[c[3] for c in COVIS_CASES])
 def test_covisibility_counts(n_kf, n_lm, O, case):
     kf, lm, mask = _coo(n_kf, n_lm, O, case, seed=1)
     live = mask > 0
     q = np.arange(0, n_kf, 2, dtype=np.int32)
+    rng = np.random.default_rng(2)
+    if case == "duplicates":
+        again = rng.choice(O, O // 2, replace=False)
+        thrice = again[: O // 8]
+        kf, lm = (np.concatenate([a, a[again], a[thrice]]) for a in (kf, lm))
+        live = np.concatenate([live, live[again], rng.random(len(thrice)) < 0.5])
+    if case == "repeated_and_empty_queries":
+        kf[kf == 3] = 4
+        live[kf == 5] = False
+        q = np.int32([3, 5, 0, 0, 7, 3, 15, 0, 5])
+    if case == "n_lm_above_largest":
+        lm %= 97
     ref = ref_cov.covis_weights_batch(jnp.asarray(q), jnp.asarray(kf), jnp.asarray(lm),
                                       jnp.asarray(live), n_kf=n_kf, n_lm=n_lm)
     t = torch.from_numpy
+    before = cov.covis_weights_batch.launches
     got = cov.covis_weights_batch(t(q), t(kf), t(lm), t(live), n_kf, n_lm)
-    assert got.dtype == torch.int32
+    assert cov.covis_weights_batch.launches == before  # the plain version on the CPU
+    assert got.dtype == torch.int32 and got.shape == (len(q), n_kf)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    if case == "repeated_and_empty_queries":
+        assert not got[0].any() and not got[1].any() and torch.equal(got[2], got[3])
+    if case in ("no_live_obs", "no_obs"):
+        assert not got.any()
+    if case == "duplicates":
+        assert got.max() > 0
     one = cov.covis_weights_for(3, t(kf), t(lm), t(live), n_kf, n_lm)
     np.testing.assert_array_equal(one.numpy(), np.asarray(ref_cov.covis_weights_for(
         jnp.int32(3), jnp.asarray(kf), jnp.asarray(lm), jnp.asarray(live), n_kf=n_kf,
         n_lm=n_lm)))
+    counts_mask = live.astype(np.float32) if len(live) != len(mask) else mask
     np.testing.assert_array_equal(
-        cov.landmark_obs_counts(t(lm), t(mask), n_lm).numpy(),
-        np.asarray(ref_cov.landmark_obs_counts(jnp.asarray(lm), jnp.asarray(mask), n_lm=n_lm)))
+        cov.landmark_obs_counts(t(lm), t(counts_mask), n_lm).numpy(),
+        np.asarray(ref_cov.landmark_obs_counts(jnp.asarray(lm), jnp.asarray(counts_mask),
+                                               n_lm=n_lm)))
 
 
 # ------------------------------------------------------------------- maps

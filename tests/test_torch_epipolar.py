@@ -29,6 +29,7 @@ from covins_tpu.ops import epipolar as ref_epi
 from covins_tpu.ops import linalg as ref_la
 from covins_tpu.utils import geometry as ref_geo
 from covins_tpu_torch.ops import align3d, epipolar as epi
+from covins_tpu_torch.ops import linalg as la
 
 POSE_TOL = 1e-9
 
@@ -176,44 +177,68 @@ def _ref_essential_5pt_from_basis(fa, fb, V):
 
 def test_essential_5pt_matches_reference():
     """Five bearing pairs span a 4-dimensional nullspace whose Jacobi basis
-    turns within itself under one ulp of A^T A, so the port's own basis
-    and the reference's jitted and eager ones find different numbers of
-    real roots of the degree-10 polynomial (on these samples 4, 6, 6, 4,
-    4, 4; 4, 2, 6, 4, 4, 4; 2, 4, 4, 4, 2, 2).  Held: on the reference's basis, handed to both, the port's
-    polynomial and root stage finds the reference's roots, the same valid
-    flags exactly and every valid essential matrix to 1e-7 (the degree-10
-    roots amplify the coefficients' rounding: measured 9.7e-9); on its own
-    basis every valid candidate solves the five epipolar constraints and
-    the true essential matrix is among them."""
+    turns within itself under one ulp of A^T A, and the root finder misses
+    close pairs of real roots of the degree-10 polynomial, so which true
+    roots survive depends on the basis: on one host the port's own basis
+    and the reference's jitted and eager ones found 4, 6, 6, 4, 4, 4; 4,
+    2, 6, 4, 4, 4; 2, 4, 4, 4, 2, 2 real roots on these samples, and on
+    another the port's 4, 4, 6, 4, 4, 4, its candidates on sample 1 all
+    0.53-0.76 from the true matrix (the reference's jitted and eager runs
+    missed it there too, and on samples 5 and 4).  The samples come
+    through the JAX package's geometry, compiled for the host, so they
+    move by an ulp between hosts.  Held, on each of two bases handed to
+    both packages' polynomial and root stage, the reference's Jacobi basis
+    and the port's own (`essential_5pt`'s): the same valid flags exactly,
+    every valid essential matrix to 1e-7 (the degree-10 roots amplify the
+    coefficients' rounding: measured 9.7e-9), and the true matrix among
+    the port's candidates wherever it is among the reference's on that
+    basis; and every valid candidate of the port's `essential_5pt` solves
+    the five epipolar constraints to 1e-9."""
     rng = np.random.default_rng(3)
     samples = [_central(rng, n=5, n_out=0) for _ in range(6)]
     fa = np.stack([s[0] for s in samples])
     fb = np.stack([s[1] for s in samples])
+    ref_from_basis = jax.jit(jax.vmap(_ref_essential_5pt_from_basis))
 
     def ref_basis(a, b):
         A = (a[:, :, None] * b[:, None, :]).reshape(5, 9)
         return ref_la.jacobi_eigh(A.T @ A)[1]
 
-    V = jax.jit(jax.vmap(ref_basis))(jnp.asarray(fa), jnp.asarray(fb))
-    rE, rvalid = jax.jit(jax.vmap(_ref_essential_5pt_from_basis))(
-        jnp.asarray(fa), jnp.asarray(fb), V)
-    rE, rvalid = np.asarray(rE), np.asarray(rvalid)
-    basis = _t(V)[..., :, :4].transpose(-1, -2).reshape(6, 4, 3, 3)
-    E, valid = epi.essential_5pt_from_basis(basis)
-    np.testing.assert_array_equal(valid.numpy(), rvalid)
-    assert rvalid.sum() >= 12
-    np.testing.assert_allclose(E.numpy()[rvalid], rE[rvalid], rtol=0, atol=1e-7)
+    def as_basis(V):
+        return V[..., :, :4].transpose(-1, -2).reshape(6, 4, 3, 3)
 
+    def held_on(V, E, valid, least_valid):
+        rE, rvalid = ref_from_basis(jnp.asarray(fa), jnp.asarray(fb), jnp.asarray(V.numpy()))
+        rE, rvalid = np.asarray(rE), np.asarray(rvalid)
+        np.testing.assert_array_equal(valid.numpy(), rvalid)
+        assert rvalid.sum() >= least_valid
+        np.testing.assert_allclose(E.numpy()[rvalid], rE[rvalid], rtol=0, atol=1e-7)
+        for i, T in enumerate(s[2] for s in samples):
+            t, R = T[4:], np.asarray(ref_geo.quat_to_matrix(jnp.asarray(T[:4])))
+            tx = np.asarray([[0, -t[2], t[1]], [t[2], 0, -t[0]], [-t[1], t[0], 0]])
+            E_true = tx @ R / np.linalg.norm(tx @ R)
+
+            def nearest(Es):
+                return np.minimum(np.abs(Es - E_true).max((1, 2)),
+                                  np.abs(Es + E_true).max((1, 2))).min(initial=np.inf)
+            if nearest(rE[i][rvalid[i]]) < 1e-7:
+                assert nearest(E.numpy()[i][valid.numpy()[i]]) < 1e-7, f"sample {i}"
+
+    # the reference's basis
+    V = _t(jax.jit(jax.vmap(ref_basis))(jnp.asarray(fa), jnp.asarray(fb)))
+    held_on(V, *epi.essential_5pt_from_basis(as_basis(V)), least_valid=12)
+
+    # the port's own basis, as essential_5pt computes it
+    A = (_t(fa)[..., :, :, None] * _t(fb)[..., :, None, :]).reshape(6, 5, 9)
+    _, V = la.jacobi_eigh(epi._gram(A))
     E, valid = epi.essential_5pt(_t(fa), _t(fb))
-    for i, (_, _, T) in enumerate(samples):
+    E_b, valid_b = epi.essential_5pt_from_basis(as_basis(V))
+    assert torch.equal(valid, valid_b) and torch.equal(E[valid], E_b[valid_b])
+    held_on(V, E, valid, least_valid=12)
+    for i in range(6):
         Es = E.numpy()[i][valid.numpy()[i]]
         res = np.einsum("ni,cij,nj->cn", fa[i], Es, fb[i])
         assert len(Es) and np.abs(res).max() < 1e-9
-        t, R = T[4:], np.asarray(ref_geo.quat_to_matrix(jnp.asarray(T[:4])))
-        tx = np.asarray([[0, -t[2], t[1]], [t[2], 0, -t[0]], [-t[1], t[0], 0]])
-        E_true = tx @ R / np.linalg.norm(tx @ R)
-        err = np.minimum(np.abs(Es - E_true).max((1, 2)), np.abs(Es + E_true).max((1, 2)))
-        assert err.min() < 1e-7
 
 
 @pytest.mark.parametrize("solver", ["8pt", "5pt"])

@@ -18,7 +18,10 @@
   `save_orb_vocabulary_text` writes the JAX package's bytes; `assign` (the
   plain version of K16 on the CPU) gives exactly the JAX package's ids and
   weights on a complete tree, a ragged one (leaves at depths 1-2, inner
-  nodes without children, empty slots), tied children and masked rows.
+  nodes without children, empty slots), tied children, a tree numbered out
+  of order and masked rows; K16's child-block table (`child_blocks`)
+  holds every inner node's children's rows and codes in slot order, and
+  a descent written over it gives the plain version's words and weights.
 * The CLI: a `.txt` vocabulary loads to the JAX CLI's flat matrix, and
   `run_stream` sends every keyframe into a CPU `CovinsServer`.
 """
@@ -406,7 +409,8 @@ def test_dbow2_assign_matches_reference(trees, name, masked):
 
 
 @pytest.mark.parametrize("kind,k,L", [("ragged", 10, 8), ("ties", 4, 4), ("complete", 2, 8),
-                                      ("complete", 16, 2), ("ragged", 16, 4)])
+                                      ("complete", 16, 2), ("ragged", 16, 4),
+                                      ("shuffled", 10, 3)])
 def test_dbow2_assign_on_seeded_trees_matches_reference(kind, k, L):
     """`utils/synthetic.dbow_tree`'s trees (as the card tests and the chip
     check build them; ragged ones with empty slots between children) in
@@ -423,6 +427,80 @@ def test_dbow2_assign_on_seeded_trees_matches_reference(kind, k, L):
         np.testing.assert_array_equal(w.numpy(), np.asarray(r_w))
         np.testing.assert_array_equal(wt.numpy().view(np.int32),
                                       np.asarray(r_wt).view(np.int32))
+
+
+def _descend_over_table(descs, blocks, L, node_weight, leaf_word_id):
+    """K16's descent written over its child-block table in numpy: a level
+    is one block's rows and codes; the least key (distance << 17 | slot),
+    an empty slot counting NO_CHILD_DIST; a negative code ends the descent
+    on node ~code, and a node of no child keeps it."""
+    nxt, node_of = blocks.nxt.numpy(), blocks.node_of.numpy()
+    rows = blocks.rows.numpy().reshape(nxt.shape + (32,))
+    pop = np.asarray([bin(i).count("1") for i in range(256)])
+    words, weights = [], []
+    for d in descs:
+        cur = blocks.root
+        for _ in range(L):
+            if cur < 0:
+                break
+            dist = np.where(nxt[cur] == dbi.EMPTY_SLOT, dbi.NO_CHILD_DIST,
+                            pop[rows[cur] ^ d].sum(1))
+            if dist.min() >= dbi.NO_CHILD_DIST:
+                break
+            cur = nxt[cur][np.argmin((dist << 17) | np.arange(len(dist)))]
+        node = node_of[cur] if cur >= 0 else ~cur
+        words.append(leaf_word_id[node])
+        weights.append(node_weight[node])
+    return np.asarray(words, np.int32), np.asarray(weights, np.float32)
+
+
+@pytest.mark.parametrize("kind,k,L", [("complete", 10, 3), ("ragged", 10, 8), ("ragged", 40, 4),
+                                      ("shuffled", 10, 3), ("shuffled", 3, 5), ("ties", 32, 2),
+                                      ("complete", 1, 3), ("root_only", 4, 2)])
+def test_dbow2_child_blocks_map_the_tree(kind, k, L):
+    """K16's child-block table (`dbow_import.child_blocks`): every node
+    reachable from the root that has a child has one inner number, level by
+    level; each inner number's slots hold its children's rows and codes
+    (the child's inner number, ~node for a child without children, an
+    empty slot's code and zero row), in slot order, also where the node ids
+    are shuffled; and the descent written over the table gives
+    `dbow_descend_plain`'s ids and weight bits."""
+    rng = np.random.default_rng(k * 10 + L)
+    if kind == "root_only":
+        voc = dbi.HierVocabulary(k, L, np.full((1, k), -1, np.int32),
+                                 rng.integers(0, 256, (1, 32), dtype=np.uint8),
+                                 np.float32([0.5]), np.int32([0]), np.int32([0]))
+    else:
+        voc = dbow_tree(rng, k, L, kind)
+    blocks = dbi.child_blocks(voc.children, voc.node_desc)
+    node_of, nxt = blocks.node_of.numpy(), blocks.nxt.numpy()
+    rows = blocks.rows.numpy().reshape(len(node_of), k, 32)
+    has_child = (voc.children >= 0).any(1)
+    reach = {0}
+    frontier = [0]
+    while frontier:
+        frontier = [int(c) for n in frontier for c in voc.children[n] if c >= 0
+                    and c not in reach]
+        reach |= set(frontier)
+    assert sorted(node_of.tolist()) == sorted(n for n in reach if has_child[n])
+    assert blocks.root == (0 if has_child[0] else -1)
+    assert (np.diff(voc.depth[node_of]) >= 0).all()  # level by level: upper levels first
+    inner_of = {int(n): i for i, n in enumerate(node_of)}
+    for i, n in enumerate(node_of):
+        for slot, c in enumerate(voc.children[n]):
+            if c < 0:
+                assert nxt[i, slot] == dbi.EMPTY_SLOT and not rows[i, slot].any()
+                continue
+            np.testing.assert_array_equal(rows[i, slot], voc.node_desc[c])
+            assert nxt[i, slot] == (inner_of[int(c)] if has_child[c] else ~c)
+    if kind == "shuffled":
+        assert (np.diff(node_of) < 0).any()  # numbered by level, not by id
+    descs = dbow_descriptors(rng, voc, 300)
+    want_w, want_wt = dbi.dbow_descend_plain(torch.from_numpy(descs), None,
+                                             *voc.tree_on(torch.device("cpu")), L)
+    got_w, got_wt = _descend_over_table(descs, blocks, L, voc.node_weight, voc.leaf_word_id)
+    np.testing.assert_array_equal(got_w, want_w.numpy())
+    np.testing.assert_array_equal(got_wt.view(np.int32), want_wt.numpy().view(np.int32))
 
 
 def test_dbow2_assign_edge_sizes(trees):

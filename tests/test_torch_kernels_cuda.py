@@ -73,12 +73,19 @@ tile and segments of 0, 1 and 2 valid columns; their tensor-core filter
 within its error bound on every pair;
 K5's L2 metric (float32 SIFT descriptors, float64 distances) its matches
 and distances exactly, as its Hamming metric.  K16 (the DBoW2
-vocabulary-tree descent) its word ids and weight bits exactly, with the
+vocabulary-tree descent over the tree's child-block table, given or built
+in the call) its word ids and weight bits exactly, with the
 plain version on the card and on the CPU and across two launches: ragged
 trees (empty slots among the children, leaves at depths 1 and 2, inner
-nodes without children), tied children, k 2 and 16, masked rows, N 0 and
-1, ORBvoc.txt's shape (k 10, L 6) at 6,480 and 65,536 descriptors, and
-`HierVocabulary.assign` on the card.
+nodes without children), tied children, k 1, 2, 3 and 16, masked rows, N 0 and
+1, ORBvoc.txt's shape (k 10, L 6) at 6,480 and 65,536 descriptors, nodes
+numbered out of order, and `HierVocabulary.assign` on the card.  K17 (the
+covisibility counts) exactly, with the plain version on the card and on
+the CPU and across two launches: the server's snapshot shape, a long
+session of 1,000,000 observations, duplicated observations, repeated
+queries and a query without a live observation, a single keyframe, maps
+wider than its shared counts (the instance that adds in device memory),
+and no observation.
 """
 
 import numpy as np
@@ -1457,17 +1464,91 @@ def test_redundancy_values_refuses_bad_inputs(dev):
         covisibility.redundancy_values(kf, kf, mask, 2, 0)
 
 
+# K17: (n_kf, n_lm, O, n_culled, edges, views) — the server phase's snapshot
+# (152 live of 160 keyframes, a landmark seen by 17), a long session (1,024
+# keyframes, 200,000 landmarks, 1,000,000 observations), duplicated
+# observations with repeated queries and a query without a live
+# observation, a single keyframe, maps wider than the shared counts (the
+# device-memory instance, above 32,768 keyframes), and no observation
+K17_CASES = [(160, 27_441, 101_712, 8, False, 17), (1024, 200_000, 1_000_000, 0, False, None),
+             (160, 27_441, 101_712, 8, True, 17), (1, 50, 300, 0, False, None),
+             (40_000, 30_000, 120_000, 4, True, None), (33_000, 500, 2_000, 0, False, None),
+             (12, 40, 0, 0, False, None)]
+
+
+@pytest.mark.parametrize("n_kf,n_lm,O,n_culled,edges,views", K17_CASES,
+                         ids=[f"kf{c[0]}-lm{c[1]}-obs{c[2]}{'-edges' if c[4] else ''}"
+                              for c in K17_CASES])
+def test_covis_weights_matches_plain(dev, n_kf, n_lm, O, n_culled, edges, views):
+    from covins_tpu_torch.ops import covisibility
+    from covins_tpu_torch.utils.synthetic import covis_scene
+
+    rng = np.random.default_rng(n_kf + O)
+    if O:
+        q, kf, lm, mask = covis_scene(rng, n_kf, n_lm, O, n_culled, edges, views)
+    else:
+        q, kf, lm, mask = (np.arange(n_kf, dtype=np.int32), np.zeros(0, np.int32),
+                           np.zeros(0, np.int32), np.zeros(0, bool))
+    if n_kf > 30_000:  # 48 rows of the wide map, the culled keyframe's last
+        q = np.concatenate([q[rng.choice(len(q) - 1, 47, replace=False)], q[-1:]])
+    cpu = [torch.from_numpy(x) for x in (q, kf, lm, mask)]
+    args = [x.to(dev) for x in cpu]
+    before = covisibility.covis_weights_batch.launches
+    got = covisibility.covis_weights_batch(*args, n_kf, n_lm)
+    again = covisibility.covis_weights_batch(*args, n_kf, n_lm)
+    assert covisibility.covis_weights_batch.launches == before + 2
+    want = covisibility.covis_weights_batch_plain(*args, n_kf, n_lm)
+    assert got.dtype == torch.int32 and got.shape == (len(q), n_kf)
+    assert torch.equal(got, again) and torch.equal(got, want)
+    if O <= 200_000:
+        assert torch.equal(got.cpu(), covisibility.covis_weights_batch_plain(*cpu, n_kf, n_lm))
+    if O and n_kf > 1:
+        assert got.max() > 0
+    if edges:
+        assert not got[-1].any()  # the culled keyframe's row
+    one = covisibility.covis_weights_for(int(q[0]), *args[1:], n_kf, n_lm)
+    assert torch.equal(one, want[0])
+
+
+def test_covis_weights_refuses_bad_inputs(dev):
+    from covins_tpu_torch.ops import covisibility
+
+    q = torch.zeros(4, dtype=torch.int32, device=dev)
+    kf = torch.zeros(8, dtype=torch.int32, device=dev)
+    mask = torch.ones(8, dtype=torch.bool, device=dev)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        covisibility.covis_weights_batch(q, kf, kf.cpu(), mask, 2, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        covisibility.covis_weights_batch(q.cpu(), kf, kf, mask, 2, 2)
+    with pytest.raises(ValueError):
+        covisibility.covis_weights_batch(q.long(), kf, kf, mask, 2, 2)
+    with pytest.raises(ValueError):
+        covisibility.covis_weights_batch(q, kf.long(), kf, mask, 2, 2)
+    with pytest.raises(ValueError):
+        covisibility.covis_weights_batch(q, kf, kf, mask.float(), 2, 2)
+    with pytest.raises(ValueError):
+        covisibility.covis_weights_batch(q, kf, kf[:4], mask, 2, 2)
+    with pytest.raises(ValueError):
+        covisibility.covis_weights_batch(q, kf, kf, mask, 2, 0)
+
+
 # K16: (kind, k, L, N) — a ragged tree (1-3 children in random slots of 10,
 # leaves at depths 1 and 2, inner nodes without children), tied children,
 # k = 2 and k = 16, no descriptor and one, a bench window (12 KF x 540),
 # ORBvoc.txt's shape (k = 10, L = 6, 1,111,111 nodes) x 65,536, and nodes
 # wider than one round of 16 slots: k = 17 and 32, ties across rounds
-# (k = 32: odd slots repeat slot 0), a ragged tree in slots of 40
+# (k = 32: odd slots repeat slot 0), a ragged tree in slots of 40; a tree
+# numbered out of order, k = 1 and 3; and 20,000 descriptors, more than the
+# card holds warps at once, so that k <= 16 takes the instance of 32 // k
+# descriptors a warp, on ragged, tied, shuffled and k 1, 3 and 16 trees
 K16_CASES = [("ragged", 10, 8, 3001), ("ties", 10, 3, 2000), ("complete", 2, 8, 1000),
              ("complete", 16, 3, 5000), ("ragged", 16, 4, 777), ("complete", 10, 3, 0),
              ("complete", 10, 3, 1), ("complete", 10, 6, 6480), ("complete", 10, 6, 65536),
              ("complete", 17, 3, 3000), ("complete", 32, 3, 4000), ("ties", 32, 2, 2000),
-             ("ragged", 40, 4, 1500)]
+             ("ragged", 40, 4, 1500), ("shuffled", 10, 4, 4000), ("complete", 3, 5, 999),
+             ("complete", 1, 3, 100), ("ragged", 10, 8, 20000), ("ties", 10, 3, 20000),
+             ("complete", 3, 5, 20000), ("complete", 16, 3, 20000), ("complete", 1, 3, 20000),
+             ("shuffled", 10, 4, 20000)]
 
 
 @pytest.mark.parametrize("kind,k,L,N", K16_CASES,
@@ -1481,11 +1562,12 @@ def test_dbow_descend_matches_plain(dev, kind, k, L, N):
     descs = torch.from_numpy(dbow_descriptors(rng, voc, N))
     mask = torch.from_numpy(rng.random(N) < 0.8)
     tree, cpu_tree = voc.tree_on(dev), voc.tree_on(torch.device("cpu"))
+    blocks = voc.blocks_on(dev)
     for m in (None, mask):
         d, md = descs.to(dev), None if m is None else m.to(dev)
         before = dbi.dbow_descend.launches
-        got = dbi.dbow_descend(d, md, *tree, L)
-        again = dbi.dbow_descend(d, md, *tree, L)
+        got = dbi.dbow_descend(d, md, *tree, L, blocks=blocks)
+        again = dbi.dbow_descend(d, md, *tree, L)  # the table built in the call
         assert dbi.dbow_descend.launches == before + (2 if N else 0)
         want = dbi.dbow_descend_plain(descs, m, *cpu_tree, L)
         on_card = dbi.dbow_descend_plain(d, md, *tree, L)
@@ -1528,3 +1610,12 @@ def test_dbow_descend_refuses_bad_inputs(dev):
         dbi.dbow_descend(d, torch.ones(7, dtype=torch.bool, device=dev), ch, nd, nw, lw, 2)
     with pytest.raises(ValueError):
         dbi.dbow_descend(d, None, ch.long(), nd, nw, lw, 2)
+    blocks = voc.blocks_on(dev)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dbi.dbow_descend(d, None, ch, nd, nw, lw, 2, blocks=blocks.to("cpu"))
+    with pytest.raises(ValueError):
+        dbi.dbow_descend(d, None, ch, nd, nw, lw, 2, blocks=blocks._replace(nxt=blocks.nxt[:, :3]))
+    with pytest.raises(ValueError, match="aligned"):
+        shifted = torch.zeros(blocks.rows.numel() + 1, dtype=torch.uint8, device=dev)[1:]
+        dbi.dbow_descend(d, None, ch, nd, nw, lw, 2,
+                         blocks=blocks._replace(rows=shifted.view(blocks.rows.shape)))
