@@ -82,9 +82,14 @@ package beside it.  Phases:
    27,441 landmarks, 101,712 observations, `utils/synthetic.covis_scene`),
    a long session (1,024 keyframes, 200,000 landmarks, 1,000,000
    observations, every keyframe queried), duplicated observations with
-   repeated queries and a query without a live observation, and a map of
-   40,000 keyframes (the instance that counts in device memory), beside
-   one float32 matmul of the seen landmarks by the observation counts;
+   repeated queries and a query without a live observation, a map of
+   40,000 keyframes, the server's shape with its observations shuffled and
+   1,100 queries (two passes of the query bitmap) with keyframes repeated
+   in other bitmap words, beside one float32 matmul of the seen landmarks
+   by the observation counts and the same launch with no observation (the
+   floor), with the bitmap's bytes; K4 also beside its library form (the
+   +-1 bf16 matmul, argmins both ways, the mutual check and the gate),
+   whose matches must equal K4's;
 2. the full main path at the workload of the JAX package's benchmark
    (2 agents x 128 KF over 2000 landmarks, 512-word vocabulary trained on
    the card, 1024-message windows, the default ``Config()`` with
@@ -228,6 +233,7 @@ import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -574,6 +580,24 @@ def window_counts(vocab, W, F, dev, reps=20):
     return row
 
 
+def pm1_bf16_mutual_nn(a, b, valid, max_dist):
+    """K4's library form: the +-1 bf16 product of the unpacked descriptors
+    as one PyTorch matmul, the (M, N) ``valid`` pairs kept as `masked_dist`
+    keeps them, the first argmin of each row and of each column, the
+    mutual check and the ``max_dist`` gate, as `match_mutual_nn` (a
+    yardstick only; the port never calls it)."""
+    import torch
+
+    from covins_tpu_torch.ops.descriptors import BIG, unpack_to_pm1
+
+    dot = unpack_to_pm1(a, torch.bfloat16) @ unpack_to_pm1(b, torch.bfloat16).T
+    dist = torch.where(valid, (a.shape[1] * 8 - dot.float()) * 0.5, float(BIG))
+    fwd = torch.argmin(dist, dim=1)
+    rows = torch.arange(dist.shape[0], device=dist.device)
+    ok = (torch.argmin(dist, dim=0)[fwd] == rows) & (dist[rows, fwd] < max_dist)
+    return torch.where(ok, fwd, -1).to(torch.int32)
+
+
 def k4_case(a, am, b, bm, max_dist, reps):
     import torch
 
@@ -596,12 +620,17 @@ def k4_case(a, am, b, bm, max_dist, reps):
     # each valid (row, column) pair's distance once: a +-1 int8 dot
     # product of 256, 512 operations
     bnd, by = bound((m + n) * 33 + m * 4, (2.0 * n_rows * n_cols * 256, INT8_OPS_S))
+    valid = am[:, None] & bm[None, :]
+    lib = pm1_bf16_mutual_nn(a, b, valid, max_dist)
+    torch.cuda.synchronize()
+    check(torch.equal(lib, got), "K4's library yardstick differs from K4")
     return {
         "kernel_ms": cuda_ms(kernel, reps), "busy_ms": busy_ms(kernel, reps),
         "ops_per_call": count_ops(kernel),
         "plain_ms": cuda_ms(lambda: d.hamming_mutual_nn_plain(a, am, b, bm, max_dist),
                             reps),
-        "library_ms": None,
+        "library_ms": cuda_ms(lambda: pm1_bf16_mutual_nn(a, b, valid, max_dist), reps),
+        "library_busy_ms": busy_ms(lambda: pm1_bf16_mutual_nn(a, b, valid, max_dist), reps),
         "bound_ms": bnd, "bound_by": by,
         "max_abs_err": int((got - ref).abs().max().item()) if m else 0,
         "matches": int((got >= 0).sum().item()),
@@ -1801,6 +1830,27 @@ def k16_case(tree, L, descs, mask, reps, cpu=True, blocks=None):
             "bound_ms": bnd, "bound_by": by, "bytes": nbytes}
 
 
+def k17_inputs(rng, n_kf, n_lm, O, culled, edges, n_q, views, order, synthetic=None):
+    """K17's inputs from ``utils/synthetic.covis_scene``: ``n_q`` of its
+    queries kept (the last among them), ``order`` "runs" (a map's keyframe
+    runs), "shuffled" (the observations in random order) or "repeats"
+    (`synthetic.covis_repeats`: keyframes queried again in other bitmap
+    words).  ``synthetic``: the module to draw them with (the imported
+    package's ``utils/synthetic`` if None)."""
+    if synthetic is None:
+        from covins_tpu_torch.utils import synthetic
+
+    q, kf, lm, mask = synthetic.covis_scene(rng, n_kf, n_lm, O, culled, edges, views)
+    if n_q is not None:
+        q = np.concatenate([q[rng.choice(len(q) - 1, n_q - 1, replace=False)], q[-1:]])
+    if order == "shuffled":
+        perm = rng.permutation(len(kf))
+        kf, lm, mask = kf[perm], lm[perm], mask[perm]
+    if order == "repeats":
+        q = synthetic.covis_repeats(q)
+    return q, kf, lm, mask
+
+
 def k17_case(q, kf, lm, mask, n_kf, n_lm, reps, cpu=True):
     """K17 (`covisibility.covis_weights_batch`) against its plain version
     on the card and (``cpu``) on the CPU, bit for bit, one launch a call and
@@ -1808,7 +1858,9 @@ def k17_case(q, kf, lm, mask, n_kf, n_lm, reps, cpu=True):
     (Q, n_lm) 0/1 matrix of the landmarks each query sees by the (n_lm,
     n_kf) matrix of live observation counts (the library yardstick, exact
     below 2^24, held equal with the query's own column zeroed), both built
-    outside the timed call."""
+    outside the timed call.  Also the busy time of the same launch with no
+    observation (``floor_ms``), and the query bitmap's and the keyframe
+    table's bytes with their nonzero-word masks."""
     import torch
 
     from covins_tpu_torch.ops import covisibility as cov
@@ -1850,7 +1902,14 @@ def k17_case(q, kf, lm, mask, n_kf, n_lm, reps, cpu=True):
     # float32 rate (integer adds run on the same cores)
     nbytes = 9 * O + 4 * Q + 4 * Q * n_kf
     bnd, by = bound(nbytes, (adds, FP32_OPS_S))
+    none = kf[:0]
+    # the bitmap's words a row (csrc/covis_weights.cu: 32 a pass of 1,024)
+    ws = min(-(-Q // 32), 32)
     return {"kernel_ms": cuda_ms(kernel, reps), "busy_ms": busy_ms(kernel, reps),
+            # the same launch with no observation: the launch, the zeroing
+            # and the grid barriers alone
+            "floor_ms": busy_ms(lambda: cov.covis_weights_batch(q, none, none, mask[:0], n_kf,
+                                                                n_lm), reps),
             "plain_ms": cuda_ms(lambda: cov.covis_weights_batch_plain(q, kf, lm, mask, n_kf,
                                                                       n_lm),
                                 max(1, reps // 10)),
@@ -1858,7 +1917,10 @@ def k17_case(q, kf, lm, mask, n_kf, n_lm, reps, cpu=True):
             "library_busy_ms": busy_ms(library, max(1, reps // 4)),
             "bound_ms": bnd, "bound_by": by, "bytes": nbytes, "additions": adds,
             "max_abs_err": 0.0, "shape": [Q, n_kf, n_lm, O],
-            "live_obs": int(live.sum()), "shared_counts": n_kf <= cov.K17_SHARED_KF,
+            "live_obs": int(live.sum()), "passes": -(-Q // 1024),
+            "seen_bytes": 4 * n_lm * (ws + 1), "kfq_bytes": 4 * n_kf * (ws + 1),
+            # the count phase's adds, one a bit: the counts' sum
+            "bit_items": int(out.sum()),
             # the keyframes that see a landmark: median, largest, and the mean
             # over observations (the walk's mean length)
             "views_median": float(views.median()) if views.numel() else 0.0,
@@ -2133,23 +2195,19 @@ def phase1(dev):
     del orb
     # K17 at the server phase's snapshot (152 live of 160 keyframes, 27,441
     # landmarks, 101,712 observations, as phase "server" gives prunemap; a
-    # landmark seen by 17 keyframes, as there), a long session (1,024
-    # keyframes, 200,000 landmarks, 1,000,000 observations, every keyframe
-    # queried), duplicated observations with repeated queries and a query
-    # without a live observation, and a map wider than the shared counts
-    # (the device-memory instance)
+    # landmark seen by 17 keyframes, as there), in a map's keyframe runs and
+    # shuffled; a long session (1,024 keyframes, 200,000 landmarks,
+    # 1,000,000 observations, every keyframe queried); duplicated
+    # observations with repeated queries and a query without a live
+    # observation; a map of 40,000 keyframes; and 1,100 queries (two passes
+    # of the bitmap) with keyframes repeated in other bitmap words
     rng17 = np.random.default_rng(SEED + 17)
-    for n_kf, n_lm, O, culled, edges, n_q, views in (
-            (160, 27_441, 101_712, 8, False, None, SERVER_VIEWS),
-            (1024, 200_000, 1_000_000, 0, False, None, None),
-            (160, 27_441, 101_712, 8, True, None, SERVER_VIEWS),
-            (40_000, 30_000, 120_000, 4, True, 64, None)):
-        q, kf, lm, mask = synthetic.covis_scene(rng17, n_kf, n_lm, O, culled, edges, views)
-        if n_q is not None:
-            q = np.concatenate([q[rng17.choice(len(q) - 1, n_q - 1, replace=False)], q[-1:]])
-        r = k17_case(t(q), t(kf), t(lm), t(mask), n_kf, n_lm, reps=20, cpu=O < 500_000)
+    for case in K17_SMOKE_CASES:
+        q, kf, lm, mask = k17_inputs(rng17, *case)
+        r = k17_case(t(q), t(kf), t(lm), t(mask), *case[:2], reps=20,
+                     cpu=len(kf) < 500_000)
         print(json.dumps({"phase": 1, "kernel": "covis_weights", "card": card,
-                          "edges": edges, **r}))
+                          "edges": case[4], "order": case[7], **r}))
     return table, sift_k5
 
 
@@ -2911,6 +2969,18 @@ SERVER_CULL_GAP = 2.0
 SERVER_VIEWS = 17
 SERVER_WAIT_S = 600.0  # a deadline for each wait on the server
 
+# where phase "server" keeps its snapshot's K17 input (a git-ignored
+# directory of the checkout)
+K17_SNAPSHOT = Path(__file__).resolve().parent / "build" / "k17" / "server_snapshot.npz"
+# K17's shapes in phase 1: (n_kf, n_lm, O, culled keyframes, edges, queries
+# kept, views, order), as `k17_inputs` takes them
+K17_SMOKE_CASES = ((160, 27_441, 101_712, 8, False, None, SERVER_VIEWS, "runs"),
+                   (1024, 200_000, 1_000_000, 0, False, None, None, "runs"),
+                   (160, 27_441, 101_712, 8, True, None, SERVER_VIEWS, "runs"),
+                   (40_000, 30_000, 120_000, 4, True, 64, None, "runs"),
+                   (160, 27_441, 101_712, 8, False, None, SERVER_VIEWS, "shuffled"),
+                   (1100, 20_000, 110_000, 0, False, None, None, "repeats"))
+
 
 def free_port():
     import socket
@@ -3135,6 +3205,10 @@ def phase_server(dev, card, streams, vocab):
         check(card_snap == cpu_snap, "the card's snapshot differs from the CPU's")
         q, kf, lm, mask = rec.on("covis_weights_batch", dev)
         sizes = rec.kwargs("covis_weights_batch")
+        # the snapshot's input, for `scripts/port_k17_probe.py --inputs`
+        K17_SNAPSHOT.parent.mkdir(parents=True, exist_ok=True)
+        np.savez(K17_SNAPSHOT, q=q.cpu().numpy(), kf=kf.cpu().numpy(), lm=lm.cpu().numpy(),
+                 mask=mask.cpu().numpy(), n_kf=sizes["n_kf"], n_lm=sizes["n_lm"])
         k17 = k17_case(q, kf, lm, mask, sizes["n_kf"], sizes["n_lm"], reps=50)
         k17["launches"] = launches_b["covis_weights"]
         print(json.dumps({"phase": "server", "kernel": "covis_weights",

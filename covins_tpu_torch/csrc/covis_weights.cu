@@ -11,51 +11,55 @@
 // (ops/covisibility.py::covis_weights_batch_plain) whatever order its
 // atomics take.
 //
-// Bound on the H100: bytes, and in practice latency.  The COO is read
-// once (a keyframe, a landmark and a mask byte an observation, 9 bytes)
-// and the (Q, n_kf) int32 counts written once: at the server's snapshot
-// (some 152 queries, 160 keyframes, 100,000 observations) about 1.0 MB,
-// 0.0003 ms at 3.35 TB/s.  The additions (over q's landmarks, the squares
-// of their observation counts) are far below any compute peak.  What sets
-// the time at that size is latency: four grid barriers, two of them after a
-// pass over the observations, and the dependent gathers of the walk.
+// Bound on the H100: bytes.  The COO is read once (a keyframe, a landmark
+// and a mask byte an observation, 9 bytes) and the (Q, n_kf) int32 counts
+// written once: at the server's snapshot (some 152 queries, 160 keyframes,
+// 100,000 observations) about 1.0 MB, 0.0003 ms at 3.35 TB/s.  The
+// additions are far below any compute peak.  What sets the time is
+// latency and atomics: the launch and two grid barriers (the launch with
+// no observation takes some 0.007 ms at the server's shape), the mark's
+// atomicOr an observation of a queried keyframe, the count's atomicAdd a
+// (query, keyframe) a warp; at a long session's 1,024 queries also the
+// bitmap's zeroing (n_lm x 132 bytes).  Observations in random order add
+// bit by bit, one atomicAdd a bit.
 //
-// Design: the live observations are grouped twice, by keyframe and by
-// landmark, into one array of 2 O entries, and then each query's row is
-// counted from its own segment alone.  Four phases split by four grid
-// barriers (two inside phase 2).
-//  0. The counts (n_kf keyframes, then n_lm landmarks, then one 0) and the
-//     output are zeroed in the launch.
-//  1. Counts: grid-stride over the observations.  int32 atomicAdd of one
-//     into the keyframe's and the landmark's count, whose old values are
-//     the observation's two slots (one atomic a keyframe a warp by
-//     __match_any_sync: a map appends its observations keyframe by
-//     keyframe).
-//  2. One exclusive scan of the n_kf + n_lm + 1 counts: each block scans
-//     a slice in warp shuffles, and after a barrier every block scans the
-//     slices' totals into shared memory, so that a segment starts at its
-//     slice offset plus its place in the slice.  The keyframe segments
-//     fill entries [0, O_live) and the landmark segments [O_live, 2
-//     O_live).  Then each live observation writes its landmark at its
-//     place in its keyframe's segment, with the place of its entry in its
-//     landmark's segment (`pos`), and its keyframe at that place.
-//  3. The queries shared out among the blocks, max(1, G / Q) blocks a
-//     query, each over a share of the query's keyframe segment.  A warp
-//     takes 32 entries, a landmark each, and walks their landmarks'
-//     segments together, the items of the segments' concatenation dealt
-//     to the lanes in turn (a map's landmarks are seen by a few keyframes
-//     or by a hundred, so a thread an entry would wait on the longest),
-//     adding one into the count of each observer but the query.  Where an
-//     entry of the query lies before an entry's own place in its landmark's
-//     segment, another of the query's observations counts that landmark
-//     (the max), and the entry's adds are taken back.  The counts live in
-//     shared memory (kSharedKf keyframes at most) and each block adds its
-//     nonzero ones into the query's row, which phase 0 zeroed (so the
-//     query's own entry stays 0); the second instance, for larger maps,
-//     adds into the row in device memory.
+// Design: a query bitmap, with no grouping of the observations and one
+// instance for any map.  The queries are taken 1,024 at a time (a pass:
+// W = ceil(Q / 32) bitmap words, at most 32 a pass, `ws` words a row); a
+// pass is three phases between two grid barriers:
+//  0. The output (first pass only), the bitmap `seen` (n_lm x ws words: bit
+//     b of word w of landmark l says query 32 w + b of the pass sees l) and
+//     `lmw` (bit w: seen[l][w] is nonzero) zeroed; the table `kfq` (n_kf x
+//     ws: bit b of word w of keyframe k says query 32 w + b is k; repeated
+//     queries set several bits) and `kfw` (its nonzero words), each word
+//     written whole from one warp ballot over the pass's queries, which
+//     each block holds in shared memory, a warp a keyframe.
+//  1. Mark: each live observation (k, l) of a queried keyframe ORs k's
+//     nonzero words into l's (atomicOr): a bit is set however often the
+//     query sees l, which is the max.  The observation that finds a word
+//     still 0 sets its bit in lmw.
+//  2. Count: each live observation (k, l) adds one to out[q][k] for each
+//     bit q of seen[l][w] & ~kfq[k][w] (the query's own entry stays 0),
+//     over the nonzero words of l alone, kBatch words' loads at once.  A
+//     warp whose lanes share a keyframe (a map appends its observations
+//     keyframe by keyframe, so most warps hold one or two) sums each bit
+//     over its lanes at once: the 32 x 32 bit matrix of the lanes' words
+//     is transposed in five shuffles, so that lane b holds bit b of every
+//     lane, and adds its popcount into query b's count, one add a (query,
+//     keyframe) a warp; a warp of more than kMaxGroups keyframes adds bit
+//     by bit.  Each block takes one range of the observations, and the
+//     counts of the kWindow keyframes from the range's first gather in
+//     shared memory and go into the output once a block; other keyframes'
+//     counts go straight into the output in device memory.
+// A pass after the first begins behind a third barrier, once the last
+// count has read the bitmap.  The work is W words an observation whatever
+// its landmark's observer list, and nothing is taken back.  The grid is
+// at most every block the card holds at once (half of them measured
+// slower; scripts/port_k17_phases.py times this and other variants).
 // Values written in the launch are read through L2 (__ldcg).
 
 #include <cooperative_groups.h>
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -66,9 +70,10 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxGrid = 2048;       // blocks, and slots for the slices' totals
-constexpr int kSharedKf = 32768;     // keyframes a block counts in shared memory
+constexpr int kPassWords = 32;  // bitmap words a pass: 1,024 queries
+constexpr int kMaxGroups = 4;   // keyframes a warp sums by transposes
+constexpr int kWindow = 4;      // keyframes a block counts in shared memory
+constexpr int kBatch = 4;       // bitmap words a lane loads at once
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Args {
@@ -77,202 +82,153 @@ struct Args {
   const int32_t* obs_lm;  // (O,)
   const uint8_t* mask;    // (O,) live if nonzero
   int Q, O, n_kf, n_lm;
-  int32_t* start;      // (n_kf + n_lm + 1,) counts, then starts within a slice
-  int32_t* slice_tot;  // (kMaxGrid,)
-  int32_t* slot;       // (2 O,) each observation's place in its two segments
-  int32_t* ent;        // (2 O,) keyframe segments: landmarks; landmark ones: keyframes
-  int32_t* pos;        // (O,) a keyframe entry's place among the landmark entries
-  int32_t* out;        // (Q, n_kf)
+  int ws;          // words of a bitmap row: min(ceil(Q / 32), kPassWords)
+  uint32_t* seen;  // (n_lm, ws) which of the pass's queries see each landmark
+  uint32_t* lmw;   // (n_lm,) the nonzero words of seen, right behind it
+  uint32_t* kfq;   // (n_kf, ws) which of the pass's queries are each keyframe
+  uint32_t* kfw;   // (n_kf,) the nonzero words of kfq
+  int32_t* out;    // (Q, n_kf)
 };
 
-// exclusive prefix of v over the block's threads in thread order, and the
-// block's total; every thread calls it
-__device__ int block_exclusive(int v, int* s_warp, int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = v;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(kFull, x, d);
-    if (lane >= d) x += y;
-  }
-  if (lane == 31) s_warp[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < kWarps ? s_warp[lane] : 0;
-#pragma unroll
-    for (int d = 1; d < kWarps; d <<= 1) {
-      const int y = __shfl_up_sync(kFull, w, d);
-      if (lane >= d) w += y;
-    }
-    if (lane < kWarps) s_warp[lane] = w;
-  }
-  __syncthreads();
-  const int before = warp > 0 ? s_warp[warp - 1] : 0;
-  *total = s_warp[kWarps - 1];
-  __syncthreads();  // s_warp is written again by the next call
-  return before + x - v;
+// n words from a (16-byte aligned) to zero, 16 bytes a store
+__device__ void zero_words(uint32_t* a, long long n, long long gtid, long long stride) {
+  uint4* a4 = reinterpret_cast<uint4*>(a);
+  for (long long i = gtid; i < n / 4; i += stride) a4[i] = make_uint4(0u, 0u, 0u, 0u);
+  for (long long i = (n / 4) * 4 + gtid; i < n; i += stride) a[i] = 0u;
 }
 
-// kShared: the counts of a query in shared memory (n_kf <= kSharedKf), else
-// added into its output row in device memory
-template <bool kShared>
+// lane b gets the number of lanes whose x has bit b set: the 32 x 32 bit
+// matrix of the lanes' words transposed (its blocks of 16, 8, 4, 2 and 1
+// swapped across the diagonal, a shuffle each), then counted
+__device__ __forceinline__ int column_counts(unsigned x, int lane) {
+  const unsigned masks[5] = {0x0000ffffu, 0x00ff00ffu, 0x0f0f0f0fu, 0x33333333u, 0x55555555u};
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    const int s = 16 >> i;
+    const unsigned m = masks[i];
+    const unsigned y = __shfl_xor_sync(kFull, x, s);
+    x = (lane & s) ? (x & ~m) | ((y & ~m) >> s) : (x & m) | ((y & m) << s);
+  }
+  return __popc(x);
+}
+
+// observation o's keyframe and landmark, if it is live and inside the map
+__device__ __forceinline__ bool live_obs(const Args& p, long long o, int* kf, int* lm) {
+  if (o >= p.O || p.mask[o] == 0) return false;
+  const int k = p.obs_kf[o], l = p.obs_lm[o];
+  if (k < 0 || k >= p.n_kf || l < 0 || l >= p.n_lm) return false;
+  *kf = k;
+  *lm = l;
+  return true;
+}
+
 __global__ void __launch_bounds__(kThreads) covis_weights_kernel(Args p) {
-  extern __shared__ __align__(16) int s_cnt[];  // (n_kf,) when kShared
-  __shared__ int s_off[kMaxGrid];               // the slices' offsets
-  __shared__ int s_warp[kWarps];
-
+  __shared__ int s_cnt[kWindow * 32 * kPassWords];  // (keyframe - base, query)
+  __shared__ int s_q[32 * kPassWords];              // the pass's queries
   cg::grid_group grid = cg::this_grid();
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int G = gridDim.x;
-  const long long stride = 1LL * G * kThreads;
-  const long long gtid = 1LL * blockIdx.x * kThreads + tid;
-  const int n_seg = p.n_kf + p.n_lm + 1;
+  const int lane = threadIdx.x & 31;
+  const long long stride = 1LL * gridDim.x * kThreads;
+  const long long gtid = 1LL * blockIdx.x * kThreads + threadIdx.x;
+  const long long n_warps = stride / 32, gwarp = gtid / 32;
+  const int ws = p.ws;
 
-  // 0. the counts and the output to zero
-  for (long long i = gtid; i < n_seg; i += stride) p.start[i] = 0;
-  for (long long i = gtid; i < 1LL * p.Q * p.n_kf; i += stride) p.out[i] = 0;
-  grid.sync();
+  zero_words(reinterpret_cast<uint32_t*>(p.out), 1LL * p.Q * p.n_kf, gtid, stride);
+  for (int q0 = 0; q0 < p.Q; q0 += 32 * kPassWords) {
+    const int wp = min(ws, (p.Q - q0 + 31) / 32);  // the pass's words
+    if (q0 > 0) grid.sync();  // the last pass's count has read the bitmap
 
-  // 1. counts and slots; the loop is warp-uniform for __match_any_sync
-  for (long long first = gtid - lane; first < p.O; first += stride) {
-    const long long o = first + lane;
-    int kf = -1, lm = 0;
-    if (o < p.O && p.mask[o] != 0) {
-      kf = p.obs_kf[o];
-      lm = p.obs_lm[o];
-      if (kf < 0 || kf >= p.n_kf || lm < 0 || lm >= p.n_lm) kf = -1;
+    // 0. the bitmap zeroed; the keyframes' table, a warp a keyframe, from
+    // the pass's queries in shared memory
+    zero_words(p.seen, 1LL * p.n_lm * (ws + 1), gtid, stride);  // and lmw, behind it
+    for (int i = threadIdx.x; i < 32 * wp; i += kThreads)
+      s_q[i] = q0 + i < p.Q ? p.query[q0 + i] : -1;
+    __syncthreads();
+    for (long long k = gwarp; k < p.n_kf; k += n_warps) {
+      unsigned mine = 0, nonzero = 0;
+      for (int w = 0; w < wp; ++w) {
+        const unsigned word = __ballot_sync(kFull, s_q[32 * w + lane] == k);
+        if (lane == w) mine = word;
+        if (word != 0u) nonzero |= 1u << w;
+      }
+      if (lane < ws) p.kfq[k * ws + lane] = mine;
+      if (lane == 0) p.kfw[k] = nonzero;
     }
-    const unsigned peers = __match_any_sync(kFull, kf);
-    const int leader = __ffs(peers) - 1;
-    int base = 0;
-    if (kf >= 0 && lane == leader) base = atomicAdd(&p.start[kf], __popc(peers));
-    base = __shfl_sync(kFull, base, leader);
-    if (kf >= 0) {
-      p.slot[2 * o] = base + __popc(peers & ((1u << lane) - 1u));
-      p.slot[2 * o + 1] = atomicAdd(&p.start[p.n_kf + lm], 1);
-    }
-  }
-  grid.sync();
+    grid.sync();
 
-  // 2. starts within each block's slice of the counts, then the slices'
-  // offsets, then the two entries of each live observation
-  const int slice = (n_seg + G - 1) / G;
-  {
-    const int k0 = min(static_cast<int>(blockIdx.x) * slice, n_seg);
-    const int k1 = min(k0 + slice, n_seg);
-    int carry = 0;
-    for (int base = k0; base < k1; base += kThreads) {
-      const int k = base + tid;
-      const int c = k < k1 ? __ldcg(&p.start[k]) : 0;
-      int total;
-      const int ex = block_exclusive(c, s_warp, &total);
-      if (k < k1) p.start[k] = carry + ex;
-      carry += total;
+    // 1. mark: the queries that see each landmark; the first to mark a
+    // word marks it in lmw
+    for (long long o = gtid; o < p.O; o += stride) {
+      int kf, lm;
+      if (!live_obs(p, o, &kf, &lm)) continue;
+      for (unsigned kw = __ldcg(&p.kfw[kf]); kw != 0u; kw &= kw - 1u) {
+        const int w = __ffs(kw) - 1;
+        if (atomicOr(&p.seen[1LL * lm * ws + w], __ldcg(&p.kfq[1LL * kf * ws + w])) == 0u)
+          atomicOr(&p.lmw[lm], 1u << w);
+      }
     }
-    if (tid == 0) p.slice_tot[blockIdx.x] = carry;
-  }
-  grid.sync();
-  {
-    int carry = 0;
-    for (int base = 0; base < G; base += kThreads) {
-      const int b = base + tid;
-      const int t = b < G ? __ldcg(&p.slice_tot[b]) : 0;
-      int total;
-      const int ex = block_exclusive(t, s_warp, &total);
-      if (b < G) s_off[b] = carry + ex;
-      carry += total;
-    }
-  }
-  __syncthreads();
-  auto seg_start = [&](int k) { return __ldcg(&p.start[k]) + s_off[k / slice]; };
-  for (long long o = gtid; o < p.O; o += stride) {
-    if (p.mask[o] == 0) continue;
-    const int kf = p.obs_kf[o], lm = p.obs_lm[o];
-    if (kf < 0 || kf >= p.n_kf || lm < 0 || lm >= p.n_lm) continue;
-    const int at_kf = seg_start(kf) + __ldcg(&p.slot[2 * o]);
-    const int at_lm = seg_start(p.n_kf + lm) + __ldcg(&p.slot[2 * o + 1]);
-    p.ent[at_kf] = lm;
-    p.pos[at_kf] = at_lm;
-    p.ent[at_lm] = kf;
-  }
-  grid.sync();
+    grid.sync();
 
-  // 3. `parts` blocks a query, each over every parts-th run of kThreads of
-  // its entries, counting into shared memory (kShared) and then adding
-  // its counts into the query's row, or adding into the row in place
-  const int parts = max(1, G / max(p.Q, 1));
-  for (long long item = blockIdx.x; item < 1LL * p.Q * parts; item += G) {
-    const int q = static_cast<int>(item / parts), part = static_cast<int>(item % parts);
-    const int qk = p.query[q];
-    int32_t* row = p.out + 1LL * q * p.n_kf;
-    int32_t* cnt = kShared ? s_cnt : row;
-    if (kShared) {
-      for (int k = tid; k < p.n_kf; k += kThreads) s_cnt[k] = 0;
-      __syncthreads();
-    }
-    if (qk >= 0 && qk < p.n_kf) {
-      const int e1 = seg_start(qk + 1);
-      // a warp takes 32 entries at a time, one a lane, and walks their
-      // landmarks' observer lists together: item t of the lists' concatenation
-      // goes to lane t mod 32, so a long list costs the warp its length / 32
-      for (int base = seg_start(qk) + (part * kWarps + warp) * 32; base < e1;
-           base += parts * kThreads) {
-        const int e = base + lane;
-        int l0 = 0, len = 0, at = 0;
-        if (e < e1) {
-          const int lm = __ldcg(&p.ent[e]);
-          at = __ldcg(&p.pos[e]);
-          l0 = seg_start(p.n_kf + lm);
-          len = seg_start(p.n_kf + lm + 1) - l0;
-        }
-        int incl = len;
+    // 2. count, each block over its own range of observations, in whole
+    // warps: the counts of the keyframes in [base, base + kWindow), base
+    // the range's first keyframe, gather in shared memory and go into the
+    // output once a block; any other keyframe's go straight into it
+    const int n_q = 32 * wp;
+    for (int i = threadIdx.x; i < kWindow * n_q; i += kThreads) s_cnt[i] = 0;
+    const long long share = ((p.O + gridDim.x - 1) / gridDim.x + 31) / 32 * 32;
+    const long long o_begin = blockIdx.x * share, o_end = min(1LL * p.O, o_begin + share);
+    const int base = o_begin < o_end ? min(max(p.obs_kf[o_begin], 0), p.n_kf - 1) : 0;
+    __syncthreads();
+    auto add = [&](int k, int w, int b, int c) {
+      if (k - base >= 0 && k - base < kWindow)
+        atomicAdd(&s_cnt[(k - base) * n_q + 32 * w + b], c);
+      else
+        atomicAdd(&p.out[1LL * (q0 + 32 * w + b) * p.n_kf + k], c);
+    };
+    // the loop is warp-uniform for the shuffles
+    for (long long first = o_begin + (threadIdx.x - lane); first < o_end; first += kThreads) {
+      int kf = -1, lm = 0;
+      unsigned lw = 0;
+      if (first + lane < o_end && live_obs(p, first + lane, &kf, &lm)) lw = __ldcg(&p.lmw[lm]);
+      const unsigned words = __reduce_or_sync(kFull, lw);
+      if (words == 0u) continue;
+      if (lw == 0u) kf = -1;
+      // the warp's keyframes, by their first lane
+      const unsigned peers = __match_any_sync(kFull, kf);
+      const unsigned leaders = __ballot_sync(kFull, kf >= 0 && lane == __ffs(peers) - 1);
+      const bool by_groups = __popc(leaders) <= kMaxGroups;
+      // kBatch words at a time, their loads issued together
+      for (int w0 = 0; w0 < ws; w0 += kBatch) {
+        if (((words >> w0) & ((1u << kBatch) - 1u)) == 0u) continue;
+        unsigned x[kBatch];
 #pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-          const int y = __shfl_up_sync(kFull, incl, d);
-          if (lane >= d) incl += y;
+        for (int i = 0; i < kBatch; ++i) {
+          const int w = w0 + i;
+          x[i] = w < ws && ((lw >> w) & 1u)
+                     ? __ldcg(&p.seen[1LL * lm * ws + w]) & ~__ldcg(&p.kfq[1LL * kf * ws + w])
+                     : 0u;
         }
-        const int total = __shfl_sync(kFull, incl, 31);
-        // one add an observer but the query; an observation of the query
-        // before an entry's own place in its landmark's list counts that
-        // landmark instead (the max): such entries' adds are taken back
-        unsigned dup = 0;
-        for (int t0 = 0; t0 < total; t0 += 32) {
-          const int t = t0 + lane;
-          int i = 0;  // the entry holding item t: the lanes whose lists end at or before t
 #pragma unroll
-          for (int step = 16; step > 0; step >>= 1) {
-            if (__shfl_sync(kFull, incl, i + step - 1) <= t) i += step;
-          }
-          const int i_l0 = __shfl_sync(kFull, l0, i);
-          const int i_start = __shfl_sync(kFull, incl - len, i);
-          const int i_at = __shfl_sync(kFull, at, i);
-          unsigned mine = 0;
-          if (t < total) {
-            const int j = i_l0 + (t - i_start);
-            const int o = __ldcg(&p.ent[j]);
-            if (o != qk) {
-              atomicAdd(&cnt[o], 1);
-            } else if (j < i_at) {
-              mine = 1u << i;
+        for (int i = 0; i < kBatch; ++i) {
+          const int w = w0 + i;
+          if (((words >> w) & 1u) == 0u) continue;
+          if (by_groups) {
+            for (unsigned g = leaders; g != 0u; g &= g - 1u) {
+              const int gk = __shfl_sync(kFull, kf, __ffs(g) - 1);
+              const unsigned y = kf == gk ? x[i] : 0u;
+              if (!__any_sync(kFull, y != 0u)) continue;
+              const int c = column_counts(y, lane);
+              if (c != 0) add(gk, w, lane, c);
             }
-          }
-          dup |= __reduce_or_sync(kFull, mine);
-        }
-        if ((dup >> lane) & 1u) {
-          for (int j = l0; j < l0 + len; ++j) {
-            const int o = __ldcg(&p.ent[j]);
-            if (o != qk) atomicSub(&cnt[o], 1);
+          } else {
+            for (unsigned y = x[i]; y != 0u; y &= y - 1u) add(kf, w, __ffs(y) - 1, 1);
           }
         }
       }
     }
-    if (kShared) {
-      __syncthreads();
-      for (int k = tid; k < p.n_kf; k += kThreads) {
-        const int c = s_cnt[k];
-        if (c != 0) atomicAdd(&row[k], c);
-      }
-      __syncthreads();  // s_cnt is zeroed again for the next item
+    __syncthreads();
+    for (int i = threadIdx.x; i < kWindow * n_q; i += kThreads) {
+      const int c = s_cnt[i];
+      if (c != 0) atomicAdd(&p.out[1LL * (q0 + i % n_q) * p.n_kf + base + i / n_q], c);
     }
   }
 }
@@ -281,18 +237,21 @@ __global__ void __launch_bounds__(kThreads) covis_weights_kernel(Args p) {
 
 // query: (Q,) int32; obs_kf, obs_lm: (O,) int32 with 0 <= obs_kf < n_kf
 // and 0 <= obs_lm < n_lm (an observation outside counts as dead); mask:
-// (O,) bool; scratch: int32 of at least n_kf + n_lm + 1 + 2048 + 5 O
-// entries; out: (Q, n_kf) int32.  Returns 0 or the CUDA error.
+// (O,) bool; scratch: 16-byte aligned, at least (n_lm + n_kf) (ws + 1)
+// words, ws = min(ceil(Q / 32), 32); out: (Q, n_kf) int32, 16-byte
+// aligned.  Returns 0 or the CUDA error.
 extern "C" int covins_covis_weights(const void* query, int Q, const void* obs_kf,
                                     const void* obs_lm, const void* mask, int O, int n_kf,
                                     int n_lm, void* scratch, long long scratch_len, void* out,
                                     void* stream) {
   if (Q <= 0 || n_kf <= 0) return 0;
-  if (O < 0 || n_lm <= 0 || O > (1 << 29)) return static_cast<int>(cudaErrorInvalidValue);
-  const long long n_seg = 1LL * n_kf + n_lm + 1;
-  if (n_seg > (1LL << 30) || scratch_len < n_seg + kMaxGrid + 5LL * O)
+  if (O < 0 || n_lm <= 0 || O > (1 << 29) || 1LL * n_kf + n_lm >= (1LL << 30))
     return static_cast<int>(cudaErrorInvalidValue);
-  int32_t* w = static_cast<int32_t*>(scratch);
+  const int ws = std::min((Q + 31) / 32, kPassWords);
+  if (scratch_len < (1LL * n_lm + n_kf) * (ws + 1) ||
+      (reinterpret_cast<uintptr_t>(scratch) | reinterpret_cast<uintptr_t>(out)) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  uint32_t* w = static_cast<uint32_t*>(scratch);
   Args p;
   p.query = static_cast<const int32_t*>(query);
   p.obs_kf = static_cast<const int32_t*>(obs_kf);
@@ -302,31 +261,20 @@ extern "C" int covins_covis_weights(const void* query, int Q, const void* obs_kf
   p.O = O;
   p.n_kf = n_kf;
   p.n_lm = n_lm;
-  p.start = w;
-  w += n_seg;
-  p.slice_tot = w;
-  w += kMaxGrid;
-  p.slot = w;
-  w += 2LL * O;
-  p.ent = w;
-  w += 2LL * O;
-  p.pos = w;
+  p.ws = ws;
+  p.seen = w;  // first, and lmw right behind it: both zeroed by 16-byte stores
+  w += 1LL * n_lm * ws;
+  p.lmw = w;
+  w += n_lm;
+  p.kfq = w;
+  w += 1LL * n_kf * ws;
+  p.kfw = w;
   p.out = static_cast<int32_t*>(out);
   void* args[] = {&p};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool shared = n_kf <= kSharedKf;
-  const auto kernel = shared ? covis_weights_kernel<true> : covis_weights_kernel<false>;
-  const void* fn = reinterpret_cast<const void*>(kernel);
-  const size_t smem = shared ? 4ull * n_kf : 0;
-  int room = 0, resident = 0;
-  cudaError_t err = coop::smem_room(fn, &room);
-  if (err == cudaSuccess) err = coop::co_resident(fn, kThreads, smem, &resident);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (static_cast<size_t>(room) < smem) return static_cast<int>(cudaErrorInvalidConfiguration);
-  // half the blocks the card holds at once: phase 3 shares the queries
-  // among them, and on the H100 grid barriers over every block cost more
-  // than the second half gives, at the server's snapshot as at 1,024
-  // queries
-  const long long items = 1LL * kThreads * std::max(1, resident / 2);
-  return coop::launch(kernel, kThreads, smem, items, kMaxGrid, coop::Slots::kCap, args, st);
+  // threads for the longest grid-stride loop; coop::launch cuts the grid
+  // to the blocks the card holds at once
+  const long long items = std::max({1LL * O, 1LL * n_lm * ws / 4, 1LL * Q * n_kf / 4,
+                                    32LL * n_kf, 1LL});
+  return coop::launch(covis_weights_kernel, kThreads, 0, items, 1 << 30, coop::Slots::kRefuse,
+                      args, static_cast<cudaStream_t>(stream));
 }

@@ -35,14 +35,10 @@ RED_TABLE = (0.0, 0.0, 0.0, 0.4, 0.7, 0.9, 1.0)
 # (Q, O) intermediate
 _QUERY_BATCH = 64
 
-# K17's slots for its grid's per-block totals (kMaxGrid of
-# csrc/covis_weights.cu), and the most observations it takes (2 O entries
-# and their places as int32)
-_K17_GRID_SLOTS = 2048
+# the most observations K17 takes, and the query bitmap's words a pass
+# (kPassWords of csrc/covis_weights.cu: 1,024 queries)
 _K17_MAX_OBS = 1 << 29
-# the most keyframes K17 counts in shared memory (kSharedKf): wider maps take
-# its second instance, which adds into the output rows in device memory
-K17_SHARED_KF = 32768
+_K17_PASS_WORDS = 32
 
 # K15's slots for its grid's per-block totals (kMaxGrid of
 # csrc/redundancy_values.cu), part of the scratch the wrapper allocates
@@ -63,11 +59,12 @@ def landmark_obs_counts(obs_lm: torch.Tensor, obs_mask: torch.Tensor,
         0, obs_lm.long(), obs_mask.to(torch.int32))
 
 
-def k17_scratch_len(O: int, n_kf: int, n_lm: int) -> int:
-    """int32 entries of K17's scratch: its segment counts and starts, the
-    slices' totals, each observation's two slots and its two entries, and
-    their places (`csrc/covis_weights.cu`)."""
-    return n_kf + n_lm + 1 + _K17_GRID_SLOTS + 5 * O
+def k17_scratch_len(Q: int, n_kf: int, n_lm: int) -> int:
+    """int32 entries of K17's scratch: the query bitmap of each landmark and
+    its nonzero words, the queries of each keyframe and their nonzero words,
+    ws words a row for ws = min(ceil(Q / 32), 32) (`csrc/covis_weights.cu`)."""
+    ws = min(-(-Q // 32), _K17_PASS_WORDS)
+    return (n_lm + n_kf) * (ws + 1)
 
 
 def covis_weights_batch_plain(query_kfs: torch.Tensor, obs_kf: torch.Tensor,
@@ -121,7 +118,7 @@ def covis_weights_batch(query_kfs: torch.Tensor, obs_kf: torch.Tensor,
     out = torch.empty((Q, n_kf), dtype=torch.int32, device=dev)
     if Q == 0 or n_kf == 0:
         return out
-    scratch = torch.empty(k17_scratch_len(O, n_kf, n_lm), dtype=torch.int32, device=dev)
+    scratch = torch.empty(k17_scratch_len(Q, n_kf, n_lm), dtype=torch.int32, device=dev)
     lib = cuda_build.library("covis_weights")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

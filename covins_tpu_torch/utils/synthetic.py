@@ -905,3 +905,16 @@ def covis_scene(rng: np.random.Generator, n_kf: int, n_lm: int, n_obs: int,
         queries = np.concatenate([queries, queries[rng.choice(len(queries), 8)],
                                   np.int32(culled[:1])]).astype(np.int32)
     return queries, kf, lm, mask
+
+
+def covis_repeats(queries: np.ndarray) -> np.ndarray:
+    """The queries with keyframes repeated in other words of K17's query
+    bitmap (32 queries a word, 1,024 a pass): every 97th query from the
+    33rd takes the keyframe 33 places before it (the next word), and the
+    last query the first one's (another pass beyond 1,024 queries)."""
+    q = np.array(queries, dtype=np.int32)
+    at = np.arange(33, len(q), 97)
+    q[at] = q[at - 33]
+    if len(q) > 1:
+        q[-1] = q[0]
+    return q

@@ -32,6 +32,7 @@ from covins_tpu_torch.models.map_manager import MapManager
 from covins_tpu_torch.models.map_store import Map
 from covins_tpu_torch.ops import covisibility as cov
 from covins_tpu_torch.utils.config import Config
+from covins_tpu_torch.utils.synthetic import covis_repeats
 
 # (n_kf, n_lm, O, case): ragged sizes; a keyframe with no observation; no
 # live observation; landmarks seen far more than six times; one
@@ -89,18 +90,29 @@ def test_redundancy_values_bit_for_bit(n_kf, n_lm, O, case):
 # cases; every observation doubled or tripled in part (a keyframe that sees
 # a landmark twice counts twice, a query that does once); repeated queries,
 # a query keyframe without observations and one whose observations are all
-# dead; landmark ids far below n_lm; no observation at all
+# dead; landmark ids far below n_lm; no observation at all; 33 queries (one
+# bit into K17's second bitmap word); 1,100 queries (two passes of the
+# bitmap) with keyframes repeated in other words (`synthetic.covis_repeats`);
+# prunemap's COO with its observations shuffled (no keyframe runs)
 COVIS_CASES = COO_CASES[:3] + [(20, 300, 4000, "duplicates"),
                                (16, 150, 2000, "repeated_and_empty_queries"),
-                               (12, 5000, 900, "n_lm_above_largest"), (8, 10, 0, "no_obs")]
+                               (12, 5000, 900, "n_lm_above_largest"), (8, 10, 0, "no_obs"),
+                               (66, 400, 3000, "33_queries"),
+                               (1100, 500, 20_000, "1100_queries_repeated"),
+                               (160, 27_441, 101_712, "prunemap_like_shuffled")]
 
 
 @pytest.mark.parametrize("n_kf,n_lm,O,case", COVIS_CASES, ids=[c[3] for c in COVIS_CASES])
 def test_covisibility_counts(n_kf, n_lm, O, case):
-    kf, lm, mask = _coo(n_kf, n_lm, O, case, seed=1)
+    kf, lm, mask = _coo(n_kf, n_lm, O, case.removesuffix("_shuffled"), seed=1)
     live = mask > 0
     q = np.arange(0, n_kf, 2, dtype=np.int32)
     rng = np.random.default_rng(2)
+    if case.endswith("_shuffled"):
+        perm = rng.permutation(O)
+        kf, lm, mask, live = kf[perm], lm[perm], mask[perm], live[perm]
+    if case == "1100_queries_repeated":
+        q = covis_repeats(np.arange(n_kf, dtype=np.int32))
     if case == "duplicates":
         again = rng.choice(O, O // 2, replace=False)
         thrice = again[: O // 8]
@@ -126,6 +138,9 @@ def test_covisibility_counts(n_kf, n_lm, O, case):
         assert not got.any()
     if case == "duplicates":
         assert got.max() > 0
+    if case == "1100_queries_repeated":  # a keyframe queried in three words, two passes
+        assert (q == q[0]).sum() == 3 and torch.equal(got[33], got[0])
+        assert torch.equal(got[-1], got[0]) and got[0].any()
     one = cov.covis_weights_for(3, t(kf), t(lm), t(live), n_kf, n_lm)
     np.testing.assert_array_equal(one.numpy(), np.asarray(ref_cov.covis_weights_for(
         jnp.int32(3), jnp.asarray(kf), jnp.asarray(lm), jnp.asarray(live), n_kf=n_kf,

@@ -84,8 +84,9 @@ covisibility counts) exactly, with the plain version on the card and on
 the CPU and across two launches: the server's snapshot shape, a long
 session of 1,000,000 observations, duplicated observations, repeated
 queries and a query without a live observation, a single keyframe, maps
-wider than its shared counts (the instance that adds in device memory),
-and no observation.
+of 33,000 and 40,000 keyframes, no observation, the server's shape with
+its observations shuffled, and 1,100 queries (two passes of the query
+bitmap) with keyframes repeated in other bitmap words.
 """
 
 import numpy as np
@@ -1464,24 +1465,30 @@ def test_redundancy_values_refuses_bad_inputs(dev):
         covisibility.redundancy_values(kf, kf, mask, 2, 0)
 
 
-# K17: (n_kf, n_lm, O, n_culled, edges, views) — the server phase's snapshot
-# (152 live of 160 keyframes, a landmark seen by 17), a long session (1,024
-# keyframes, 200,000 landmarks, 1,000,000 observations), duplicated
-# observations with repeated queries and a query without a live
-# observation, a single keyframe, maps wider than the shared counts (the
-# device-memory instance, above 32,768 keyframes), and no observation
-K17_CASES = [(160, 27_441, 101_712, 8, False, 17), (1024, 200_000, 1_000_000, 0, False, None),
-             (160, 27_441, 101_712, 8, True, 17), (1, 50, 300, 0, False, None),
-             (40_000, 30_000, 120_000, 4, True, None), (33_000, 500, 2_000, 0, False, None),
-             (12, 40, 0, 0, False, None)]
+# K17: (n_kf, n_lm, O, n_culled, edges, views, order) — the server phase's
+# snapshot (152 live of 160 keyframes, a landmark seen by 17), a long
+# session (1,024 keyframes, 200,000 landmarks, 1,000,000 observations),
+# duplicated observations with repeated queries and a query without a live
+# observation, a single keyframe, wide maps (33,000 and 40,000 keyframes),
+# no observation; the server's snapshot with its observations shuffled (no
+# keyframe runs: warps of many keyframes add bit by bit), and 1,100 queries
+# (two passes of the bitmap) with keyframes repeated in other bitmap words
+# (`synthetic.covis_repeats`)
+K17_CASES = [(160, 27_441, 101_712, 8, False, 17, "runs"),
+             (1024, 200_000, 1_000_000, 0, False, None, "runs"),
+             (160, 27_441, 101_712, 8, True, 17, "runs"), (1, 50, 300, 0, False, None, "runs"),
+             (40_000, 30_000, 120_000, 4, True, None, "runs"),
+             (33_000, 500, 2_000, 0, False, None, "runs"), (12, 40, 0, 0, False, None, "runs"),
+             (160, 27_441, 101_712, 8, False, 17, "shuffled"),
+             (1100, 20_000, 110_000, 0, False, None, "repeats")]
 
 
-@pytest.mark.parametrize("n_kf,n_lm,O,n_culled,edges,views", K17_CASES,
+@pytest.mark.parametrize("n_kf,n_lm,O,n_culled,edges,views,order", K17_CASES,
                          ids=[f"kf{c[0]}-lm{c[1]}-obs{c[2]}{'-edges' if c[4] else ''}"
-                              for c in K17_CASES])
-def test_covis_weights_matches_plain(dev, n_kf, n_lm, O, n_culled, edges, views):
+                              f"{'' if c[6] == 'runs' else '-' + c[6]}" for c in K17_CASES])
+def test_covis_weights_matches_plain(dev, n_kf, n_lm, O, n_culled, edges, views, order):
     from covins_tpu_torch.ops import covisibility
-    from covins_tpu_torch.utils.synthetic import covis_scene
+    from covins_tpu_torch.utils.synthetic import covis_repeats, covis_scene
 
     rng = np.random.default_rng(n_kf + O)
     if O:
@@ -1491,6 +1498,11 @@ def test_covis_weights_matches_plain(dev, n_kf, n_lm, O, n_culled, edges, views)
                            np.zeros(0, np.int32), np.zeros(0, bool))
     if n_kf > 30_000:  # 48 rows of the wide map, the culled keyframe's last
         q = np.concatenate([q[rng.choice(len(q) - 1, 47, replace=False)], q[-1:]])
+    if order == "shuffled":
+        perm = rng.permutation(len(kf))
+        kf, lm, mask = kf[perm], lm[perm], mask[perm]
+    if order == "repeats":
+        q = covis_repeats(q)
     cpu = [torch.from_numpy(x) for x in (q, kf, lm, mask)]
     args = [x.to(dev) for x in cpu]
     before = covisibility.covis_weights_batch.launches
